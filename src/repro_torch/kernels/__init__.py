@@ -1,0 +1,26 @@
+"""Hand-written Hopper kernels for the compute hot-spots.
+
+Each kernel directory has:
+  csrc/<name>.cu -- the CUDA C++ kernel for sm_90a, with a plain C entry
+  <name>.py      -- its launcher: checks, allocates, launches, counts launches
+  ops.py         -- the public op in the model layout; picks the CTA tile
+  ref.py         -- the plain PyTorch version the kernel is held against
+
+``enable_kernels(True)`` routes model attention through ``ops``: there a
+CUDA tensor goes to the kernel and a CPU tensor to the plain version (the
+role ``interpret=True`` played for the Pallas kernels). With the switch
+off, the model takes its chunked reference path.
+"""
+
+_USE_KERNELS = False
+
+
+def enable_kernels(value: bool = True) -> None:
+    """Route model attention through the kernel ops (mirror of
+    ``repro.kernels.enable_pallas``)."""
+    global _USE_KERNELS
+    _USE_KERNELS = bool(value)
+
+
+def kernels_enabled() -> bool:
+    return _USE_KERNELS

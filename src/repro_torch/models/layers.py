@@ -1,0 +1,239 @@
+"""Core layers: norms, RoPE, dense, chunked attention (GQA), MLP.
+
+Port of ``repro/models/layers.py``. The plain functions keep the JAX names
+and rounding order (f32 where JAX computes in f32, bf16 where it rounds to
+bf16); the parameterised layers are ``nn.Module``s whose attribute names
+mirror the JAX params pytree, so ``models.convert`` maps one onto the other
+by name. Weights keep JAX's (d_in, d_out) layout: ``dense`` is ``x @ w``.
+Attention uses a q-chunked full-softmax reference; with kernels switched on
+it goes to the flash-attention op instead (the kernel on a CUDA tensor).
+MLA waits for its slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import kernels as _kernels
+from repro_torch.configs.base import ModelConfig
+
+DTYPE = torch.bfloat16
+NEG_INF = -1e30
+
+
+def _randn(shape, scale: float, generator: Optional[torch.Generator], device) -> nn.Parameter:
+    x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return nn.Parameter((x * scale).to(DTYPE))
+
+
+def _ones(n: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(n, dtype=DTYPE, device=device))
+
+
+# --------------------------------------------------------------------- #
+# primitives
+# --------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if x.dtype != w.dtype:  # promote as jnp does, e.g. a bf16 attention output into f32 weights
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * 1 / (1 + exp(-x))`` with every step rounded to ``x``'s dtype:
+    the order in which XLA evaluates ``jax.nn.silu``. ``F.silu`` rounds once
+    and gives another bf16 value for ~40% of inputs, which moves greedy
+    tokens off the reference's."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form in XLA's order: every step, and
+    each constant, rounded to ``x``'s dtype."""
+    c0 = torch.tensor(0.044715, dtype=x.dtype).item()
+    c1 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    inner = c1 * (x + c0 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def act_fn(name: str):
+    return {"silu": silu, "gelu": gelu}[name]
+
+
+class Dense(nn.Module):
+    """``y = x @ w (+ b)`` with ``w`` of shape (d_in, d_out), as in JAX."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = False, *,
+                 generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        self.w = _randn((d_in, d_out), 1.0 / math.sqrt(d_in), generator, device)
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=DTYPE, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.w, self.b)
+
+
+# --------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------- #
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (..., S) int -> cos/sin (..., S, dim//2) f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (b, S, h, d); cos/sin: (b, S, d//2) or (S, d//2)."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    if cos.dim() == 2:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# chunked multi-head attention with GQA grouping
+# --------------------------------------------------------------------- #
+def mha(
+    q: torch.Tensor,  # (b, Sq, hq, d)
+    k: torch.Tensor,  # (b, Skv, hkv, d)
+    v: torch.Tensor,  # (b, Skv, hkv, dv)
+    *,
+    causal: bool,
+    q_offset: int = 0,  # global position of q[:, 0]
+    kv_len: Optional[int] = None,  # valid cache length (decode)
+    q_chunk: int = 1024,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    b, Sq, hq, d = q.shape
+    _, Skv, hkv, dv = v.shape
+    g = hq // hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if _kernels.kernels_enabled():
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, sm_scale=scale,
+        )
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    kpos = torch.arange(Skv, device=q.device)
+    kf = k.float()
+
+    def attend(qc: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        # qc: (b, c, hq, d); qpos: (c,) global positions. bf16 products are
+        # exact in f32: this is JAX's preferred_element_type=f32 score.
+        s = torch.einsum("bchd,bkhd->bhck", qc.float(), kf) * scale
+        mask = torch.ones((qc.shape[1], Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if kv_len is not None:
+            mask &= kpos[None, :] < kv_len
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return torch.einsum("bhck,bkhd->bchd", p, v)
+
+    if Sq <= q_chunk:
+        return attend(q, q_offset + torch.arange(Sq, device=q.device))
+    if Sq % q_chunk:
+        raise ValueError(f"Sq={Sq} must be a multiple of q_chunk={q_chunk}")
+    outs = [
+        attend(q[:, i:i + q_chunk], q_offset + i + torch.arange(q_chunk, device=q.device))
+        for i in range(0, Sq, q_chunk)
+    ]
+    return torch.cat(outs, dim=1)
+
+
+# --------------------------------------------------------------------- #
+# GQA attention layer (with optional qk-norm, bias, KV cache)
+# --------------------------------------------------------------------- #
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device)
+        self.wq = Dense(d, hq * hd, cfg.qkv_bias, **kw)
+        self.wk = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
+        self.wv = Dense(d, hkv * hd, cfg.qkv_bias, **kw)
+        self.wo = Dense(hq * hd, d, **kw)
+        if cfg.qk_norm:
+            self.q_norm = _ones(hd, device)
+            self.k_norm = _ones(hd, device)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (b, S, d)
+        positions: torch.Tensor,  # (S,) global positions of x
+        cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: (b, Smax, hkv, hd)
+        cache_len: Optional[int] = None,  # filled length of the cache before this call
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        b, S, _ = x.shape
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = self.wq(x).reshape(b, S, hq, hd)
+        k = self.wk(x).reshape(b, S, hkv, hd)
+        v = self.wv(x).reshape(b, S, hkv, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.rms_eps)
+            k = rms_norm(k, self.k_norm, cfg.rms_eps)
+        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        if not cfg.encoder_only:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        if cache is not None:
+            if cache_len + S > cache["k"].shape[1]:
+                raise ValueError(f"cache of {cache['k'].shape[1]} slots cannot take "
+                                 f"{S} token(s) at position {cache_len}")
+            # decode: write the new k/v at cache_len IN PLACE (JAX returns a
+            # new cache from dynamic_update_slice; here the caller's cache
+            # tensors are updated), then attend over the whole cache
+            cache["k"][:, cache_len:cache_len + S] = k
+            cache["v"][:, cache_len:cache_len + S] = v
+            out = mha(q, cache["k"], cache["v"], causal=False, q_offset=cache_len,
+                      kv_len=cache_len + S)
+        else:
+            out = mha(q, k, v, causal=not cfg.encoder_only, q_offset=0)
+        return self.wo(out.reshape(b, S, hq * hd))
+
+
+# --------------------------------------------------------------------- #
+# MLPs
+# --------------------------------------------------------------------- #
+class MLP(nn.Module):
+    """SwiGLU (``act == "silu"``: gate, up, down) or a plain two-layer MLP."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device,
+                 d_ff: Optional[int] = None) -> None:
+        super().__init__()
+        d = cfg.d_model
+        ff = d_ff if d_ff is not None else cfg.d_ff
+        kw = dict(generator=generator, device=device)
+        self.act = cfg.act
+        self.gate = Dense(d, ff, **kw) if cfg.act == "silu" else None
+        self.up = Dense(d, ff, **kw)
+        self.down = Dense(ff, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        f = act_fn(self.act)
+        if self.gate is not None:
+            return self.down(f(self.gate(x)) * self.up(x))
+        return self.down(f(self.up(x)))
