@@ -1,4 +1,5 @@
-"""Architecture configs ported so far (only the attention-only qwen3-0.6b)."""
+"""Architecture configs ported so far: qwen3-0.6b (attention only) and
+zamba2-2.7b (Mamba-2 + attention)."""
 
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
@@ -7,4 +8,4 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # import for registration side effects
-from repro_torch.configs import qwen3_0p6b  # noqa: F401
+from repro_torch.configs import qwen3_0p6b, zamba2_2p7b  # noqa: F401

@@ -80,8 +80,21 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def supports_decode(self) -> bool:
         return not self.encoder_only
+
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch run long_500k (sub-quadratic sequence handling)?"""
+        return any(b in ("mamba2", "mlstm", "slstm") for b in self.block_pattern)
 
     def reduced(self) -> "ModelConfig":
         """Small same-family config for CPU smoke tests."""

@@ -6,17 +6,18 @@ Each kernel directory has:
   ops.py         -- the public op in the model layout; picks the CTA tile
   ref.py         -- the plain PyTorch version the kernel is held against
 
-``enable_kernels(True)`` routes model attention through ``ops``: there a
-CUDA tensor goes to the kernel and a CPU tensor to the plain version (the
-role ``interpret=True`` played for the Pallas kernels). With the switch
-off, the model takes its chunked reference path.
+``enable_kernels(True)`` routes model attention and the Mamba-2 SSD scan
+through ``ops``: there a CUDA tensor goes to the kernel and a CPU tensor to
+the plain version (the role ``interpret=True`` played for the Pallas
+kernels). With the switch off, the model takes its own reference paths
+(chunked attention, the plain chunked SSD).
 """
 
 _USE_KERNELS = False
 
 
 def enable_kernels(value: bool = True) -> None:
-    """Route model attention through the kernel ops (mirror of
+    """Route model attention and SSD through the kernel ops (mirror of
     ``repro.kernels.enable_pallas``)."""
     global _USE_KERNELS
     _USE_KERNELS = bool(value)

@@ -22,10 +22,15 @@
 //   * ragged Sq/Skv edges are masked here, so nothing is padded;
 //   * K/V tiles come in with 16-byte loads, several in flight per thread;
 //   * a decode row tile is 1 (BQ = 1), so no CTA computes padding rows.
-// Not done yet (later work): grouping the Hq/Hkv q-heads of one kv-head in
-// a CTA (decode reads each K/V row Hq/Hkv times, mostly from L2), split-KV
-// for more CTAs at small batch, and tensor cores (mma/wgmma) with TMA for
-// prefill, which here runs on FMA loops.
+// Training and prefill (many query rows, causal over the whole sequence)
+// are bounded by operations instead: ~2 * D multiply-adds per score and per
+// output element against the bf16 tensor-core peak. There the FMA loops
+// below, with one 133 KB CTA per SM, are far from that bound.
+// Not done yet (later work): tensor cores (mma/wgmma) with TMA for those
+// many-row tiles, grouping the Hq/Hkv q-heads of one kv-head in a CTA
+// (decode reads each K/V row Hq/Hkv times, mostly from L2), and split-KV for
+// more CTAs at small batch. The backward recomputes through the plain
+// version (kernels/flash_attention/ops.py); a backward kernel is later work.
 //
 // One CTA of 128 threads per (q tile, q-head, batch). The TPU kernel's
 // sequential KV grid axis becomes the loop inside the CTA; its (bq, 128)
@@ -270,6 +275,7 @@ cudaError_t dispatch_d(int D, const Args& a, int B, cudaStream_t stream) {
     case 16: return launch<T, 16, BQ>(a, B, stream);
     case 32: return launch<T, 32, BQ>(a, B, stream);
     case 64: return launch<T, 64, BQ>(a, B, stream);
+    case 80: return launch<T, 80, BQ>(a, B, stream);
     case 128: return launch<T, 128, BQ>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }

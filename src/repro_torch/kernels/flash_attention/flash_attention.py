@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)  # compiled D instances
+HEAD_DIMS = (16, 32, 64, 80, 128)  # compiled D instances
 ROW_TILES = (1, 64)  # compiled BQ instances
 MAX_BK = 128  # the KV tile the kernel's shared-memory opt-in is sized for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -8,8 +8,12 @@ Planning the tile on an H100 hierarchy comes with the port's codesign
 layer.
 
 On a CUDA tensor the op launches the kernel; on a CPU tensor it runs the
-plain version (``ref.attention_ref``). Any other device raises. There is no
-backward here: the op serves inference.
+plain version (``ref.attention_ref``). Any other device raises.
+
+Gradients: the forward runs the kernel; the backward recomputes through
+``ref.attention_ref`` under autograd, as ``_fa_bwd`` does in the JAX op. It
+materialises the (b, hq, Sq, Skv) f32 scores; a fused backward kernel is
+later work.
 """
 
 from __future__ import annotations
@@ -60,15 +64,34 @@ def flash_attention(
         raise ValueError(f"kv_len={kv_len} must lie in [0, {Skv}] and q_offset={q_offset} >= 0")
     bq, bk = blocks if blocks is not None else plan_blocks(Sq, Skv)
     check_blocks(bq, bk)
-    if q.is_cuda:
-        return flash_attention_cuda(
-            q, k, v, causal=causal, scale=scale, q_offset=int(q_offset),
-            kv_len=kv_len, bq=bq, bk=bk,
-        )
-    if q.device.type == "cpu":
-        out = attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, scale=scale, q_offset=int(q_offset), kv_len=kv_len,
-        )
-        return out.transpose(1, 2)
-    raise ValueError(f"flash attention has no path for device {q.device}")
+    if not (q.is_cuda or q.device.type == "cpu"):
+        raise ValueError(f"flash attention has no path for device {q.device}")
+    return _FlashAttention.apply(q, k, v, causal, scale, int(q_offset), kv_len, bq, bk)
+
+
+def _plain(q, k, v, causal, scale, q_offset, kv_len):
+    out = attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len,
+    )
+    return out.transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, bq, bk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, q_offset, kv_len)
+        if q.is_cuda:
+            return flash_attention_cuda(
+                q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                kv_len=kv_len, bq=bq, bk=bk,
+            )
+        return _plain(q, k, v, causal, scale, q_offset, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _plain(*inputs, *ctx.args)
+        return (*torch.autograd.grad(out, inputs, g), None, None, None, None, None, None)

@@ -1,4 +1,4 @@
-"""Model substrate of the port: attention-only decoder configs so far."""
+"""Model substrate of the port: decoders of attention and Mamba-2 blocks."""
 
 from repro_torch.models.model import (  # noqa: F401
     Model,
@@ -8,4 +8,5 @@ from repro_torch.models.model import (  # noqa: F401
     init_cache,
     init_params,
     lm_logits,
+    loss_fn,
 )

@@ -3,12 +3,16 @@
 Torch cannot reproduce ``jax.random``'s draws, so tests that hold the port
 against the JAX package build the weights once in JAX and convert them
 here. The module names of ``Model`` mirror the JAX pytree keys, so the map
-is by name: ``units.b0.<rest>`` (stacked over units by ``jax.vmap``) becomes
-``blocks.<i>.<rest>`` for each unit ``i``; every other key keeps its name.
+is by name: ``units.b<j>.<rest>`` (pattern slot j, stacked over units by
+``jax.vmap``) becomes ``blocks.<i * len(pattern) + j>.<rest>`` for each unit
+``i``; every other key keeps its name. Each leaf keeps its own dtype: bf16
+weights stay bf16 and float32 leaves (Mamba-2's ``A_log``, ``D``,
+``dt_bias``) stay float32.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -17,6 +21,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DTYPE
 from repro_torch.models.model import Model
+
+_UNIT = re.compile(r"units\.b(\d+)\.(.*)")
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
@@ -29,14 +35,17 @@ def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 
 def params_from_jax(np_params: Dict, cfg: ModelConfig, device="cuda") -> Model:
     model = Model(cfg, generator=None, device="meta")
-    unit = "units.b0."
+    P = len(cfg.block_pattern)
     state = {}
     for path, arr in _flatten(np_params):
-        # bf16 -> f32 -> bf16 is exact
-        t = torch.from_numpy(np.asarray(arr, dtype=np.float32)).to(device=device, dtype=DTYPE)
-        if path.startswith(unit):
+        dtype = torch.float32 if np.asarray(arr).dtype == np.float32 else DTYPE
+        # a copy (the model is updated in place; the array may be JAX's
+        # read-only buffer); bf16 -> f32 -> bf16 is exact
+        t = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
+        m = _UNIT.fullmatch(path)
+        if m:
             for i in range(cfg.n_units):
-                state[f"blocks.{i}.{path[len(unit):]}"] = t[i]
+                state[f"blocks.{i * P + int(m.group(1))}.{m.group(2)}"] = t[i]
         else:
             state[path] = t
     model.load_state_dict(state, strict=True, assign=True)

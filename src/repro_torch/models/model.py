@@ -1,14 +1,18 @@
-"""Model assembly: token embedding + attention block stack + head.
+"""Model assembly: token embedding + repeating-unit block stack + head.
 
-Port of ``repro/models/model.py`` for attention-only configs. JAX stacks
-the per-unit params and runs the stack under ``jax.lax.scan``; here each
-layer is its own ``Block`` module and the stack is a Python loop. The
-decode cache is a list of per-layer ``{"k", "v"}`` tensors, updated in
-place by ``decode_step``.
+Port of ``repro/models/model.py`` for attention and Mamba-2 blocks. JAX
+stacks the per-unit params and runs the units under ``jax.lax.scan``; here
+each layer is its own module in one flat ``model.blocks`` list, in layer
+order (unit i, pattern slot j is ``blocks[i * len(pattern) + j]``), and the
+stack is a Python loop over units. ``remat`` checkpoints each unit, as
+``jax.checkpoint(unit_fn)`` does. The decode cache is a list of per-layer
+dicts (``{"k", "v"}`` for attention, the conv windows and SSM state for
+Mamba-2), updated in place by ``decode_step``.
 
 Public API (the JAX names):
   init_params(cfg, generator, device)           -> Model
-  forward(cfg, model, batch)                    -> (logits, aux_loss)
+  forward(cfg, model, batch, remat=True)        -> (logits, aux_loss)
+  loss_fn(cfg, model, batch, remat=True)        -> scalar loss
   init_cache(cfg, batch, max_len, device)       -> decode cache
   decode_step(cfg, model, cache, tokens, pos)   -> (logits, cache)
 """
@@ -19,9 +23,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DTYPE, MLP, Attention, Dense, _ones, _randn, rms_norm
+from repro_torch.models.ssm import Mamba2, init_mamba2_cache
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -30,8 +36,8 @@ def _check_ported(cfg: ModelConfig) -> None:
     """Raise for the parts of ``repro.models`` this port does not have yet
     (named by their ROADMAP queue item)."""
     missing = []
-    if any(kind != "attn" for kind in cfg.block_pattern):
-        missing.append(f"blocks {cfg.block_pattern} (mamba2/mlstm/slstm: ROADMAP A7-A8)")
+    if any(kind not in ("attn", "mamba2") for kind in cfg.block_pattern):
+        missing.append(f"blocks {cfg.block_pattern} (mlstm/slstm: ROADMAP A8)")
     if cfg.n_routed_experts:
         missing.append("MoE (ROADMAP A9)")
     if cfg.first_k_dense:
@@ -65,6 +71,23 @@ class Block(nn.Module):
         return x
 
 
+class Mamba2Block(nn.Module):
+    """Pre-norm Mamba-2 block: x + mamba2(ln(x))."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.ln = _ones(cfg.d_model, device)
+        self.core = Mamba2(cfg, generator=generator, device=device)
+
+    def forward(self, x, positions, cache=None, cache_len=None) -> torch.Tensor:
+        y, _ = self.core(rms_norm(x, self.ln, self.cfg.rms_eps), cache)
+        return x + y
+
+
+_BLOCKS = {"attn": Block, "mamba2": Mamba2Block}
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
         super().__init__()
@@ -72,7 +95,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = _randn((cfg.vocab, cfg.d_model), 0.02, generator, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, generator=generator, device=device) for _ in range(cfg.n_layers)
+            _BLOCKS[kind](cfg, generator=generator, device=device)
+            for _ in range(cfg.n_units) for kind in cfg.block_pattern
         )
         self.final_norm = _ones(cfg.d_model, device)
         if not cfg.tie_embeddings:
@@ -97,22 +121,60 @@ def lm_logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
     return model.lm_head(x)
 
 
-def forward(cfg: ModelConfig, model: Model, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(
+    cfg: ModelConfig,
+    model: Model,
+    batch: Dict,
+    *,
+    remat: bool = True,
+    remat_policy: str = "full",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``remat`` checkpoints each unit when autograd records (full remat: the
+    backward re-runs the unit's forward, kernels included)."""
+    if remat and remat_policy != "full":
+        raise NotImplementedError(f"remat_policy={remat_policy!r}: only 'full' is ported "
+                                  f"(save_block_outputs: ROADMAP A6)")
     x, _ = embed_inputs(cfg, model, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for blk in model.blocks:
-        x = blk(x, positions)
+    P = len(cfg.block_pattern)
+
+    def unit_fn(x: torch.Tensor, i: int) -> torch.Tensor:
+        for blk in model.blocks[i * P:(i + 1) * P]:
+            x = blk(x, positions)
+        return x
+
+    for i in range(cfg.n_units):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(unit_fn, x, i, use_reentrant=False)
+        else:
+            x = unit_fn(x, i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE: no router loss
     return lm_logits(cfg, model, x), aux
 
 
+def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
+            remat_policy: str = "full") -> torch.Tensor:
+    """Next-token cross-entropy of the token LM: logits in f32, logsumexp
+    minus the target logit, mean over positions, plus the aux loss."""
+    logits, aux = forward(cfg, model, batch, remat=remat, remat_policy=remat_policy)
+    lg32 = logits[:, :-1].float()
+    labels = batch["tokens"][:, 1:].long()
+    lse = torch.logsumexp(lg32, dim=-1)
+    tgt = torch.gather(lg32, -1, labels[..., None])[..., 0]
+    return (lse - tgt).mean() + aux
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
+    if kind == "attn":
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=DTYPE, device=device)}
+    return init_mamba2_cache(cfg, batch, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Cache:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=DTYPE, device=device),
-         "v": torch.zeros(shape, dtype=DTYPE, device=device)}
-        for _ in range(cfg.n_layers)
-    ]
+    return [_init_block_cache(cfg, kind, batch, max_len, device)
+            for _ in range(cfg.n_units) for kind in cfg.block_pattern]
 
 
 @torch.no_grad()
@@ -123,8 +185,9 @@ def decode_step(
     tokens: torch.Tensor,  # (b, 1) int
     pos: int,  # number of tokens already in the cache
 ) -> Tuple[torch.Tensor, Cache]:
-    """One token for every sequence; writes its K/V into ``cache`` in place
-    and returns (logits (b, vocab), cache)."""
+    """One token for every sequence; updates ``cache`` in place (attention
+    K/V at ``pos``, Mamba-2 conv windows and state) and returns
+    (logits (b, vocab), cache)."""
     assert cfg.supports_decode, f"{cfg.name} is encoder-only"
     x = model.embed[tokens]
     positions = torch.arange(pos, pos + 1, device=x.device)

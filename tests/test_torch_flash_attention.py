@@ -143,3 +143,34 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_cuda(q, k, v, causal=True, scale=0.25, q_offset=0, kv_len=4,
                              bq=64, bk=32)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 64, 64, 4, 4, 80, True),  # zamba2's head dim
+    (2, 64, 64, 8, 2, 32, True),  # GQA 4:1
+    (1, 32, 96, 2, 2, 16, False),  # bidirectional, cross-length
+])
+def test_flash_attention_grads_match_jax(b, sq, skv, hq, hkv, d, causal):
+    """Grads through the op (forward on the plain path here, backward by
+    recompute through ``attention_ref``) against ``jax.grad`` of the JAX op
+    with its Pallas kernel in interpret mode; f32, 2e-4."""
+    arrs = _qkv(9, b, sq, skv, hq, hkv, d)
+    cot = np.random.default_rng(10).standard_normal((b, sq, hq, d)).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jax_flash_attention(q, k, v, causal=causal, blocks=(32, 32),
+                                                    interpret=True) * cot),
+        argnums=(0, 1, 2))(*_jax(arrs, "float32"))
+    ts = [t.requires_grad_() for t in _torch(arrs, "float32")]
+    got = torch.autograd.grad(flash_attention(*ts, causal=causal), ts, torch.from_numpy(cot))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), rtol=2e-4, atol=2e-4)
+
+
+def test_flash_attention_d80_forward_matches_jax():
+    """Head dim 80, the zamba2 width, is a compiled instance; bf16, causal."""
+    arrs = _qkv(11, 1, 128, 128, 4, 4, 80)
+    want = jax_flash_attention(*_jax(arrs, "bfloat16"), causal=True, blocks=(64, 64),
+                               interpret=True)
+    got = flash_attention(*_torch(arrs, "bfloat16"), causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])

@@ -169,7 +169,7 @@ def test_params_from_jax_maps_every_leaf():
 
 def test_unported_configs_raise():
     base = get_config(ARCH)
-    for cfg in (dataclasses.replace(base, block_pattern=("mamba2",)),
+    for cfg in (dataclasses.replace(base, block_pattern=("mlstm",)),
                 dataclasses.replace(base, n_routed_experts=4, top_k=2),
                 dataclasses.replace(base, use_mla=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -188,7 +188,8 @@ def test_port_imports_neither_jax_nor_repro():
                 continue
             for mod in mods:
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), f"{f}:{node.lineno} {mod}"
-    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.models.convert; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
