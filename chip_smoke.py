@@ -3,11 +3,20 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure raises and the exit code is non-zero):
-  1. device: the card's name, count, and power limit (nvidia-smi);
+  1. device: the card's name, count, and power limit (nvidia-smi), and that
+     its SM count and shared-memory opt-in are at least what the planner's
+     H100 hierarchy (``h100_sm``) assumes;
   2. build: every CUDA kernel of the port with nvcc for sm_90a, one process
      per source, printing each instance's registers, shared memory and
      spills (ptxas -v);
+  plan: every tile the later phases launch, planned by ``codesign.plan`` on
+     the H100 hierarchy before any timed window (a cold search takes tenths
+     of a second on the host), printed with its source; each space's
+     shared-memory formula is held against the compiled kernel's;
   3. kernels: each kernel against its plain PyTorch version on the card:
+     the matmul kernel at test_matmul_sweep's shapes in f32 and bf16 with
+     the planned tile, at every compiled CTA tile, with leading dims and
+     transposed operands, and its autograd grads;
      flash attention at the serving decode shape, the zamba2 training shape
      (D = 80, causal, bf16) and f32 sweeps at D = 128-and-less and D = 80,
      its autograd wrapper's grads; the SSD kernel at the test_ssd_sweep
@@ -27,12 +36,20 @@ Phases (any failure raises and the exit code is non-zero):
      On one batch, loss and grads with kernels on are checked against
      kernels off, and one train step is profiled (device busy share, top
      kernels);
-  6. times: each kernel at its main-path shape beside its bound, its plain
+  6. codesign: the co-design loop (``repro_torch.launch.quickstart``): plan
+     quickstart step 4's 512x3072x768 GEMM, launch it with the planned tile
+     in f32 and bf16 and check it, then calibrate every kernel space on the
+     card (``calibrate_kernel``: the planned tile, CUDA-event time next to
+     the model's prediction) and print the calibration table; every kernel
+     must have launched in it;
+  7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
-     function (a yardstick only: the port never calls it); ``torch.matmul``
-     at the quickstart GEMM shape, for the matmul kernel still to be ported;
-     serving tokens/s, decode-step time, train step time, tokens/s and peak
-     memory. Every time is stamped with the card and its power limit.
+     function (a yardstick only: the port never calls it): flash attention
+     at decode and at the training shape (the planned tile and the earlier fixed
+     128-key tile, interleaved), the SSD kernel, the matmul kernel at three
+     shapes beside ``torch.matmul``; serving tokens/s, decode-step time,
+     train step time, tokens/s and peak memory. Every time is stamped with
+     the card and its power limit.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -54,8 +71,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import kernels  # noqa: E402
+from repro_torch import codesign, kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.architecture import H100_SXM  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -63,12 +81,23 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_cuda,
     smem_bytes,
 )
+from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION_H100, plan_blocks  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import smem_bytes as fa_smem_formula  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.matmul import matmul, plan_tiles  # noqa: E402
+from repro_torch.kernels.matmul.matmul import TILES as MM_TILES  # noqa: E402
+from repro_torch.kernels.matmul.matmul import lib_smem_bytes, matmul_cuda  # noqa: E402
+from repro_torch.kernels.matmul.matmul import smem_bytes as mm_smem_formula  # noqa: E402
+from repro_torch.kernels.matmul.ops import MATMUL_H100  # noqa: E402
+from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_launcher  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_H100, plan_chunk  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import smem_bytes as ssd_smem_formula  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref, ssd_recurrent_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.serve import Request, WaveServer  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
@@ -123,6 +152,16 @@ ARCH, SLOTS, MAX_LEN, N_REQ, MAX_NEW = "qwen3-0.6b", 8, 512, 16, 32
 # attention output to bf16 at different points, and 28 layers carry that;
 # logits reach ~3, where a bf16 ulp is 2^-6.
 MODEL_LOGIT_TOL = 0.25
+# The matmul kernel against its plain version: tests/test_kernels.py's
+# bounds (numpy's allclose rule): f32 sums in another order (IEEE FMA, no
+# TF32), one bf16 rounding of the output.
+MM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+MM_SWEEP = [(128, 128, 128), (256, 128, 384), (300, 200, 100), (64, 512, 256), (1, 257, 33)]
+# (M, N, K, dtype) timed: quickstart step 4's GEMM; qwen3-0.6b's gate/up
+# projection at 4096 tokens; zamba2-2.7b's FFN up projection at 2 x 2048 tokens
+MM_TIMED = [(512, 3072, 768, torch.float32), (4096, 3072, 1024, torch.bfloat16),
+            (4096, 10240, 2560, torch.bfloat16)]
+FA_FIXED_RULE = (64, 128)  # the earlier fixed rule's tile, timed beside the planned one
 
 
 def check(cond: bool, msg: str) -> None:
@@ -137,6 +176,12 @@ def phase_device() -> str:
     ).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
+    props = torch.cuda.get_device_properties(0)
+    sms, optin = props.multi_processor_count, props.shared_memory_per_block_optin
+    print(f"device properties: {sms} SMs, {optin} B shared memory opt-in per block; the planner's "
+          f"h100_sm() assumes {H100_SXM['sms']} SMs and {H100_SXM['smem_optin_bytes']} B")
+    check(sms >= H100_SXM["sms"] and optin >= H100_SXM["smem_optin_bytes"],
+          f"the card has {sms} SMs and a {optin} B opt-in: less than h100_sm() plans for")
     print(smi)
     return smi
 
@@ -179,7 +224,55 @@ def phase_build() -> None:
             if name == "ssd_scan":
                 cl = SSD_TRAIN[5]
                 line += f", {ssd_launcher.smem_bytes(cl)} B dynamic smem at cl={cl}"
+            if name == "matmul" and m:
+                bm, bn = int(m.group(2)), int(m.group(3))
+                line += f", {lib_smem_bytes(bm, bn, 32)} B dynamic smem at bk=32"
             print(line)
+
+
+def phase_plan() -> dict:
+    """Plan every tile the later phases launch, before any timed window,
+    and hold each space's shared-memory formula (which its legalize binds)
+    against the compiled kernel's."""
+    codesign.reset_planner_stats()
+    t0 = time.perf_counter()
+    plans = {}
+    d, cache = DECODE["d"], DECODE["cache"]
+    S, dt = FA_TRAIN["s"], FA_TRAIN["d"]
+    for label, space, shape in (
+            ("flash_attention decode (qwen3-0.6b)", FLASH_ATTENTION_H100, (1, cache, d)),
+            ("flash_attention train (zamba2-2.7b)", FLASH_ATTENTION_H100, (S, S, dt)),
+            ("ssd_scan (zamba2-2.7b hp, n)", SSD_SCAN_H100, SSD_TRAIN[3:5]),
+            *((f"matmul {M}x{N}x{K}", MATMUL_H100, (M, N, K))
+              for M, N, K in [quickstart.GEMM] + [s[:3] for s in MM_TIMED[1:]]
+              + quickstart.CALIBRATION_SHAPES["matmul_h100"][1:])):
+        if (space.name, tuple(shape)) in plans:
+            continue
+        t1 = time.perf_counter()
+        p = codesign.plan(space, shape)
+        plans[(space.name, tuple(shape))] = p
+        print(f"plan {label} {tuple(shape)}: {space.name} tile {p.config} ({p.source}, "
+              f"{time.perf_counter() - t1:.2f} s), predicted {p.cost.latency_s * 1e3:.4f} ms "
+              f"before calibration")
+    # the ops' cached entry points answer from these plans from now on
+    check(plan_blocks(1, cache, d) == plans[(FLASH_ATTENTION_H100.name, (1, cache, d))].config
+          and plan_blocks(S, S, dt) == plans[(FLASH_ATTENTION_H100.name, (S, S, dt))].config
+          and plan_chunk(*SSD_TRAIN[3:5]) == plans[(SSD_SCAN_H100.name, SSD_TRAIN[3:5])].config[0]
+          and plan_tiles(*quickstart.GEMM) == plans[(MATMUL_H100.name, quickstart.GEMM)].config,
+          "the ops' planned tiles differ from codesign.plan's")
+    for (name, shape), p in plans.items():
+        if name == MATMUL_H100.name:
+            got, want = lib_smem_bytes(*p.config), mm_smem_formula(*p.config)
+        elif name == FLASH_ATTENTION_H100.name:
+            got, want = smem_bytes(*p.config, shape[2]), fa_smem_formula(*p.config, shape[2])
+        else:
+            got, want = ssd_launcher.smem_bytes(p.config[0]), ssd_smem_formula(p.config[0])
+        check(got == want, f"{name} {p.config}: kernel smem {got} B != the space's formula {want} B")
+        check(got <= codesign.H100_SMEM_BUDGET, f"{name} {p.config}: {got} B over the budget")
+    print(f"plan: {len(plans)} tiles in {time.perf_counter() - t0:.2f} s on the host; shared "
+          f"memory of each planned CTA equals its space's formula and fits the "
+          f"{codesign.H100_SMEM_BUDGET} B budget; planner {codesign.planner_stats()}")
+    return plans
 
 
 def _qkv(gen, b, sq, skv, hq, hkv, d, dtype):
@@ -260,7 +353,62 @@ def phase_kernels() -> dict:
     check(ok, f"ssd_chunked vs recurrence: max abs err {err}, not within {SSD_TOL}")
     print(f"kernel ssd_chunked (2, 128, 3, 16, 8, 32) vs the token-by-token recurrence: "
           f"max abs err {err:.3g} (rtol = atol = {SSD_TOL})")
+    _check_matmul(gen)
     return errs
+
+
+def _mm_inputs(gen, M, N, K, dtype):
+    return (torch.randn((M, K), generator=gen, device="cuda").to(dtype),
+            torch.randn((K, N), generator=gen, device="cuda").to(dtype))
+
+
+def _check_mm(label, got, want, dtype):
+    torch.cuda.synchronize()
+    err, ok = _allclose([got], [want], MM_TOL[dtype])
+    check(ok, f"matmul {label}: max abs err {err}, not within rtol = atol = {MM_TOL[dtype]}")
+    return err
+
+
+def _check_matmul(gen) -> None:
+    """The matmul kernel against its plain version: test_matmul_sweep's
+    shapes with the planned tile, every compiled instance (both dtypes, at
+    a ragged shape), leading dims, transposed operands and the autograd
+    grads."""
+    for M, N, K in MM_SWEEP:
+        tiles = plan_tiles(M, N, K)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = _mm_inputs(gen, M, N, K, dtype)
+            err = _check_mm(f"{M}x{N}x{K}", matmul(x, y), matmul_ref(x, y), dtype)
+            print(f"kernel matmul {M}x{N}x{K} {str(dtype)[6:]} planned tile {tiles}: max abs err "
+                  f"{err:.3g} (rtol = atol = {MM_TOL[dtype]})")
+    worst = {}
+    for bm in MM_TILES:
+        for bn in MM_TILES:
+            for dtype in (torch.float32, torch.bfloat16):
+                x, y = _mm_inputs(gen, 300, 200, 100, dtype)
+                for bk in (16, 48):
+                    got = matmul_cuda(x, y, bm=bm, bn=bn, bk=bk, out_dtype=dtype)
+                    err = _check_mm(f"tile ({bm}, {bn}, {bk}) {dtype}", got, matmul_ref(x, y), dtype)
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+    print(f"kernel matmul every compiled tile {MM_TILES} x {MM_TILES}, bk 16 and 48, at 300x200x100: "
+          f"max abs err f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    x = torch.randn((2, 3, 64, 32), generator=gen, device="cuda")
+    y = torch.randn((32, 48), generator=gen, device="cuda")
+    err = _check_mm("leading dims", matmul(x, y), matmul_ref(x, y), torch.float32)
+    xt, yt = (a.t().contiguous().t() for a in _mm_inputs(gen, 96, 160, 72, torch.float32))
+    err = max(err, _check_mm("transposed operands", matmul_cuda(
+        xt, yt, bm=64, bn=128, bk=32, out_dtype=torch.float32), matmul_ref(xt, yt), torch.float32))
+    print(f"kernel matmul (2, 3, 64, 32) x (32, 48) and column-major operands, f32: max abs err "
+          f"{err:.3g}")
+    x, y = (a.requires_grad_() for a in _mm_inputs(gen, 128, 128, 64, torch.float32))
+    g = torch.randn((128, 128), generator=gen, device="cuda")
+    before = matmul_cuda.launches
+    got = torch.autograd.grad(matmul(x, y), (x, y), g)
+    check(matmul_cuda.launches == before + 3, "the matmul grads did not run on the kernel")
+    want = torch.autograd.grad(matmul_ref(x, y), (x, y), g)
+    err = max(_check_mm("grads", a, w, torch.float32) for a, w in zip(got, want))
+    print(f"kernel matmul grads (128x64 . 64x128, f32; dx and dy on the kernel): max abs err "
+          f"{err:.3g} (rtol = atol = {MM_TOL[torch.float32]})")
 
 
 def _allclose(got, want, tol):
@@ -572,9 +720,77 @@ def _train_kernels_on_vs_off(stamp, cfg):
              f"kernels on, under the profiler)", one_step, 1)
 
 
-def phase_times(stamp, serve_launches, train_launches, errs) -> list:
+def phase_codesign(stamp) -> dict:
+    """The co-design loop on the card: quickstart step 4 (plan the GEMM,
+    launch it with the planned tile in f32 and bf16, check it), then every
+    kernel space calibrated with CUDA events next to the model's
+    prediction. Returns the loop's kernel launches."""
+    matmul_cuda.launches = flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = quickstart.run_matmul(*quickstart.GEMM, "cuda")
+    rows, scales = quickstart.calibrate("cuda")
+    torch.cuda.synchronize()
+    launches = {"matmul": matmul_cuda.launches, "flash_attention": flash_attention_cuda.launches,
+                "ssd_scan": ssd_intra_chunk_cuda.launches}
+    M, N, K = quickstart.GEMM
+    print(f"codesign: quickstart step 4, {M}x{N}x{K} planned on h100_sm(): tile {tuple(res['tiles'])}; "
+          f"kernel vs plain version max abs err {res['max_abs_err']} (tol {quickstart.TOL} x "
+          f"(1 + max |out|))")
+    check(all(n > 0 for n in launches.values()), f"the co-design loop missed a kernel: {launches}")
+    print(f"calibration [{stamp}] (device rows; error after the per-kernel scale):")
+    print(f"  {'space':22s} {'shape':20s} {'planned':16s} {'source':7s} {'default':16s} "
+          f"{'default/planned':>15s} {'predicted ms':>12s} {'measured ms':>11s} {'error %':>8s} "
+          f"{'launches':>8s}")
+    for r in rows:
+        check(not r["interpret"] and r["measured_s"] > 0, f"calibration row {r} is not a device row")
+        check(r["launches"] > 0, f"calibration row {r} launched no kernel")
+        print(f"  {r['kernel']:22s} {str(tuple(r['shape'])):20s} {str(tuple(r['config'])):16s} "
+              f"{r['source']:7s} {str(tuple(r['default_config'])):16s} "
+              f"{r['default_over_planned']:15.3f} {r['predicted_s'] * 1e3:12.4f} "
+              f"{r['measured_s'] * 1e3:11.4f} {r['error_pct']:8.1f} {r['launches']:8d}")
+    print("calibration scales (measured / predicted, geometric mean per space): "
+          + ", ".join(f"{k} {v:.4g}" for k, v in scales.items()))
+    print(f"codesign: launches {launches} in {time.perf_counter() - t0:.1f} s")
+    # every shape and tile the loop launched, held against its plain version
+    # (these launches are not the loop's)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    for r in rows:
+        space, shape, config = codesign.get_space(r["kernel"]), tuple(r["shape"]), tuple(r["config"])
+        inputs = space.example_inputs(shape, "cuda", gen)
+        got, want = space.run(inputs, config), space.reference(inputs, config)
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        check(len(got) == len(want) and all(a.shape == b.shape for a, b in zip(got, want)),
+              f"{space.name} {shape} tile {config}: output shapes differ from the plain version's")
+        if space is FLASH_ATTENTION_H100:
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            ok, rule = math.isfinite(err) and err <= TOL[torch.float32], f"tol {TOL[torch.float32]}"
+        else:
+            tol = MM_TOL[torch.float32] if space is MATMUL_H100 else SSD_TOL
+            (err, ok), rule = _allclose(got, want, tol), f"rtol = atol = {tol}"
+        check(ok, f"codesign: {space.name} {shape} tile {config} float32: max abs err {err}, not "
+                  f"within {rule}")
+        print(f"codesign: {space.name} {shape} tile {config} float32, {r['launches']} launches in "
+              f"the loop: kernel vs plain version max abs err {err:.3g} ({rule})")
+        del inputs, got, want
+    return {"launches": launches, "max_abs_err": max(res["max_abs_err"].values()),
+            "matmul_by_shape": _matmul_launches_by_shape(res, rows)}
+
+
+def _matmul_launches_by_shape(res, rows) -> dict:
+    """The loop's matmul launches at each (M, N, K): step 4's and the
+    calibration rows'."""
+    out = {tuple(res["shape"]): res["launches"]}
+    for r in rows:
+        if r["kernel"] == MATMUL_H100.name:
+            out[tuple(r["shape"])] = out.get(tuple(r["shape"]), 0) + r["launches"]
+    return out
+
+
+def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> list:
     """Each kernel at its main-path shape beside its bound, its plain version
-    and, where one exists, the PyTorch call computing the same function."""
+    and, where one exists, the PyTorch call computing the same function. A
+    matmul whose plan is not the searched tile (the model rated the default
+    cheaper once launched) is timed at both."""
     fa = {"name": "flash_attention", "route": "cuda",
           "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100"}
@@ -608,17 +824,21 @@ def phase_times(stamp, serve_launches, train_launches, errs) -> list:
     t = FA_TRAIN
     b, S, hq, d = t["b"], t["s"], t["hq"], t["d"]
     pick = _rotating([_qkv(gen, b, S, S, hq, t["hkv"], d, torch.bfloat16) for _ in range(2)])
+    planned = plan_blocks(S, S, d)
     ms = _interleaved_ms({
         "plain": lambda: _plain(*pick(), causal=True, scale=1.0 / math.sqrt(d)),
         "kernel": lambda: flash_attention(*pick(), causal=True),
+        "fixed_rule": lambda: flash_attention(*pick(), causal=True, blocks=FA_FIXED_RULE),
         "library": lambda: torch.nn.functional.scaled_dot_product_attention(
             *(x.transpose(1, 2) for x in pick()), is_causal=True),
     }, n=10)
     bytes_ = 2 * 4 * b * S * hq * d  # q, k, v, o in bf16 (hq == hkv)
     bound, bound_by = _bound(bytes_, 4 * b * hq * (S * (S + 1) // 2) * d, BF16_FLOP_PER_S)
     print(f"time [{stamp}] flash_attention train b={b} S={S} hq={hq} d={d} causal bf16: kernel "
-          f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa {ms['library']:.4f} ms, bound "
-          f"{bound:.4f} ms ({bound_by}, bf16 tensor-core peak; {bound / ms['kernel']:.1%} of it)")
+          f"(planned tile {planned}) {ms['kernel']:.4f} ms, the same kernel at the earlier fixed rule's tile "
+          f"{FA_FIXED_RULE} {ms['fixed_rule']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa "
+          f"{ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by}, bf16 tensor-core peak; "
+          f"{bound / ms['kernel']:.1%} of it)")
     records.append({**fa, "shape": f"train b={b} S={S} hq={hq} d={d} causal bf16",
                     "launches": train_launches["flash_attention"], "max_abs_err": errs["fa_train"],
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
@@ -651,16 +871,49 @@ def phase_times(stamp, serve_launches, train_launches, errs) -> list:
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": None})
 
-    # torch.matmul at quickstart step 4's GEMM (the matmul kernel is not ported yet)
-    M, N, K = 512, 3072, 768
-    sets = [(torch.randn((M, K), generator=gen, device="cuda"),
-             torch.randn((K, N), generator=gen, device="cuda")) for _ in range(8)]
-    pick = _rotating(sets)
-    ms = _interleaved_ms({"library": lambda: torch.matmul(*pick())}, n=100)
-    bound, bound_by = _bound(4 * (M * K + K * N + M * N), 2 * M * N * K, F32_FLOP_PER_S)
-    print(f"time [{stamp}] torch.matmul {M}x{N}x{K} f32 (TF32 off; the matmul kernel is not "
-          f"ported yet): {ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by} at 67 TFLOP/s "
-          f"f32; {bound / ms['library']:.1%} of it)")
+    # the matmul kernel with its planned tile, beside torch.matmul (TF32 off)
+    for M, N, K, dtype in MM_TIMED:
+        isz = torch.empty((), dtype=dtype).element_size()
+        set_bytes = isz * (M * K + K * N + M * N)
+        sets = [_mm_inputs(gen, M, N, K, dtype) for _ in range(max(2, math.ceil(150e6 / set_bytes)))]
+        pick = _rotating(sets)
+        x, y = sets[0]
+        err = _check_mm(f"{M}x{N}x{K} timed", matmul(x, y), matmul_ref(x, y), dtype)
+        n = max(3, min(50, int(2e11 / (2 * M * N * K))))
+        p = plans[(MATMUL_H100.name, (M, N, K))]
+        other = (p.searched if p.source == "default"
+                 else MATMUL_H100.legalize(MATMUL_H100.default_config((M, N, K)), (M, N, K)))
+        bm, bn, bk = other
+        err = max(err, _check_mm(f"{M}x{N}x{K} tile {other}", matmul_cuda(
+            x, y, bm=bm, bn=bn, bk=bk, out_dtype=dtype), matmul_ref(x, y), dtype))
+        ms = _interleaved_ms({
+            "plain": lambda: matmul_ref(*pick()),
+            "kernel": lambda: matmul(*pick()),
+            "other": lambda: matmul_cuda(*pick(), bm=bm, bn=bn, bk=bk, out_dtype=dtype),
+            "library": lambda: torch.matmul(*pick()),
+        }, n=n)
+        flops = 2 * M * N * K
+        peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        bound, bound_by = _bound(set_bytes, flops, peak)
+        tiles = plan_tiles(M, N, K)
+        launches = loop["matmul_by_shape"].get((M, N, K), 0)
+        check(tiles == p.config and launches > 0,
+              f"matmul {M}x{N}x{K}: tile {tiles} vs plan {p.config}, {launches} loop launches")
+        print(f"time [{stamp}] matmul {M}x{N}x{K} {str(dtype)[6:]} tile {tiles} ({p.source}): "
+              f"kernel {ms['kernel']:.4f} ms, the same kernel at the "
+              f"{'searched' if p.source == 'default' else 'default'} tile {other} "
+              f"{ms['other']:.4f} ms, plain {ms['plain']:.4f} ms, torch.matmul "
+              f"{ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
+              f"at {peak / 1e12:.0f} TFLOP/s, {set_bytes / 1e6:.1f} MB; "
+              f"{bound / ms['kernel']:.1%} of it); max abs err {err:.3g}; {launches} launches at "
+              f"this shape in the co-design loop")
+        records.append({"name": "matmul", "route": "cuda",
+                        "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
+                        "replaces": "src/repro/kernels/matmul/matmul.py:39",
+                        "shape": f"{M}x{N}x{K} {str(dtype)[6:]} tile {tiles}",
+                        "launches": launches, "max_abs_err": err,
+                        "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+                        "bound_by": bound_by, "library_ms": ms["library"]})
     return records
 
 
@@ -673,10 +926,12 @@ def main() -> int:
     smi = phase_device()
     stamp = smi.strip()
     phase_build()
+    plans = phase_plan()
     errs = phase_kernels()
     serve_launches = phase_serve(stamp)
     train_launches = phase_train(stamp)
-    records = phase_times(stamp, serve_launches, train_launches, errs)
+    loop = phase_codesign(stamp)
+    records = phase_times(stamp, plans, serve_launches, train_launches, errs, loop)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,13 @@
 recurrence in plain torch (port of ``repro/kernels/ssd_scan/ops.py``).
 
 Signature matches ``models.ssm._ssd_chunked`` so the model can swap it in.
-The chunk length comes from the caller (the model passes ``min(256, l)``);
-without one, :func:`plan_chunk` applies a fixed rule. Planning the chunk on
-an H100 hierarchy comes with the port's codesign layer (ROADMAP A2).
+The chunk length comes from the caller (the model passes ``min(256, l)``,
+as JAX's does); without one, :func:`plan_chunk` plans it through the
+co-design layer: :class:`SsdScanSpace` registers the intra-chunk score
+GEMM with ``repro_torch.codesign`` under the name ``ssd_scan_h100``. Its
+``legalize`` is binding on the CUDA kernel's working set (64-row tiles, a
+shared-memory footprint linear in the chunk: 70.6 KB at cl = 256), not on
+the JAX VMEM rule, which picks cl = 512 under 8 MiB.
 
 On a CUDA tensor the intra-chunk part launches the kernel; on a CPU tensor
 it runs the plain version (``ref.ssd_intra_chunk_ref``). Any other device
@@ -15,23 +19,91 @@ through ``ref.ssd_chunked_ref`` under autograd, as ``_ssd_bwd`` does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.codesign import repair_tile
+from repro_torch import codesign
+from repro_torch.codesign import H100_SMEM_BUDGET, KernelSpace
+from repro_torch.core.problem import Problem
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_intra_chunk_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
-
-DEFAULT_CHUNK = 256
+from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, ROW_TILE, ssd_intra_chunk_cuda
 
 
-def plan_chunk(l: int) -> int:
-    """Chunk length for a sequence of ``l`` steps: 256 when it divides
-    ``l``, else the largest divisor reached by halving ``min(256, l)``. A
-    fixed rule, like ``flash_attention.ops.plan_blocks``; planning the chunk
-    on an H100 hierarchy comes with the codesign layer (ROADMAP A2)."""
-    return repair_tile(DEFAULT_CHUNK, l, DEFAULT_CHUNK, min_tile=1)
+def smem_bytes(cl: int) -> int:
+    """Dynamic shared memory of one CTA, by the kernel's formula: the
+    chunk's cumulative decay (cl, rounded up to 4) and four 64 x 68 f32
+    tiles."""
+    return 4 * ((cl + 3) // 4 * 4 + 4 * ROW_TILE * (ROW_TILE + 4))
+
+
+class SsdScanSpace(KernelSpace):
+    """Co-design space of the CUDA SSD intra-chunk kernel: shape = (hp, n),
+    BlockConfig = (cl,) -- the chunk length."""
+
+    name = "ssd_scan_h100"
+    decode_dims = ("l",)
+    grid_dims = ("l",)
+    search_budget = 200
+
+    def problem(self, shape):
+        hp, n = shape
+        # intra-chunk score GEMM C . B^T over the state dim: the chunk
+        # appears as both free dims of the cl x cl score block; its proxy
+        # extent is the largest chunk the kernel takes
+        return Problem.from_einsum(
+            "ssd_scores", "ln,mn->lm", {"l": MAX_CHUNK, "m": MAX_CHUNK, "n": n}, "GEMM", 4
+        )
+
+    def legalize(self, config, shape, smem_budget=None):
+        """BINDING repair: the proposal rounded down to a power of two in
+        [64, MAX_CHUNK] (whole 64-row tiles, and a divisor of any
+        power-of-two sequence), halved until the CTA fits ``smem_budget``.
+        Never raises."""
+        (cl,) = (int(c) for c in config)
+        budget = int(smem_budget or self.smem_budget)
+        cl = min(max(1 << (max(cl, 1).bit_length() - 1), ROW_TILE), MAX_CHUNK)
+        while cl > ROW_TILE and smem_bytes(cl) > budget:
+            cl //= 2
+        return (cl,)
+
+    def default_config(self, shape):
+        return (256,)
+
+    def block_tiles(self, shape, config):
+        # the chunk is BOTH free dims of the score block (n stays full)
+        (cl,) = config
+        return {"l": cl, "m": cl}
+
+    def example_inputs(self, shape, device, generator):
+        hp, n = shape
+        b, l, nh = 1, MAX_CHUNK, 8
+
+        def randn(*s):
+            return torch.randn(s, generator=generator, device=device)
+
+        return (randn(b, l, nh, hp), -randn(b, l, nh).abs() * 0.1,
+                randn(b, l, nh, n), randn(b, l, nh, n))
+
+    def run(self, inputs, config):
+        x, dA, B, C = inputs
+        (cl,) = config
+        return ssd_chunked(x, dA, B, C, chunk=min(int(cl), x.shape[1]))
+
+    def reference(self, inputs, config):
+        (cl,) = config
+        return ssd_chunked_ref(*inputs, chunk=min(int(cl), inputs[0].shape[1]))
+
+
+SSD_SCAN_H100 = codesign.register_space(SsdScanSpace())
+
+
+@functools.lru_cache(maxsize=64)
+def plan_chunk(hp: int, n: int, smem_budget: int = H100_SMEM_BUDGET) -> int:
+    """Plan the chunk length via ``codesign.plan`` (legalize is binding:
+    a power-of-two chunk whose CTA fits ``smem_budget``)."""
+    return codesign.plan(SSD_SCAN_H100, (hp, n), smem_budget=smem_budget).config[0]
 
 
 def _intra_chunk(x, dA, B, C, chunk):
@@ -87,7 +159,7 @@ def ssd_chunked(
     """Returns (y (b, l, nh, hp) f32, final_state (b, nh, hp, n) f32)."""
     b, l, nh, hp = x.shape
     n = B.shape[-1]
-    chunk = chunk or plan_chunk(l)
+    chunk = chunk or min(plan_chunk(hp, n), l)
     if l % chunk:
         raise ValueError(f"seq {l} % chunk {chunk} != 0")
     s0 = (init_state.float() if init_state is not None

@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_CHUNK = 1024  # the chunk length the kernel's shared-memory opt-in is sized for
+ROW_TILE = 64  # rows (and columns) of one score tile
 MAX_DIM = 64  # largest head dim hp and state dim n
 
 

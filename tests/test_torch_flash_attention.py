@@ -21,7 +21,15 @@ from repro.models.layers import mha as jax_mha
 from repro_torch import kernels as torch_kernels
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ops import plan_blocks
+from repro_torch import codesign
+from repro_torch.codesign import H100_SMEM_BUDGET
+from repro_torch.kernels.flash_attention.flash_attention import check_blocks
+from repro_torch.kernels.flash_attention.ops import (
+    FLASH_ATTENTION_H100,
+    plan_blocks,
+    planned_shape,
+    smem_bytes,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.layers import mha
 
@@ -115,16 +123,22 @@ def test_mha_decode_matches_jax(kernels_off):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("sq,skv,want", [
-    (1, 512, (1, 128)),  # the serving decode shape
-    (1024, 1024, (64, 128)),
-    (64, 192, (64, 64)),
-    (100, 100, (64, 128)),  # ragged: rounds up to one 128-key tile
-    (1, 160, (1, 32)),
-    (1, 96, (1, 96)),
+@pytest.mark.parametrize("sq,skv,d,want", [
+    (1, 512, 128, (1, 96)),  # the serving decode shape: 128 keys would overrun the budget
+    (1024, 1024, 64, (64, 128)),
+    (64, 192, 32, (64, 32)),
+    (100, 100, 16, (64, 32)),  # ragged: planned at (128, 128)
+    (1, 160, 128, (1, 96)),
+    (1, 96, 64, (1, 96)),
 ])
-def test_plan_blocks_rule(sq, skv, want):
-    assert plan_blocks(sq, skv) == want
+def test_plan_blocks_rule(sq, skv, d, want):
+    """The tile is the planner's (codesign.plan on the H100 hierarchy), legal
+    for the compiled kernel, and its CTA fits the shared-memory budget."""
+    got = plan_blocks(sq, skv, d)
+    assert got == want
+    assert got == codesign.plan(FLASH_ATTENTION_H100, planned_shape(sq, skv, d)).config
+    check_blocks(*got)
+    assert smem_bytes(*got, d) <= H100_SMEM_BUDGET
 
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():

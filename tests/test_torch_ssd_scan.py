@@ -18,7 +18,9 @@ from repro.kernels.ssd_scan import ssd_chunked as jax_ssd_chunked
 from repro.kernels.ssd_scan.ref import ssd_recurrent_ref as jax_ssd_recurrent_ref
 from repro.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_pallas
 from repro_torch.kernels.ssd_scan import ssd_chunked
-from repro_torch.kernels.ssd_scan.ops import plan_chunk
+from repro_torch import codesign
+from repro_torch.codesign import H100_SMEM_BUDGET
+from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_H100, plan_chunk, smem_bytes
 from repro_torch.kernels.ssd_scan.ref import (
     ssd_chunked_ref,
     ssd_intra_chunk_ref,
@@ -146,9 +148,15 @@ def test_ssd_shared_bc_stride0_equals_materialised():
     assert Bg.grad.shape == (2, 64, 1, 4) and torch.isfinite(Bg.grad).all()
 
 
-@pytest.mark.parametrize("l,want", [(2048, 256), (32, 32), (96, 96), (768, 256), (320, 64)])
-def test_plan_chunk_rule(l, want):
-    assert plan_chunk(l) == want
+@pytest.mark.parametrize("hp,n,want", [(64, 64, 64), (16, 16, 128), (8, 4, 128), (64, 32, 128),
+                                       (32, 64, 64)])
+def test_plan_chunk_rule(hp, n, want):
+    """The chunk is the planner's (codesign.plan on the H100 hierarchy): a
+    power of two of whole 64-row tiles whose CTA fits the budget."""
+    cl = plan_chunk(hp, n)
+    assert cl == want == codesign.plan(SSD_SCAN_H100, (hp, n)).config[0]
+    assert cl & (cl - 1) == 0 and 64 <= cl <= 1024
+    assert smem_bytes(cl) <= H100_SMEM_BUDGET
 
 
 def test_ssd_rejects_what_the_kernel_does_not_take():
