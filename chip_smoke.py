@@ -8,7 +8,7 @@ Phases (any failure raises and the exit code is non-zero):
      H100 hierarchy (``h100_sm``) assumes;
   2. build: every CUDA kernel of the port with nvcc for sm_90a, one process
      per source, printing each instance's registers, shared memory and
-     spills (ptxas -v);
+     spills (ptxas -v); a bf16 flash-attention instance that spills fails;
   plan: every tile the later phases launch, planned by ``codesign.plan`` on
      the H100 hierarchy before any timed window (a cold search takes tenths
      of a second on the host), printed with its source; each space's
@@ -17,8 +17,10 @@ Phases (any failure raises and the exit code is non-zero):
      the matmul kernel at test_matmul_sweep's shapes in f32 and bf16 with
      the planned tile, at every compiled CTA tile, with leading dims and
      transposed operands, and its autograd grads;
-     flash attention at the serving decode shape, the zamba2 training shape
-     (D = 80, causal, bf16) and f32 sweeps at D = 128-and-less and D = 80,
+     flash attention's split decode at the serving shape in bf16 and f32
+     (kv_len 0, 1, 37, bk - 1, bk, 300, 512; slots past kv_len unread), the
+     causal prefill and the zamba2 training shape (D = 80, causal, bf16),
+     f32 (FMA) and bf16 (tensor-core) sweeps at D = 128-and-less and D = 80,
      its autograd wrapper's grads; the SSD kernel at the test_ssd_sweep
      shapes and the zamba2 training shape with B/C materialised and
      expanded over heads with stride 0, and ``ssd_chunked`` against the
@@ -34,8 +36,9 @@ Phases (any failure raises and the exit code is non-zero):
      kernels on. Losses must be finite and fall, and the kernels must have
      launched exactly as the model's layers say (forward + remat recompute).
      On one batch, loss and grads with kernels on are checked against
-     kernels off, and one train step is profiled (device busy share, top
-     kernels);
+     kernels off, and one train step is profiled (device busy share,
+     flash attention's share, the plain attention backward's device time,
+     top kernels);
   6. codesign: the co-design loop (``repro_torch.launch.quickstart``): plan
      quickstart step 4's 512x3072x768 GEMM, launch it with the planned tile
      in f32 and bf16 and check it, then calibrate every kernel space on the
@@ -45,8 +48,9 @@ Phases (any failure raises and the exit code is non-zero):
   7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
-     at decode and at the training shape (the planned tile and the earlier fixed
-     128-key tile, interleaved), the SSD kernel, the matmul kernel at three
+     at decode (eager calls, as serving pays them, and device time by
+     CUDA-graph replay; GB/s, n_split) and at the training shape (TFLOP/s; the
+     planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at three
      shapes beside ``torch.matmul``; serving tokens/s, decode-step time,
      train step time, tokens/s and peak memory. Every time is stamped with
      the card and its power limit.
@@ -79,9 +83,15 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     MAX_BK,
     flash_attention_cuda,
+    live_keys,
+    n_split,
     smem_bytes,
 )
-from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION_H100, plan_blocks  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    BACKWARD_RANGE,
+    FLASH_ATTENTION_H100,
+    plan_blocks,
+)
 from repro_torch.kernels.flash_attention.ops import smem_bytes as fa_smem_formula  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul, plan_tiles  # noqa: E402
@@ -209,18 +219,41 @@ def _ptxas_report(log: str):
     return rows
 
 
+def _fa_instance(kernel: str):
+    """(what the instance is and its dynamic shared memory, whether it runs
+    bf16) from a demangled flash-attention kernel name; None for another
+    kernel."""
+    if (m := re.search(r"fa_mma_kernel<(\d+), (\d+)>", kernel)):
+        d, bk = int(m.group(1)), int(m.group(2))
+        return (f"bf16 tensor cores D={d} bk={bk}, "
+                f"{smem_bytes(64, bk, d, torch.bfloat16)} B dynamic smem", True)
+    if (m := re.search(r"fa_decode_kernel<(\w+), (\d+)>", kernel)):
+        dtype = torch.bfloat16 if "bfloat16" in m.group(1) else torch.float32
+        return (f"decode {str(dtype)[6:]} D={m.group(2)}, "
+                f"{smem_bytes(1, MAX_BK, int(m.group(2)), dtype)} B dynamic smem at bk={MAX_BK}",
+                dtype == torch.bfloat16)
+    if (m := re.search(r"fa_fwd_kernel<float, (\d+), (\d+)>", kernel)):
+        d, bq = int(m.group(1)), int(m.group(2))
+        return (f"f32 FMA D={d}, {smem_bytes(bq, MAX_BK, d, torch.float32)} B dynamic smem "
+                f"at bk={MAX_BK}", False)
+    return None
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, one process "
           f"per source)")
+    spilled = []
     for name, log in logs.items():
         for kernel, regs, spill, smem in _ptxas_report(log):
             line = f"  {name}: {kernel}: {regs} registers, {spill} bytes spilled, {smem} B static smem"
             m = re.search(r"<(\w+), (\d+), (\d+)>", kernel)
-            if name == "flash_attention" and m:
-                d, bq = int(m.group(2)), int(m.group(3))
-                line += f", {smem_bytes(bq, MAX_BK, d)} B dynamic smem at bk={MAX_BK}"
+            if name == "flash_attention" and (fa := _fa_instance(kernel)):
+                what, is_bf16 = fa
+                line += f" [{what}]"
+                if is_bf16 and spill:
+                    spilled.append(kernel)
             if name == "ssd_scan":
                 cl = SSD_TRAIN[5]
                 line += f", {ssd_launcher.smem_bytes(cl)} B dynamic smem at cl={cl}"
@@ -228,6 +261,8 @@ def phase_build() -> None:
                 bm, bn = int(m.group(2)), int(m.group(3))
                 line += f", {lib_smem_bytes(bm, bn, 32)} B dynamic smem at bk=32"
             print(line)
+    check(not spilled, f"bf16 flash-attention instances spill registers: {spilled}")
+    print("build: no bf16 flash-attention instance spills")
 
 
 def phase_plan() -> dict:
@@ -263,14 +298,19 @@ def phase_plan() -> dict:
     for (name, shape), p in plans.items():
         if name == MATMUL_H100.name:
             got, want = lib_smem_bytes(*p.config), mm_smem_formula(*p.config)
-        elif name == FLASH_ATTENTION_H100.name:
-            got, want = smem_bytes(*p.config, shape[2]), fa_smem_formula(*p.config, shape[2])
+        elif name == FLASH_ATTENTION_H100.name:  # each dtype's instance; legalize binds the larger
+            got, want = ([f(*p.config, shape[2], t) for t in (torch.float32, torch.bfloat16)]
+                         for f in (smem_bytes, fa_smem_formula))
+            check(got == want, f"{name} {p.config}: kernel smem {got} B != the space's formula "
+                               f"{want} B (f32, bf16)")
+            got = want = max(got)
         else:
             got, want = ssd_launcher.smem_bytes(p.config[0]), ssd_smem_formula(p.config[0])
         check(got == want, f"{name} {p.config}: kernel smem {got} B != the space's formula {want} B")
         check(got <= codesign.H100_SMEM_BUDGET, f"{name} {p.config}: {got} B over the budget")
     print(f"plan: {len(plans)} tiles in {time.perf_counter() - t0:.2f} s on the host; shared "
-          f"memory of each planned CTA equals its space's formula and fits the "
+          f"memory of each planned CTA (flash attention: in f32 and bf16) equals its space's "
+          f"formula and fits the "
           f"{codesign.H100_SMEM_BUDGET} B budget; planner {codesign.planner_stats()}")
     return plans
 
@@ -285,22 +325,52 @@ def _plain(q, k, v, **kw):
     return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)
 
 
+def _fa_row_ratio(got, want) -> float:
+    """Worst |got - want| / limit over a bf16 attention output, the limit
+    scaled to each output row: 2^-7 max_row |want| + 1e-3. One bf16 ulp of
+    an element is at most 2^-7 of it, and the kernel and its plain version
+    differ by the rounding of P and of the output to bf16, about one ulp;
+    a lost KV tile moves a row by a share of its own size. At most 1 passes."""
+    w = want.float()
+    limit = w.abs().amax(dim=-1, keepdim=True) * 2.0 ** -7 + 1e-3
+    return ((got.float() - w).abs() / limit).max().item()
+
+
+def _fa_check_rows(name, got, want, q, k, v, bk, **kw):
+    """Hold a bf16 many-key output to _fa_row_ratio, and show that the limit
+    is sharp: the plain version with the last KV tile dropped must fail it."""
+    ratio = _fa_row_ratio(got, want)
+    skv = k.shape[1] if kw.get("kv_len") is None else kw["kv_len"]
+    dropped = _plain(q, k, v, **{**kw, "kv_len": skv - (skv % bk or bk)})
+    planted = _fa_row_ratio(dropped, want)
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"flash_attention {name}: |err| / (2^-7 max_row |want| + 1e-3) = {ratio:.3f} > 1")
+    check(planted > 1.0, f"flash_attention {name}: the row-scaled limit passes the plain version "
+                         f"with its last KV tile dropped ({planted:.3f})")
+    return ratio, planted
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version on the card; returns the max abs
     error at each main-path shape: flash attention at the serving decode
     shape and at the training shape, the SSD kernel at the training shape."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b, hq, hkv, d, cache = DECODE.values()
-    cases = [(f"decode kv_len={n}", (b, 1, cache, hq, hkv, d), False, n - 1, n, torch.bfloat16)
-             for n in (1, 37, 300, 512)]
+    bk = plan_blocks(1, cache, d)[1]
+    # the split decode (a CTA per batch x kv-head x split over both q-heads
+    # of the kv-head) in both dtypes, at the kv_len edges of its planned tile
+    cases = [(f"decode kv_len={n}", (b, 1, cache, hq, hkv, d), False, max(n - 1, 0), n, dtype)
+             for dtype in (torch.bfloat16, torch.float32)
+             for n in (0, 1, 37, bk - 1, bk, 300, cache)]
     cases.append(("causal prefill", (2, 1024, 1024, 16, 8, 128), True, 0, None, torch.bfloat16))
     t = FA_TRAIN
     cases.append(("train (zamba2)", (t["b"], t["s"], t["s"], t["hq"], t["hkv"], t["d"]), True, 0,
                   None, torch.bfloat16))
-    cases += [(f"sweep {shape}", shape[:6], shape[6], 0, None, torch.float32)
-              for shape in FA_SWEEP]
-    cases += [(f"sweep D=80 {shape[:5] + (80,)}", shape[:5] + (80,), shape[6], 0, None,
-               torch.float32) for shape in FA_SWEEP]
+    # many rows: the f32 FMA instance and the bf16 tensor-core instance
+    cases += [(f"sweep {shape}", shape[:6], shape[6], 0, None, dtype)
+              for dtype in (torch.float32, torch.bfloat16) for shape in FA_SWEEP]
+    cases += [(f"sweep D=80 {shape[:5] + (80,)}", shape[:5] + (80,), shape[6], 0, None, dtype)
+              for dtype in (torch.float32, torch.bfloat16) for shape in FA_SWEEP]
     errs = {"fa_decode": 0.0}
     for name, shape, causal, q_offset, kv_len, dtype in cases:
         q, k, v = _qkv(gen, *shape, dtype)
@@ -312,13 +382,21 @@ def phase_kernels() -> dict:
         check(got.shape == want.shape and math.isfinite(err) and err <= TOL[dtype],
               f"flash_attention {name}: max abs err {err} > {TOL[dtype]}")
         line = f"kernel flash_attention {name} {str(dtype)[6:]}: max abs err {err:.3g} (tol {TOL[dtype]})"
+        if name in ("causal prefill", "train (zamba2)"):
+            ratio, planted = _fa_check_rows(name, got, want, q, k, v,
+                                            plan_blocks(shape[1], shape[2], shape[5])[1],
+                                            scale=1.0 / math.sqrt(shape[5]), **kw)
+            line += (f"; worst |err| / (2^-7 max_row |want| + 1e-3) {ratio:.3f} (limit 1; the "
+                     f"plain version without its last KV tile: {planted:.3f})")
         if kv_len is not None:
             k[:, kv_len:] = 99.0
             v[:, kv_len:] = 99.0
             check(torch.equal(flash_attention(q, k, v, **kw), got),
                   f"flash_attention {name}: slots past kv_len changed the output")
-            errs["fa_decode"] = max(errs["fa_decode"], err)
-            line += "; slots past kv_len unread"
+            if dtype == torch.bfloat16:
+                errs["fa_decode"] = max(errs["fa_decode"], err)
+            parts = n_split(shape[0], shape[4], live_keys(1, kv_len, q_offset, causal), bk)
+            line += f"; n_split {parts}; slots past kv_len unread"
         if name.startswith("train"):
             errs["fa_train"] = err
         print(line)
@@ -341,10 +419,19 @@ def phase_kernels() -> dict:
             want = ssd_intra_chunk_ref(x, dA, B, C, shape[5])
             torch.cuda.synchronize()
             err, ok = _allclose(got, want, SSD_TOL)
-            check(ok, f"ssd_scan {shape} shared={shared}: max abs err {err}, not within "
-                      f"rtol = atol = {SSD_TOL}")
             if shape == SSD_TRAIN:
                 errs["ssd_train"] = max(errs.get("ssd_train", 0.0), err)
+                # both f32 versions against the exact answer: how much of the
+                # difference between them is each one's rounding
+                exact = ssd_intra_chunk_ref(x, dA, B, C, shape[5], dtype=torch.float64)
+                print(f"kernel ssd_scan {shape} shared={shared} against a float64 evaluation: "
+                      f"kernel max abs err {_allclose(got, exact, SSD_TOL)[0]:.3g} (worst "
+                      f"|d| / (tol + tol |exact|) {_allclose_ratio(got, exact, SSD_TOL):.3f}), "
+                      f"plain f32 version {_allclose(want, exact, SSD_TOL)[0]:.3g} "
+                      f"({_allclose_ratio(want, exact, SSD_TOL):.3f})")
+                del exact
+            check(ok, f"ssd_scan {shape} shared={shared}: max abs err {err}, not within "
+                      f"rtol = atol = {SSD_TOL}")
             bc = "B/C expanded over heads, stride 0" if shared else "B/C materialised"
             print(f"kernel ssd_scan {shape} float32, {bc}: max abs err {err:.3g}, max |out| "
                   f"{max(w.abs().max().item() for w in want):.3g} (rtol = atol = {SSD_TOL})")
@@ -420,6 +507,13 @@ def _allclose(got, want, tol):
         err = max(err, d.max().item())
         ok = ok and a.shape == w.shape and bool((d <= tol + tol * w.float().abs()).all())
     return err, ok and math.isfinite(err)
+
+
+def _allclose_ratio(got, want, tol):
+    """The largest |got - want| / (tol + tol * |want|) over paired tensors:
+    numpy's allclose rule holds where it is at most 1."""
+    return max(((a.double() - w.double()).abs() / (tol + tol * w.double().abs())).max().item()
+               for a, w in zip(got, want))
 
 
 def _ssd_inputs(gen, b, l, nh, hp, n, shared):
@@ -544,9 +638,15 @@ def _profile_decode(stamp, cfg, model, toks, n=5):
              lambda: decode_step(cfg, model, cache, toks, next(pos)), n)
 
 
+FA_KERNELS = ("fa_mma_kernel", "fa_fwd_kernel", "fa_decode_kernel", "fa_combine_kernel")
+
+
 def _profile(stamp, label, fn, n):
     """torch.profiler over n calls of fn: wall time per call, device busy
-    share, device kernels per call and the top kernels by device time."""
+    share, device kernels per call, the flash-attention kernels' share of
+    the busy time, the device time of the plain attention backward (the
+    kernels launched inside ops.BACKWARD_RANGE) and the top kernels by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -557,7 +657,9 @@ def _profile(stamp, label, fn, n):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # a record_function range may also appear on the device timeline: it is no kernel
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.key != BACKWARD_RANGE]
     if not events:
         print(f"profile [{stamp}] {label}: the profiler saw no device kernels "
               f"(wall {wall:.3f} ms under the profiler)")
@@ -567,6 +669,15 @@ def _profile(stamp, label, fn, n):
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     print(f"profile [{stamp}] {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}), {launches:.0f} device kernels per call")
+    fa = [e for e in events if any(k in e.key for k in FA_KERNELS)]
+    fa_ms = sum(e.self_device_time_total for e in fa) / n / 1e3
+    print(f"  flash attention kernels: {fa_ms:.4f} ms/call ({fa_ms / busy:.2%} of device busy), "
+          f"{sum(e.count for e in fa) / n:.0f} device launches per call")
+    bwd = [e for e in prof.events() if e.name == BACKWARD_RANGE and e.device_type == DeviceType.CPU]
+    if bwd:
+        bwd_ms = sum(e.device_time_total for e in bwd) / n / 1e3
+        print(f"  plain attention backward ({BACKWARD_RANGE}, {len(bwd) / n:.0f} per call): "
+              f"{bwd_ms:.4f} ms/call of device time ({bwd_ms / busy:.2%} of device busy)")
     for e in top:
         print(f"  {e.self_device_time_total / n / 1e3:.4f} ms/call  x{e.count // n:<5d} "
               f"{e.key[:90]}")
@@ -590,6 +701,37 @@ def _interleaved_ms(fns: dict, n: int) -> dict:
     ms = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         ms[name].append(_time_ms(fns[name], n=n, warmup=max(2, n // 10)))
+    return {name: min(v) for name, v in ms.items()}
+
+
+def _graph_interleaved_ms(fns: dict, n: int, replays: int = 10) -> dict:
+    """Device time per call with the host's dispatch out of the way: each
+    callable's n calls are captured once in a CUDA graph (after a warm-up
+    outside it), the graphs are replayed in turns (a, b, c, c, b, a) and
+    timed with CUDA events; the best of each one's two turns."""
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(n):
+                fn()
+    ms = {name: [] for name in fns}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for name in list(fns) + list(fns)[::-1]:
+        graphs[name].replay()
+        start.record()
+        for _ in range(replays):
+            graphs[name].replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / (replays * n))
+    del graphs
     return {name: min(v) for name, v in ms.items()}
 
 
@@ -761,15 +903,24 @@ def phase_codesign(stamp) -> dict:
         got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
         check(len(got) == len(want) and all(a.shape == b.shape for a, b in zip(got, want)),
               f"{space.name} {shape} tile {config}: output shapes differ from the plain version's")
-        if space is FLASH_ATTENTION_H100:
+        dtype = str(inputs[0].dtype)[6:]
+        if space is FLASH_ATTENTION_H100:  # calibrated in bf16: the space's tolerance, and
+            # the row-scaled limit (a kernel that drops a KV tile fails it)
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            ok, rule = math.isfinite(err) and err <= TOL[torch.float32], f"tol {TOL[torch.float32]}"
+            q, k, v = inputs
+            ratio, planted = _fa_check_rows(f"{space.name} {shape}", got[0], want[0], q, k, v,
+                                            config[1], causal=False,
+                                            scale=1.0 / math.sqrt(q.shape[-1]))
+            ok = math.isfinite(err) and err <= space.tolerance
+            rule = (f"tol {space.tolerance}; worst |err| / (2^-7 max_row |want| + 1e-3) "
+                    f"{ratio:.3f}, limit 1; the plain version without its last KV tile: "
+                    f"{planted:.3f}")
         else:
             tol = MM_TOL[torch.float32] if space is MATMUL_H100 else SSD_TOL
             (err, ok), rule = _allclose(got, want, tol), f"rtol = atol = {tol}"
-        check(ok, f"codesign: {space.name} {shape} tile {config} float32: max abs err {err}, not "
+        check(ok, f"codesign: {space.name} {shape} tile {config} {dtype}: max abs err {err}, not "
                   f"within {rule}")
-        print(f"codesign: {space.name} {shape} tile {config} float32, {r['launches']} launches in "
+        print(f"codesign: {space.name} {shape} tile {config} {dtype}, {r['launches']} launches in "
               f"the loop: kernel vs plain version max abs err {err:.3g} ({rule})")
         del inputs, got, want
     return {"launches": launches, "max_abs_err": max(res["max_abs_err"].values()),
@@ -800,25 +951,46 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
     # flash attention at the serving decode shape (full 512-token cache)
     b, hq, hkv, d, cache = DECODE.values()
     kv_len = cache
-    pick = _rotating([_qkv(gen, b, 1, cache, hq, hkv, d, torch.bfloat16) for _ in range(8)])
+    sets = [_qkv(gen, b, 1, cache, hq, hkv, d, torch.bfloat16) for _ in range(8)]
+    pick = _rotating(sets)
     kw = dict(causal=False, q_offset=kv_len - 1, kv_len=kv_len)
-    ms = _interleaved_ms({
+    fns = {
         "plain": lambda: _plain(*pick(), scale=1.0 / math.sqrt(d), **kw),
         "kernel": lambda: flash_attention(*pick(), **kw),
         "library": lambda: (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2),
             enable_gqa=True))(*pick()),
+    }
+    # a decode call is short enough that eager timing, which the serving
+    # loop pays, measures the host's dispatch too; replayed CUDA graphs
+    # measure the device
+    ms = _interleaved_ms(fns, n=100)
+    # what bounds the kernel: the same call with its inputs warm in L2 (bytes
+    # would get cheaper), and with one live key (the fixed cost of a launch)
+    dev = _graph_interleaved_ms({
+        **fns,
+        "kernel_warm": lambda: flash_attention(*sets[0], **kw),
+        "kernel_kv1": lambda: flash_attention(*pick(), causal=False, q_offset=0, kv_len=1),
     }, n=100)
     bytes_ = 2 * (b * hq * d + 2 * b * kv_len * hkv * d + b * hq * d)
     bound, bound_by = _bound(bytes_, 4 * b * hq * kv_len * d, BF16_FLOP_PER_S)
+    parts = n_split(b, hkv, kv_len, plan_blocks(1, cache, d)[1])
     print(f"time [{stamp}] flash_attention decode b={b} hq={hq} hkv={hkv} d={d} kv_len={kv_len} "
-          f"bf16: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa {ms['library']:.4f} ms, "
-          f"bound {bound:.4f} ms ({bound_by}: {bytes_ / 1e6:.2f} MB at 3.35 TB/s; "
-          f"{bound / ms['kernel']:.1%} of it)")
+          f"bf16, n_split {parts} ({b * hkv * parts} CTAs): eager calls (host dispatch included, "
+          f"as serving pays it): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa "
+          f"{ms['library']:.4f} ms, kernel / sdpa {ms['kernel'] / ms['library']:.3f}; CUDA-graph "
+          f"replay (device time): kernel {dev['kernel']:.4f} ms "
+          f"({bytes_ / dev['kernel'] / 1e6:.1f} GB/s), plain {dev['plain']:.4f} ms, sdpa "
+          f"{dev['library']:.4f} ms, kernel / sdpa {dev['kernel'] / dev['library']:.3f}, bound "
+          f"{bound:.4f} ms ({bound_by}: {bytes_ / 1e6:.2f} MB at 3.35 TB/s; "
+          f"{bound / dev['kernel']:.1%} of it); inputs warm in L2 {dev['kernel_warm']:.4f} ms, "
+          f"one live key {dev['kernel_kv1']:.4f} ms")
     records.append({**fa, "shape": f"decode b={b} hq={hq} hkv={hkv} d={d} kv_len={kv_len} bf16",
                     "launches": serve_launches, "max_abs_err": errs["fa_decode"],
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
-                    "bound_by": bound_by, "library_ms": ms["library"]})
+                    "bound_by": bound_by, "library_ms": ms["library"],
+                    "device_ms": dev["kernel"], "device_plain_ms": dev["plain"],
+                    "device_library_ms": dev["library"], "n_split": parts})
 
     # flash attention at zamba2's training shape: causal over 2 x 2048, 32 heads of 80
     t = FA_TRAIN
@@ -833,12 +1005,15 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
             *(x.transpose(1, 2) for x in pick()), is_causal=True),
     }, n=10)
     bytes_ = 2 * 4 * b * S * hq * d  # q, k, v, o in bf16 (hq == hkv)
-    bound, bound_by = _bound(bytes_, 4 * b * hq * (S * (S + 1) // 2) * d, BF16_FLOP_PER_S)
+    flops = 4 * b * hq * (S * (S + 1) // 2) * d
+    bound, bound_by = _bound(bytes_, flops, BF16_FLOP_PER_S)
     print(f"time [{stamp}] flash_attention train b={b} S={S} hq={hq} d={d} causal bf16: kernel "
-          f"(planned tile {planned}) {ms['kernel']:.4f} ms, the same kernel at the earlier fixed rule's tile "
+          f"(planned tile {planned}) {ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f} "
+          f"TFLOP/s), the same kernel at the earlier fixed rule's tile "
           f"{FA_FIXED_RULE} {ms['fixed_rule']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa "
-          f"{ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by}, bf16 tensor-core peak; "
-          f"{bound / ms['kernel']:.1%} of it)")
+          f"{ms['library']:.4f} ms ({flops / ms['library'] / 1e9:.1f} TFLOP/s), bound "
+          f"{bound:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; "
+          f"{bound / ms['kernel']:.1%} of it); kernel / sdpa {ms['kernel'] / ms['library']:.3f}")
     records.append({**fa, "shape": f"train b={b} S={S} hq={hq} d={d} causal bf16",
                     "launches": train_launches["flash_attention"], "max_abs_err": errs["fa_train"],
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,

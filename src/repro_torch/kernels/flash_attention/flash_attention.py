@@ -2,23 +2,43 @@
 
 The kernel reads q/k/v in the model layout (b, S, h, d) through their
 strides, so a KV cache is attended in place. This module checks what the
-kernel takes and raises on anything else, allocates the output, launches
-on the current stream and counts its launches in
-``flash_attention_cuda.launches``.
+kernel takes and raises on anything else, allocates the output (and, for
+a split decode, the f32 scratch of the per-split partials), launches on
+the current stream and counts each call in ``flash_attention_cuda.launches``.
+
+The checks that depend only on the layout (shapes, strides, dtypes,
+devices and tile) run once per layout: :func:`_layout` caches them with
+the kernel's ``FaLayout``, so a decode step's call does little more than
+read the pointers.
+
+The decode instance (``bq == 1``) cuts the live keys into ``n_split``
+parts by :func:`n_split`; that rule is not planned.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
+from repro_torch.core.architecture import H100_SXM
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)  # compiled D instances
-ROW_TILES = (1, 64)  # compiled BQ instances
+ROW_TILES = (1, 64)  # compiled BQ instances: decode, many rows
 MAX_BK = 128  # the KV tile the kernel's shared-memory opt-in is sized for
+DECODE_ROWS = 8  # q-heads of one kv-head a decode CTA holds at once (kDecodeRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _FaLayout(ctypes.Structure):
+    """The kernel's ``FaLayout``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("B", "Hq", "Hkv", "Sq", "Skv", "D", "is_bf16", "bq", "bk", "device")] + [
+        ("strides", ctypes.c_longlong * 12)]
 
 
 def _lib() -> ctypes.CDLL:
@@ -26,17 +46,29 @@ def _lib() -> ctypes.CDLL:
     fn = lib.fa_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-                       i, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(_FaLayout), i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
-        lib.fa_smem_bytes.argtypes = [i, i, i]
+        lib.fa_smem_bytes.argtypes = [i, i, i, i]
         lib.fa_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def smem_bytes(bq: int, bk: int, d: int) -> int:
+def smem_bytes(bq: int, bk: int, d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one CTA, as the kernel computes it."""
-    return _lib().fa_smem_bytes(bq, bk, d)
+    return _lib().fa_smem_bytes(bq, bk, d, _DTYPES[dtype])
+
+
+def live_keys(Sq: int, kv_len: int, q_offset: int, causal: bool) -> int:
+    """Keys any query row can see: the valid prefix, cut at the causal
+    frontier of the last row."""
+    return min(kv_len, q_offset + Sq) if causal else kv_len
+
+
+def n_split(b: int, hkv: int, live: int, bk: int) -> int:
+    """How many parts a decode cuts its live keys into: enough that the
+    b * hkv * n_split CTAs cover every SM of the H100 at least once, never
+    more parts than KV tiles of ``bk`` keys, and at least one."""
+    return max(1, min(math.ceil(live / bk), math.ceil(H100_SXM["sms"] / (b * hkv))))
 
 
 def check_blocks(bq: int, bk: int) -> None:
@@ -60,47 +92,65 @@ def flash_attention_cuda(
     bq: int,
     bk: int,
 ) -> torch.Tensor:
-    """One launch of the kernel; returns a new (b, Sq, hq, d) tensor."""
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention_cuda needs q/k/v on one CUDA device, "
-                         f"got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: need all float32 "
-                        f"or all bfloat16")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    b, Sq, hq, d = q.shape
-    _, Skv, hkv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv != 0:
-        raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)}: need the same "
-                         f"b and d, and hq a multiple of hkv")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d}: compiled for {HEAD_DIMS}")
-    check_blocks(bq, bk)
-    if not 0 <= kv_len <= Skv or q_offset < 0:
-        raise ValueError(f"kv_len={kv_len} must lie in [0, {Skv}] and q_offset={q_offset} >= 0")
-    item = q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: the head dim must be contiguous, strides {t.stride()}")
-    for name, t in (("k", k), ("v", v)):  # the kernel loads K/V rows 16 bytes at a time
-        if t.data_ptr() % 16 or any(s * item % 16 for s in t.stride()[:3]):
-            raise ValueError(f"{name}: rows must be 16-byte aligned, strides {t.stride()}")
-    out = torch.empty((b, Sq, hq, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, Sq, Skv, d, strides, int(kv_len), int(q_offset), int(causal),
-            float(scale), _DTYPES[q.dtype], bq, bk,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    """One call of the kernel (a split decode also launches its merge);
+    returns a new (b, Sq, hq, d) tensor."""
+    lay = _layout(q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+                  q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, bq, bk)
+    if not 0 <= kv_len <= lay.Skv or q_offset < 0:
+        raise ValueError(f"kv_len={kv_len} must lie in [0, {lay.Skv}] and q_offset={q_offset} >= 0")
+    # the kernel copies q/k/v rows 16 bytes at a time (their strides were
+    # checked with the layout); out is new, so aligned by the allocator
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("q, k and v must start 16-byte aligned")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    parts, part = 1, None
+    if bq == 1:
+        parts = n_split(lay.B, lay.Hkv, live_keys(lay.Sq, kv_len, q_offset, causal), bk)
+        if parts > 1:
+            part = torch.empty(lay.B * lay.Sq * lay.Hq * parts * (lay.D + 2),
+                               dtype=torch.float32, device=q.device)
+    err = _lib().fa_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), ctypes.byref(lay), int(kv_len),
+        int(q_offset), int(causal), float(scale), parts,
+        torch._C._cuda_getCurrentRawStream(lay.device))
     if err:
         raise RuntimeError(f"flash attention launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(q_shape, k_shape, v_shape, q_stride, k_stride, v_stride, q_dtype, k_dtype, v_dtype,
+            q_device, k_device, v_device, bq, bk) -> _FaLayout:
+    """Check what the kernel takes of a layout and raise on anything else;
+    return its ``FaLayout``."""
+    if not (q_device.type == "cuda" and k_device == q_device and v_device == q_device):
+        raise ValueError(f"flash_attention_cuda needs q/k/v on one CUDA device, "
+                         f"got {q_device}, {k_device}, {v_device}")
+    if q_dtype not in _DTYPES or k_dtype != q_dtype or v_dtype != q_dtype:
+        raise TypeError(f"dtypes {q_dtype}, {k_dtype}, {v_dtype}: need all float32 "
+                        f"or all bfloat16")
+    if len(q_shape) != 4 or len(k_shape) != 4 or v_shape != k_shape:
+        raise ValueError(f"shapes q{tuple(q_shape)} k{tuple(k_shape)} v{tuple(v_shape)}")
+    b, Sq, hq, d = q_shape
+    _, Skv, hkv, _ = k_shape
+    if k_shape[0] != b or k_shape[3] != d or hq % hkv != 0:
+        raise ValueError(f"shapes q{tuple(q_shape)} k{tuple(k_shape)}: need the same "
+                         f"b and d, and hq a multiple of hkv")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: compiled for {HEAD_DIMS}")
+    check_blocks(bq, bk)
+    item = 4 if q_dtype == torch.float32 else 2
+    for name, st in (("q", q_stride), ("k", k_stride), ("v", v_stride)):
+        if st[3] != 1:
+            raise ValueError(f"{name}: the head dim must be contiguous, strides {st}")
+        if any(x * item % 16 for x in st[:3]):
+            raise ValueError(f"{name}: rows must be 16-byte aligned, strides {st}")
+    out_stride = (Sq * hq * d, hq * d, d)  # torch.empty's contiguous (b, Sq, hq, d)
+    return _FaLayout(b, hq, hkv, Sq, Skv, d, _DTYPES[q_dtype], bq, bk, q_device.index,
+                     (ctypes.c_longlong * 12)(*q_stride[:3], *k_stride[:3], *v_stride[:3],
+                                              *out_stride))
 
 
 flash_attention_cuda.launches = 0

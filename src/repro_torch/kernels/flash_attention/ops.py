@@ -31,6 +31,7 @@ from repro_torch.codesign import KernelSpace, round_up
 from repro_torch.core.constraints import tc_aligned
 from repro_torch.core.problem import Problem
 from repro_torch.kernels.flash_attention.flash_attention import (
+    DECODE_ROWS,
     HEAD_DIMS,
     MAX_BK,
     ROW_TILES,
@@ -40,19 +41,41 @@ from repro_torch.kernels.flash_attention.flash_attention import (
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 KV_ALIGN = 32  # the KV tile is a multiple of a warp
+BACKWARD_RANGE = "flash_attention.backward"  # profiler range around the plain backward
 
 
-def smem_bytes(bq: int, bk: int, d: int) -> int:
-    """Dynamic shared memory of one CTA, by the kernel's formula: Q
-    (bq x d), K (bk x d+1), V (bk x d), scores (bq x bk), m, l, alpha."""
+def smem_bytes(bq: int, bk: int, d: int, dtype: Optional[torch.dtype] = None) -> int:
+    """Dynamic shared memory of one CTA, by the kernel's formula; with no
+    ``dtype``, the larger of the float32 and bfloat16 instances (what
+    ``legalize`` binds).
+
+    - decode (bq == 1): 4 / itemsize stages (f32 one, bf16 two) of K and V
+      tiles, rows of d elements + 16 bytes; f32 Q (8 x d), scores (8 x bk),
+      m, l, alpha;
+    - many rows, bf16 (tensor cores): two stages of K and V, rows of d + 8
+      bf16;
+    - many rows, f32 (FMA): Q (bq x d), K (bk x d+1), V (bk x d), scores
+      (bq x bk), m, l, alpha, all f32.
+    """
+    if dtype is None:
+        return max(smem_bytes(bq, bk, d, t) for t in (torch.float32, torch.bfloat16))
+    item = torch.empty((), dtype=dtype).element_size()
+    if bq == 1:
+        return (4 // item) * 2 * bk * (d * item + 16) + 4 * DECODE_ROWS * (d + bk + 3)
+    if dtype == torch.bfloat16:
+        return 2 * 2 * bk * (d + 8) * 2
     return 4 * (bq * d + bk * (d + 1) + bk * d + bq * bk + 3 * bq)
 
 
 class FlashAttentionSpace(KernelSpace):
     """Co-design space of the CUDA flash-attention kernel: shape =
-    (Sq, Skv, D) per head, BlockConfig = (bq, bk)."""
+    (Sq, Skv, D) per head, BlockConfig = (bq, bk). Calibrated in bf16, the
+    dtype both models launch, and held to its plain version within
+    ``tolerance`` (one bf16 rounding of P and of the output)."""
 
     name = "flash_attention_h100"
+    dtype = torch.bfloat16
+    tolerance = 3e-2
     decode_dims = ("q", "k")
     grid_dims = ("q",)
     search_budget = 200
@@ -70,7 +93,7 @@ class FlashAttentionSpace(KernelSpace):
         """BINDING repair into a compiled tile: bq = 1 for decode (Sq == 1)
         and 64 otherwise; bk the proposal rounded down to a multiple of 32,
         within [32, min(MAX_BK, Skv rounded up to 32)], shrunk until the
-        CTA fits ``smem_budget``. Never raises."""
+        CTA fits ``smem_budget`` in both dtypes. Never raises."""
         _bq, bk = (int(c) for c in config)
         Sq, Skv, D = (int(s) for s in shape)
         budget = int(smem_budget or self.smem_budget)
@@ -91,7 +114,7 @@ class FlashAttentionSpace(KernelSpace):
     def example_inputs(self, shape, device, generator):
         Sq, Skv, D = shape
         return tuple(
-            torch.randn((1, S, 1, D), generator=generator, device=device)
+            torch.randn((1, S, 1, D), generator=generator, device=device).to(self.dtype)
             for S in (Sq, Skv, Skv)
         )
 
@@ -147,7 +170,17 @@ def flash_attention(
     check_blocks(bq, bk)
     if not (q.is_cuda or q.device.type == "cpu"):
         raise ValueError(f"flash attention has no path for device {q.device}")
-    return _FlashAttention.apply(q, k, v, causal, scale, int(q_offset), kv_len, bq, bk)
+    args = (causal, scale, int(q_offset), kv_len, bq, bk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, *args)
+    return _forward(q, k, v, *args)  # no graph to record: skip autograd's dispatch
+
+
+def _forward(q, k, v, causal, scale, q_offset, kv_len, bq, bk):
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                                    kv_len=kv_len, bq=bq, bk=bk)
+    return _plain(q, k, v, causal, scale, q_offset, kv_len)
 
 
 def _plain(q, k, v, causal, scale, q_offset, kv_len):
@@ -163,16 +196,13 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, bq, bk):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, scale, q_offset, kv_len)
-        if q.is_cuda:
-            return flash_attention_cuda(
-                q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                kv_len=kv_len, bq=bq, bk=bk,
-            )
-        return _plain(q, k, v, causal, scale, q_offset, kv_len)
+        return _forward(q, k, v, causal, scale, q_offset, kv_len, bq, bk)
 
     @staticmethod
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # the range lets a profile attribute the plain backward's device time
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
             out = _plain(*inputs, *ctx.args)
-        return (*torch.autograd.grad(out, inputs, g), None, None, None, None, None, None)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None, None, None, None, None, None)

@@ -13,6 +13,13 @@
 //   dte    = exp(cum)                               (cl)
 // L comes from differences of the inclusive cumsum, as on the TPU, and the
 // exponentials underflow to 0 over long chunks exactly as they do there.
+// Over a 256-step chunk cum reaches ~-180, where an f32 ulp is ~1.5e-5, so
+// cum is never stored whole: warp 0's lane t sums a run of `per` consecutive
+// steps in f32 (lo_s, a few units at most) and the lanes' totals are scanned
+// in f64 (hi_s, the sum of the runs before step s's run, kept per step).
+// cum_i - cum_j is then (hi_i - hi_j) rounded once to f32, plus lo_i - lo_j:
+// a pair of nearby steps (the entries of L that are not negligible) never
+// sees the rounding of a large cum.
 //
 // What bounds it on this card: operations. Per chunk of 256 steps with
 // n = hp = 64 the lower-triangular products are ~10.5 MFLOP against ~280 KB
@@ -64,10 +71,15 @@ struct Args {
   long long c_sb, c_sl, c_sh;
 };
 
-// Shared memory in floats: cum (cl, rounded up to 4) and four 64 x kPad tiles.
+// Shared memory in floats: hi (cl doubles, rounded up to 2), lo (cl, rounded
+// up to 4; both keep the tiles 16-byte aligned) and four 64 x kPad tiles.
 __host__ __device__ constexpr int smem_floats(int cl) {
-  return (cl + 3) / 4 * 4 + 4 * kT * kPad;
+  return (cl + 1) / 2 * 4 + (cl + 3) / 4 * 4 + 4 * kT * kPad;
 }
+
+// Steps of the chunk per lane of the cumsum: a multiple of 4, so the 4 rows
+// (or columns) a thread owns in a 64-step tile lie in one lane's run.
+__host__ __device__ constexpr int steps_per_lane(int cl) { return ((cl + 31) / 32 + 3) / 4 * 4; }
 
 // dst[k * kPad + r] = src row (r0 + r), element k: a (rows x dims) tile of
 // the model layout stored dim-major; zeros outside the chunk and the dims.
@@ -124,8 +136,9 @@ __device__ __forceinline__ void accumulate_rows(float (&acc)[4][4], const float*
 
 __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(const Args a) {
   extern __shared__ float4 smem4[];
-  float* cum = reinterpret_cast<float*>(smem4);
-  float* t0 = cum + (a.cl + 3) / 4 * 4;
+  double* hi = reinterpret_cast<double*>(smem4);          // hi[s]: the sum before s's run
+  float* lo = reinterpret_cast<float*>(hi + (a.cl + 1) / 2 * 2);  // lo[s]: the run up to s
+  float* t0 = lo + (a.cl + 3) / 4 * 4;
   float* t1 = t0 + kT * kPad;
   float* t2 = t1 + kT * kPad;
   float* t3 = t2 + kT * kPad;
@@ -146,25 +159,27 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(const Args a)
   const float* B = a.B + bi * a.b_sb + l0 * a.b_sl + h * a.b_sh;
   const float* C = a.C + bi * a.c_sb + l0 * a.c_sl + h * a.c_sh;
 
-  // Inclusive cumsum of dA over the chunk by warp 0: each lane sums a run of
-  // consecutive steps, then the lanes scan their totals.
+  // Inclusive cumsum of dA over the chunk by warp 0, as cum_s = hi[s] +
+  // lo[s]: each lane sums its run of steps in f32, then the lanes scan their
+  // totals in f64.
   if (tid < 32) {
-    const int per = (a.cl + 31) / 32, s0 = tid * per, s1 = min(s0 + per, a.cl);
+    const int per = steps_per_lane(a.cl), s0 = tid * per, s1 = min(s0 + per, a.cl);
     float run = 0.f;
     for (int s = s0; s < s1; ++s) {
       run += __ldg(dA + s * a.a_sl);
-      cum[s] = run;
+      lo[s] = run;
     }
-    float incl = run;
+    double incl = run;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, incl, o);
+      const double up = __shfl_up_sync(0xffffffffu, incl, o);
       if (tid >= o) incl += up;
     }
-    const float offset = incl - run;
-    for (int s = s0; s < s1; ++s) cum[s] += offset;
+    for (int s = s0; s < s1; ++s) hi[s] = incl - run;
   }
   __syncthreads();
+  // cum_i - cum_j, rounded once
+  auto cum_diff = [&](int i, int j) { return (float)(hi[i] - hi[j]) + (lo[i] - lo[j]); };
 
   float acc[4][4];
 #pragma unroll
@@ -175,12 +190,11 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(const Args a)
   if (tile == n_row_tiles) {
     // The state CTA: S_c[k, p] = sum_j B[j, k] * exp(cum_end - cum_j) * x[j, p]
     // for k = ty*4 + ., p = tx*4 + .; and dte = exp(cum).
-    const float cum_end = cum[a.cl - 1];
     float* w = t3;  // exp(cum_end - cum_j) of the current column tile
     for (int j0 = 0; j0 < a.cl; j0 += kT) {
       const int cols = min(kT, a.cl - j0);
       __syncthreads();
-      for (int j = tid; j < kT; j += kThreads) w[j] = j < cols ? expf(cum_end - cum[j0 + j]) : 0.f;
+      for (int j = tid; j < kT; j += kThreads) w[j] = j < cols ? expf(cum_diff(a.cl - 1, j0 + j)) : 0.f;
       __syncthreads();
       load_transposed(t0, B, a.b_sl, j0, cols, a.n);    // t0[k][j] = B[j0 + j, k]
       load_rows(t1, x, a.x_sl, j0, cols, a.hp, w);      // t1[j][p] = x[j0 + j, p] * w[j]
@@ -198,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(const Args a)
       }
     }
     for (int s = tid; s < a.cl; s += kThreads)
-      a.dte[((long long)bi * L + l0 + s) * a.nh + h] = expf(cum[s]);
+      a.dte[((long long)bi * L + l0 + s) * a.nh + h] = expf((float)(hi[s] + lo[s]));
     return;
   }
 
@@ -236,14 +250,21 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_chunk_kernel(const Args a)
       fma4(s[2], cv.z, bv);
       fma4(s[3], cv.w, bv);
     }
+    // this thread's 4 rows lie in one lane's run, and so do its 4 columns:
+    // one hi difference serves them all, folded into the rows' lo
+    const int r0 = i0 + ty * 4, c0 = j0 + tx * 4;
+    const float dh = r0 < a.cl && c0 < a.cl ? (float)(hi[r0] - hi[c0]) : 0.f;
+    const float4 lc = *reinterpret_cast<const float4*>(lo + c0);
+    const float lcol[4] = {lc.x, lc.y, lc.z, lc.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = i0 + ty * 4 + i;
+      const int r = r0 + i;
+      const float lr = lo[r] + dh;
       float out[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = j0 + tx * 4 + j;
-        out[j] = (r < a.cl && col <= r) ? s[i][j] * expf(cum[r] - cum[col]) : 0.f;
+        const int col = c0 + j;
+        out[j] = (r < a.cl && col <= r) ? s[i][j] * expf(lr - lcol[j]) : 0.f;
       }
       Ss4[(ty * 4 + i) * kPad4 + tx] = make_float4(out[0], out[1], out[2], out[3]);
     }

@@ -33,9 +33,9 @@ from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, ROW_TILE, ssd_intra
 
 def smem_bytes(cl: int) -> int:
     """Dynamic shared memory of one CTA, by the kernel's formula: the
-    chunk's cumulative decay (cl, rounded up to 4) and four 64 x 68 f32
-    tiles."""
-    return 4 * ((cl + 3) // 4 * 4 + 4 * ROW_TILE * (ROW_TILE + 4))
+    chunk's cumulative decay as cl f64 offsets (rounded up to 2) and cl f32
+    runs (rounded up to 4), and four 64 x 68 f32 tiles."""
+    return 8 * ((cl + 1) // 2 * 2) + 4 * ((cl + 3) // 4 * 4 + 4 * ROW_TILE * (ROW_TILE + 4))
 
 
 class SsdScanSpace(KernelSpace):

@@ -83,18 +83,20 @@ def ssd_intra_chunk_ref(
     B: torch.Tensor,  # (b, l, nh, n) f32
     C: torch.Tensor,  # (b, l, nh, n) f32
     chunk: int,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """What ``_ssd_kernel`` computes for every (b, h, c) program, in the CUDA
     kernel's layouts: y_diag (b, l, nh, hp), S_c (b, nc, nh, n, hp) and
     dte = exp(cum) (b, l, nh). L is ``exp(cum_i - cum_j)`` masked to j <= i,
-    built from the inclusive cumsum as the kernel builds it."""
+    built from the inclusive cumsum as the kernel builds it. Computed in
+    ``dtype`` (float64 gives the exact answer the f32 versions are held to)."""
     b, l, nh, hp = x.shape
     n = B.shape[-1]
     nc = l // chunk
-    xr = x.reshape(b, nc, chunk, nh, hp).float()
-    Br = B.reshape(b, nc, chunk, nh, n).float()
-    Cr = C.reshape(b, nc, chunk, nh, n).float()
-    cum = torch.cumsum(dA.reshape(b, nc, chunk, nh).float(), dim=2)  # (b, nc, cl, nh)
+    xr = x.reshape(b, nc, chunk, nh, hp).to(dtype)
+    Br = B.reshape(b, nc, chunk, nh, n).to(dtype)
+    Cr = C.reshape(b, nc, chunk, nh, n).to(dtype)
+    cum = torch.cumsum(dA.reshape(b, nc, chunk, nh).to(dtype), dim=2)  # (b, nc, cl, nh)
     cum_h = cum.permute(0, 1, 3, 2)  # (b, nc, nh, cl)
     live = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     L = torch.where(live, torch.exp(cum_h[..., :, None] - cum_h[..., None, :]), 0.0)

@@ -17,20 +17,25 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models.layers import mha as jax_mha
 from repro_torch import kernels as torch_kernels
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
 from repro_torch import codesign
 from repro_torch.codesign import H100_SMEM_BUDGET
-from repro_torch.kernels.flash_attention.flash_attention import check_blocks
+from repro_torch.kernels.flash_attention.flash_attention import (
+    check_blocks,
+    live_keys,
+    n_split,
+)
 from repro_torch.kernels.flash_attention.ops import (
     FLASH_ATTENTION_H100,
     plan_blocks,
     planned_shape,
     smem_bytes,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, split_kv_ref
 from repro_torch.models.layers import mha
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -188,3 +193,102 @@ def test_flash_attention_d80_forward_matches_jax():
                                interpret=True)
     got = flash_attention(*_torch(arrs, "bfloat16"), causal=True)
     np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("b,hkv,live,bk,want", [
+    (8, 8, 512, 96, 3),  # qwen3-0.6b's decode at b=8: 64 CTAs x 3 cover 132 SMs
+    (1, 8, 512, 96, 6),  # 17 splits would cover the SMs; 6 KV tiles cap it
+    (1, 1, 512, 32, 16),
+    (1, 1, 4096, 32, 128),
+    (1, 1, 8192, 32, 132),  # one CTA per SM
+    (32, 8, 512, 96, 1),  # 256 CTAs already cover the SMs
+    (8, 8, 37, 96, 1),  # one tile
+    (8, 8, 0, 96, 1),  # nothing live: one empty part
+])
+def test_split_rule(b, hkv, live, bk, want):
+    got = n_split(b, hkv, live, bk)
+    assert got == want
+    tiles = -(-live // bk)
+    assert got == 1 or (b * hkv * (got - 1) < 132 and got <= tiles)
+    # the kernel's (and split_kv_ref's) cut: part s takes tiles [s n / parts, (s + 1) n / parts)
+    bounds = [(s * tiles // got * bk, min((s + 1) * tiles // got * bk, live)) for s in range(got)]
+    # the parts tile [0, live) in order, each on KV-tile boundaries
+    assert bounds[0][0] == 0 and bounds[-1][1] == live
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(bounds, bounds[1:]))
+    assert all(lo % bk == 0 and lo <= hi for lo, hi in bounds)
+    assert sum(hi > lo for lo, hi in bounds) == min(got, tiles)
+
+
+def test_live_keys():
+    assert live_keys(1, 300, 299, False) == 300
+    assert live_keys(4, 512, 10, True) == 14  # the last row sees keys 0-13
+    assert live_keys(4, 8, 10, True) == 8
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,causal,q_offset,kv_len,bk,parts", [
+    (1, 256, False, 99, 100, 32, 3),  # decode, every part live
+    (1, 256, False, 99, 100, 32, 8),  # more parts than the 4 live tiles: 4 empty
+    (1, 256, False, 0, 0, 32, 3),  # kv_len 0: every part empty, zeros out
+    (1, 256, False, 31, 32, 32, 1),  # kv_len == bk
+    (1, 256, False, 30, 31, 32, 2),  # kv_len == bk - 1
+    (1, 256, False, 255, 256, 64, 4),  # the whole cache
+    (5, 96, True, 3, 7, 32, 3),  # several positions: row 0 sees 4 keys, later parts empty for it
+    (3, 64, True, 0, None, 32, 2),  # causal from 0
+])
+def test_split_kv_ref_matches_jax(sq, skv, causal, q_offset, kv_len, bk, parts, dtype):
+    """The split decode's plain arithmetic (per-part partials merged by
+    log-sum-exp, with empty and fully masked parts) against the JAX
+    package's attention_ref on the same seeded inputs."""
+    b, hq, hkv, d = 2, 4, 2, 32
+    arrs = _qkv(12, b, sq, skv, hq, hkv, d)
+    to_bhsd = [np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in arrs]
+    want = jax_attention_ref(*_jax(to_bhsd, dtype), causal=causal, scale=1.0 / math.sqrt(d),
+                             q_offset=q_offset,
+                             kv_len=None if kv_len is None else jnp.int32(kv_len))
+    got = split_kv_ref(*_torch(to_bhsd, dtype), causal=causal, scale=1.0 / math.sqrt(d),
+                       bk=bk, parts=parts, q_offset=q_offset, kv_len=kv_len)
+    assert got.shape == (b, hq, sq, d) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+    if kv_len == 0:
+        assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.parametrize("bq,bk,d,dtype,want", [
+    # decode: f32 one stage, bf16 two, rows of d elements + 16 bytes, then
+    # f32 Q (8 x d), scores (8 x bk), m, l, alpha
+    (1, 96, 128, torch.bfloat16, 2 * 2 * 96 * 272 + 4 * 8 * (128 + 96 + 3)),
+    (1, 96, 128, torch.float32, 1 * 2 * 96 * 528 + 4 * 8 * (128 + 96 + 3)),
+    # many rows, bf16: two stages of K and V, rows of d + 8 bf16
+    (64, 96, 80, torch.bfloat16, 2 * 2 * 96 * 88 * 2),
+    # many rows, f32: Q, K (d+1), V, scores, m/l/alpha, all f32
+    (64, 96, 80, torch.float32, 4 * (64 * 80 + 96 * 81 + 96 * 80 + 64 * 96 + 3 * 64)),
+])
+def test_smem_formula_by_dtype(bq, bk, d, dtype, want):
+    """The space's shared-memory formula per instance (the card holds it
+    against the compiled ``fa_smem_bytes``, tests/test_torch_flash_attention_gpu.py),
+    and legalize binds the larger of the two dtypes."""
+    assert smem_bytes(bq, bk, d, dtype) == want
+    both = [smem_bytes(bq, bk, d, t) for t in (torch.float32, torch.bfloat16)]
+    assert smem_bytes(bq, bk, d) == max(both)
+
+
+@pytest.mark.parametrize("bq,d", [(1, 128), (64, 80)])
+def test_planned_decode_and_train_tiles_bind_by_the_larger_instance(bq, d):
+    """At the serving decode width and the training width, 96 keys fit the
+    budget in both dtypes and 128 do not in at least one: the planned tiles
+    stay (1, 96) and (64, 96)."""
+    assert smem_bytes(bq, 96, d) <= H100_SMEM_BUDGET < smem_bytes(bq, 128, d)
+
+
+def test_calibration_space_is_bf16_with_its_tolerance():
+    """The co-design loop calibrates the instance the models launch (bf16)
+    and holds it to its plain version within the bf16 tolerance."""
+    inputs = FLASH_ATTENTION_H100.example_inputs((64, 96, 80), "cpu",
+                                                 torch.Generator().manual_seed(0))
+    assert all(t.dtype == torch.bfloat16 for t in inputs)
+    assert FLASH_ATTENTION_H100.tolerance == TOL["bfloat16"]
+    got = FLASH_ATTENTION_H100.run(inputs, (64, 96))
+    want = FLASH_ATTENTION_H100.reference(inputs, (64, 96))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2, atol=3e-2)

@@ -7,6 +7,9 @@ runs where JAX is not installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_flash_attention_gpu.py
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-4 in float32, 3e-2 in bf16.
+Besides the planned tiles, the bf16 tensor-core instance is swept over
+every compiled head dim and KV tile, and the split decode over kv_len
+edges and split counts, with the KV cache read in place through strides.
 """
 
 import math
@@ -16,8 +19,16 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS,
+    MAX_BK,
+    flash_attention_cuda,
+    live_keys,
+    n_split,
+    smem_bytes,
+)
+from repro_torch.kernels.flash_attention.ops import smem_bytes as smem_formula
+from repro_torch.kernels.flash_attention.ref import attention_ref, split_kv_ref
 
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 SWEEP = [  # (b, sq, skv, hq, hkv, d, causal): test_flash_attention_sweep's shapes
@@ -59,3 +70,173 @@ def test_flash_kernel_matches_plain_on_gpu(b, sq, skv, hq, hkv, d, causal, q_off
         v[:, kv_len:] = 99.0
         again = flash_attention(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
         assert torch.equal(again, got)
+
+
+def _need_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+def _inputs(seed, b, sq, skv, hq, hkv, d, dtype):
+    """q (b, sq, hq, d), and k/v as views of one (b, skv, 2, hkv, d) cache:
+    strided, read in place."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32)).to("cuda", dt)
+    kv = torch.from_numpy(rng.standard_normal((b, skv, 2, hkv, d), np.float32)).to("cuda", dt)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def _want(q, k, v, **kw):
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                         **kw).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bk", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_bf16_tensor_core_instance_matches_plain(d, bk, causal, offset):
+    """The many-row bf16 instance (mma.sync) at every compiled head dim and
+    KV tile: ragged Sq and Skv (not multiples of 16 or 64), GQA 2:1, and
+    with ``offset`` a query offset with kv_len short of the cache."""
+    _need_gpu()
+    b, sq, skv, hq, hkv = 2, 77, 141, 4, 2
+    q_offset, kv_len = (20, 130) if offset else (0, skv)
+    q, k, v = _inputs(d + bk, b, sq, skv, hq, hkv, d, "bfloat16")
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), q_offset=q_offset, kv_len=kv_len)
+    got = flash_attention_cuda(q, k, v, bq=64, bk=bk, **kw)
+    torch.cuda.synchronize()
+    want = _want(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+    k[:, kv_len:] = 99.0
+    v[:, kv_len:] = 99.0
+    assert torch.equal(flash_attention_cuda(q, k, v, bq=64, bk=bk, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [32, 96])
+@pytest.mark.parametrize("edge", ["0", "1", "bk-1", "bk", "skv"])
+def test_split_decode_kv_len_edges(edge, bk, dtype):
+    """Decode over a strided cache with the rule's split count: kv_len 0,
+    1, bk - 1, bk and the whole cache; slots past kv_len are never read."""
+    _need_gpu()
+    b, skv, hq, hkv, d = 2, 512, 8, 2, 128
+    kv_len = {"0": 0, "1": 1, "bk-1": bk - 1, "bk": bk, "skv": skv}[edge]
+    q_offset = max(kv_len - 1, 0)
+    q, k, v = _inputs(kv_len, b, 1, skv, hq, hkv, d, dtype)
+    kw = dict(causal=False, scale=1.0 / math.sqrt(d), q_offset=q_offset, kv_len=kv_len)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1  # one call, split or not
+    want = _want(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    if kv_len == 0:
+        assert torch.count_nonzero(got) == 0
+    k[:, kv_len:] = 99.0
+    v[:, kv_len:] = 99.0
+    assert torch.equal(flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parts", range(1, 11))
+def test_split_decode_every_split_count(parts, dtype):
+    """Each split count the rule gives at b=1, hkv=2 in tiles of 32 keys
+    (kv_len sets the tiles, so 1 to 10 parts), against attention_ref and
+    against the plain split arithmetic (split_kv_ref) on the same bounds."""
+    _need_gpu()
+    b, skv, hq, hkv, d, bk = 1, 384, 4, 2, 64, 32
+    kv_len = 32 * parts - 5
+    assert n_split(b, hkv, kv_len, bk) == parts
+    q, k, v = _inputs(parts, b, 1, skv, hq, hkv, d, dtype)
+    kw = dict(causal=False, scale=1.0 / math.sqrt(d), q_offset=kv_len - 1, kv_len=kv_len)
+    got = flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw), got)
+    for want in (_want(q, k, v, **kw),
+                 split_kv_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              bk=bk, parts=parts, **kw).transpose(1, 2)):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,q_offset,kv_len", [
+    (2, 1, 200, 16, 1, 64, False, 150, 151),  # MQA: 16 q-heads, two groups of 8 rows; 5 parts
+    (1, 1, 200, 24, 2, 80, False, 199, 200),  # 12 q-heads per kv-head; 7 parts
+    (2, 5, 160, 4, 2, 32, True, 40, 45),  # bq = 1 at several causal positions; 2 parts
+    (1, 60, 128, 2, 2, 16, True, 40, None),  # 4 parts; the first rows' later parts are empty
+])
+def test_split_decode_groups_and_positions(b, sq, skv, hq, hkv, d, causal, q_offset, kv_len,
+                                           dtype):
+    _need_gpu()
+    q, k, v = _inputs(hq + sq, b, sq, skv, hq, hkv, d, dtype)
+    kv_len_ = skv if kv_len is None else kv_len
+    kw = dict(causal=causal, scale=1.0 / math.sqrt(d), q_offset=q_offset)
+    got = flash_attention_cuda(q, k, v, bq=1, bk=32, kv_len=kv_len_, **kw)
+    torch.cuda.synchronize()
+    want = _want(q, k, v, kv_len=kv_len, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    live = live_keys(sq, kv_len_, q_offset, causal)
+    again = split_kv_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), kv_len=kv_len,
+                         bk=32, parts=n_split(b, hkv, live, 32), **kw).transpose(1, 2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), again.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compiled_smem_equals_the_space_formula(dtype):
+    """The compiled fa_smem_bytes equals ops.smem_bytes for every instance
+    of each dtype (legalize binds the Python formula)."""
+    _need_gpu()
+    for bq in (1, 64):
+        for bk in range(32, MAX_BK + 1, 32):
+            for d in HEAD_DIMS:
+                assert smem_bytes(bq, bk, d, dtype) == smem_formula(bq, bk, d, dtype), (bq, bk, d)
+
+
+@pytest.mark.gpu
+def test_split_decode_keeps_no_state_between_calls():
+    """A split decode shares nothing between calls: calls in flight on two
+    streams at once, and replays of a captured CUDA graph, give the bits of
+    the eager call on the same inputs."""
+    _need_gpu()
+    b, skv, hq, hkv, d, bk, kv_len = 2, 512, 8, 2, 128, 32, 500
+    kw = dict(causal=False, scale=1.0 / math.sqrt(d), q_offset=kv_len - 1, kv_len=kv_len,
+              bq=1, bk=bk)
+    assert n_split(b, hkv, kv_len, bk) > 1
+    inputs = [_inputs(seed, b, 1, skv, hq, hkv, d, "bfloat16") for seed in (7, 8)]
+    wants = [flash_attention_cuda(*x, **kw) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in inputs]
+    outs = [[] for _ in inputs]
+    for _ in range(20):
+        for x, st, out in zip(inputs, streams, outs):
+            with torch.cuda.stream(st):
+                out.append(flash_attention_cuda(*x, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for out, want in zip(outs, wants) for o in out)
+
+    q, k, v = inputs[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = flash_attention_cuda(q, k, v, **kw)
+    for seed in (9, 10):
+        q.copy_(_inputs(seed, b, 1, skv, hq, hkv, d, "bfloat16")[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, flash_attention_cuda(q, k, v, **kw))

@@ -125,3 +125,22 @@ def test_flash_backward_matches_plain_on_gpu():
                       scale=1.0 / math.sqrt(80)).transpose(1, 2), (q, k, v), g)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.cpu().numpy(), w.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("shared_bc", [False, True])
+def test_ssd_kernel_within_tolerance_of_exact_at_training_shape(shared_bc, seed):
+    """At zamba2-2.7b's training shape, where the chunk's cumulative decay
+    reaches ~-180, the kernel is held to the plain version evaluated in
+    float64 (the exact answer) within rtol = atol = 1e-4, on several
+    seeded inputs."""
+    _cuda_or_skip()
+    shape = SSD_SHAPES[-1]
+    x, dA, B, C = _ssd_inputs(*shape[:5], shared_bc, seed=seed)
+    got = ssd_intra_chunk_cuda(x, dA, B, C, shape[5])
+    want = ssd_intra_chunk_ref(x, dA, B, C, shape[5], dtype=torch.float64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(), w.cpu().numpy(),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
