@@ -8,15 +8,21 @@ Phases (any failure raises and the exit code is non-zero):
      H100 hierarchy (``h100_sm``) assumes;
   2. build: every CUDA kernel of the port with nvcc for sm_90a, one process
      per source, printing each instance's registers, shared memory and
-     spills (ptxas -v); a bf16 flash-attention instance that spills fails;
+     spills (ptxas -v); a bf16 flash-attention instance or a wgmma matmul
+     instance that spills fails;
   plan: every tile the later phases launch, planned by ``codesign.plan`` on
      the H100 hierarchy before any timed window (a cold search takes tenths
      of a second on the host), printed with its source; each space's
      shared-memory formula is held against the compiled kernel's;
   3. kernels: each kernel against its plain PyTorch version on the card:
-     the matmul kernel at test_matmul_sweep's shapes in f32 and bf16 with
-     the planned tile, at every compiled CTA tile, with leading dims and
-     transposed operands, and its autograd grads;
+     the matmul kernel's two instances (bf16 wgmma + TMA; f32 FMA, which
+     also takes bf16 that TMA cannot read): every wgmma tile and operand
+     orientation first at a tiny shape under a host-side time limit, then
+     test_matmul_sweep's shapes in f32 and bf16 with the planned tile on the
+     routed instance (counted per instance), every wgmma tile in all four
+     orientations with f32 and bf16 outputs and 1 to the most stages, every
+     compiled FMA tile and K slice with aligned, unaligned and transposed
+     operands, leading dims, and the autograd grads in f32 and bf16;
      flash attention's split decode at the serving shape in bf16 and f32
      (kv_len 0, 1, 37, bk - 1, bk, 300, 512; slots past kv_len unread), the
      causal prefill and the zamba2 training shape (D = 80, causal, bf16),
@@ -25,12 +31,21 @@ Phases (any failure raises and the exit code is non-zero):
      shapes and the zamba2 training shape with B/C materialised and
      expanded over heads with stride 0, and ``ssd_chunked`` against the
      token-by-token recurrence;
-  4. serve: qwen3-0.6b at full width (random weights from a seeded
+  4. codesign: the co-design loop (``repro_torch.launch.quickstart``): plan
+     quickstart step 4's 512x3072x768 GEMM in each dtype's space, launch it
+     with the planned tile in f32 and bf16 and check it, then calibrate
+     every kernel space on the card (``calibrate_kernel``: the planned tile,
+     CUDA-event time next to the model's prediction; both matmul spaces)
+     and print the calibration table; every kernel must have launched in
+     it, every bf16 matmul launch on the wgmma instance (per-instance counts
+     and the kernel name in a profiler window over bf16 calibration
+     launches, the process's first profiler window);
+  5. serve: qwen3-0.6b at full width (random weights from a seeded
      generator on the card), 16 requests through ``WaveServer`` with the
      kernels on; the kernel launch counts must match the steps run, and one
      wave's first decode-step logits are checked against the kernels-off
      (chunked attention) decode and against the full forward pass;
-  5. train: zamba2-2.7b at full width (2.90 B parameters, random weights
+  6. train: zamba2-2.7b at full width (2.90 B parameters, random weights
      from a seeded generator) through ``repro_torch.launch.train.main``:
      batch 2 x 2048 tokens of ``SyntheticLM``, 8 AdamW steps, remat on,
      kernels on. Losses must be finite and fall, and the kernels must have
@@ -39,19 +54,15 @@ Phases (any failure raises and the exit code is non-zero):
      kernels off, and one train step is profiled (device busy share,
      flash attention's share, the plain attention backward's device time,
      top kernels);
-  6. codesign: the co-design loop (``repro_torch.launch.quickstart``): plan
-     quickstart step 4's 512x3072x768 GEMM, launch it with the planned tile
-     in f32 and bf16 and check it, then calibrate every kernel space on the
-     card (``calibrate_kernel``: the planned tile, CUDA-event time next to
-     the model's prediction) and print the calibration table; every kernel
-     must have launched in it;
   7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
      at decode (eager calls, as serving pays them, and device time by
      CUDA-graph replay; GB/s, n_split) and at the training shape (TFLOP/s; the
-     planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at three
-     shapes beside ``torch.matmul``; serving tokens/s, decode-step time,
+     planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
+     four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
+     the plain version without its last 64 of K must fail the tolerance);
+     serving tokens/s, decode-step time,
      train step time, tokens/s and peak memory. Every time is stamped with
      the card and its power limit.
 The line before the last is the kernels' JSON record; the last line is
@@ -63,6 +74,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -94,11 +106,21 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention.ops import smem_bytes as fa_smem_formula  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
-from repro_torch.kernels.matmul import matmul, plan_tiles  # noqa: E402
-from repro_torch.kernels.matmul.matmul import TILES as MM_TILES  # noqa: E402
-from repro_torch.kernels.matmul.matmul import lib_smem_bytes, matmul_cuda  # noqa: E402
+from repro_torch.kernels.matmul import instance_for, matmul, plan_for, plan_tiles  # noqa: E402
+from repro_torch.kernels.matmul.matmul import (  # noqa: E402
+    TC_BK,
+    TC_BM,
+    TC_BN,
+    encode_ns,
+    fma_tiles,
+    lib_smem_bytes,
+    lib_tc_smem_bytes,
+    matmul_cuda,
+    reset_launches,
+    tc_smem_bytes,
+)
 from repro_torch.kernels.matmul.matmul import smem_bytes as mm_smem_formula  # noqa: E402
-from repro_torch.kernels.matmul.ops import MATMUL_H100  # noqa: E402
+from repro_torch.kernels.matmul.ops import MATMUL_BF16_H100, MATMUL_H100  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_launcher  # noqa: E402
@@ -167,10 +189,17 @@ MODEL_LOGIT_TOL = 0.25
 # TF32), one bf16 rounding of the output.
 MM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 MM_SWEEP = [(128, 128, 128), (256, 128, 384), (300, 200, 100), (64, 512, 256), (1, 257, 33)]
-# (M, N, K, dtype) timed: quickstart step 4's GEMM; qwen3-0.6b's gate/up
-# projection at 4096 tokens; zamba2-2.7b's FFN up projection at 2 x 2048 tokens
-MM_TIMED = [(512, 3072, 768, torch.float32), (4096, 3072, 1024, torch.bfloat16),
-            (4096, 10240, 2560, torch.bfloat16)]
+# (M, N, K, dtype) timed: the co-design loop's four calibration shapes
+# (quickstart step 4's GEMM, a cube, qwen3-0.6b's gate/up projection at 4096
+# tokens, zamba2-2.7b's FFN up projection at 2 x 2048 tokens), each in both
+# dtypes: f32 on the FMA instance, bf16 on the wgmma instance
+MM_TIMED = [(*shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+            for shape in quickstart.MATMUL_SHAPES]
+MM_SPACES = {torch.float32: MATMUL_H100, torch.bfloat16: MATMUL_BF16_H100}
+# every operand orientation the op and its backward give the wgmma instance:
+# (A M-major, B N-major); the forward is (False, True)
+MM_ORIENTS = [(False, True), (False, False), (True, True), (True, False)]
+MM_HANG_S = 30.0  # a first launch not done by then has hung: fail with its tile
 FA_FIXED_RULE = (64, 128)  # the earlier fixed rule's tile, timed beside the planned one
 
 
@@ -244,11 +273,10 @@ def phase_build() -> None:
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, one process "
           f"per source)")
-    spilled = []
+    spilled, n_wgmma = [], 0
     for name, log in logs.items():
         for kernel, regs, spill, smem in _ptxas_report(log):
             line = f"  {name}: {kernel}: {regs} registers, {spill} bytes spilled, {smem} B static smem"
-            m = re.search(r"<(\w+), (\d+), (\d+)>", kernel)
             if name == "flash_attention" and (fa := _fa_instance(kernel)):
                 what, is_bf16 = fa
                 line += f" [{what}]"
@@ -257,12 +285,27 @@ def phase_build() -> None:
             if name == "ssd_scan":
                 cl = SSD_TRAIN[5]
                 line += f", {ssd_launcher.smem_bytes(cl)} B dynamic smem at cl={cl}"
-            if name == "matmul" and m:
-                bm, bn = int(m.group(2)), int(m.group(3))
-                line += f", {lib_smem_bytes(bm, bn, 32)} B dynamic smem at bk=32"
+            if name == "matmul" and (m := re.search(r"matmul_fma_kernel<(\w+), (\d+), (\d+), (\d+)>",
+                                                    kernel)):
+                bm, bn, bk = (int(g) for g in m.groups()[1:])
+                line += (f", {lib_smem_bytes(bm, bn, bk)} B dynamic smem [FMA instance, "
+                         f"{m.group(1)} in]")
+            if name == "matmul_wgmma":  # every instance, whatever its name demangles to
+                n_wgmma += 1
+                if spill:
+                    spilled.append(kernel)
+                if (m := re.search(r"matmul_wgmma_kernel<(\d+), (\d+), (\d+), (\d+)>", kernel)):
+                    bm, bn, ta, tb = (int(g) for g in m.groups())
+                    bk = MATMUL_BF16_H100.legalize((bm, bn, 1 << 20), (1 << 20,) * 3)[2]
+                    line += (f" [bf16 wgmma instance, A {'M' if ta else 'K'}-major, B "
+                             f"{'N' if tb else 'K'}-major; {lib_tc_smem_bytes(bm, bn, bk)} B "
+                             f"dynamic smem at its deepest ring, {bk // TC_BK} stages]")
             print(line)
-    check(not spilled, f"bf16 flash-attention instances spill registers: {spilled}")
-    print("build: no bf16 flash-attention instance spills")
+    n_tiles = len(TC_BM) * len(TC_BN) * len(MM_ORIENTS)
+    check(n_wgmma == n_tiles, f"matmul_wgmma compiled {n_wgmma} instances, want {n_tiles}")
+    check(not spilled, f"bf16 flash-attention or wgmma matmul instances spill registers: {spilled}")
+    print(f"build: no bf16 flash-attention instance and none of the {n_wgmma} wgmma matmul "
+          f"instances spills")
 
 
 def phase_plan() -> dict:
@@ -278,9 +321,8 @@ def phase_plan() -> dict:
             ("flash_attention decode (qwen3-0.6b)", FLASH_ATTENTION_H100, (1, cache, d)),
             ("flash_attention train (zamba2-2.7b)", FLASH_ATTENTION_H100, (S, S, dt)),
             ("ssd_scan (zamba2-2.7b hp, n)", SSD_SCAN_H100, SSD_TRAIN[3:5]),
-            *((f"matmul {M}x{N}x{K}", MATMUL_H100, (M, N, K))
-              for M, N, K in [quickstart.GEMM] + [s[:3] for s in MM_TIMED[1:]]
-              + quickstart.CALIBRATION_SHAPES["matmul_h100"][1:])):
+            *((f"matmul {str(dtype)[6:]} {M}x{N}x{K}", MM_SPACES[dtype], (M, N, K))
+              for M, N, K, dtype in MM_TIMED)):
         if (space.name, tuple(shape)) in plans:
             continue
         t1 = time.perf_counter()
@@ -293,11 +335,16 @@ def phase_plan() -> dict:
     check(plan_blocks(1, cache, d) == plans[(FLASH_ATTENTION_H100.name, (1, cache, d))].config
           and plan_blocks(S, S, dt) == plans[(FLASH_ATTENTION_H100.name, (S, S, dt))].config
           and plan_chunk(*SSD_TRAIN[3:5]) == plans[(SSD_SCAN_H100.name, SSD_TRAIN[3:5])].config[0]
-          and plan_tiles(*quickstart.GEMM) == plans[(MATMUL_H100.name, quickstart.GEMM)].config,
+          and plan_tiles(*quickstart.GEMM) == plans[(MATMUL_H100.name, quickstart.GEMM)].config
+          and plan_tiles(*quickstart.GEMM, dtype=torch.bfloat16)
+          == plans[(MATMUL_BF16_H100.name, quickstart.GEMM)].config,
           "the ops' planned tiles differ from codesign.plan's")
     for (name, shape), p in plans.items():
+        space = codesign.get_space(name)
         if name == MATMUL_H100.name:
             got, want = lib_smem_bytes(*p.config), mm_smem_formula(*p.config)
+        elif name == MATMUL_BF16_H100.name:  # the whole opt-in: one CTA an SM
+            got, want = lib_tc_smem_bytes(*p.config), tc_smem_bytes(*p.config)
         elif name == FLASH_ATTENTION_H100.name:  # each dtype's instance; legalize binds the larger
             got, want = ([f(*p.config, shape[2], t) for t in (torch.float32, torch.bfloat16)]
                          for f in (smem_bytes, fa_smem_formula))
@@ -307,11 +354,13 @@ def phase_plan() -> dict:
         else:
             got, want = ssd_launcher.smem_bytes(p.config[0]), ssd_smem_formula(p.config[0])
         check(got == want, f"{name} {p.config}: kernel smem {got} B != the space's formula {want} B")
-        check(got <= codesign.H100_SMEM_BUDGET, f"{name} {p.config}: {got} B over the budget")
+        check(got <= space.smem_budget, f"{name} {p.config}: {got} B over the space's budget "
+                                        f"{space.smem_budget} B")
     print(f"plan: {len(plans)} tiles in {time.perf_counter() - t0:.2f} s on the host; shared "
           f"memory of each planned CTA (flash attention: in f32 and bf16) equals its space's "
-          f"formula and fits the "
-          f"{codesign.H100_SMEM_BUDGET} B budget; planner {codesign.planner_stats()}")
+          f"formula and fits the space's budget ({codesign.H100_SMEM_BUDGET} B; "
+          f"{MATMUL_BF16_H100.name}: the {MATMUL_BF16_H100.smem_budget} B opt-in); planner "
+          f"{codesign.planner_stats()}")
     return plans
 
 
@@ -449,6 +498,12 @@ def _mm_inputs(gen, M, N, K, dtype):
             torch.randn((K, N), generator=gen, device="cuda").to(dtype))
 
 
+def _mm_orient(x, y, a_mn, b_mn):
+    """The same matrices laid out M-major (A) or K-major (B) where asked:
+    the layouts of x^T and y^T that the backward hands the kernel."""
+    return (x.t().contiguous().t() if a_mn else x), (y if b_mn else y.t().contiguous().t())
+
+
 def _check_mm(label, got, want, dtype):
     torch.cuda.synchronize()
     err, ok = _allclose([got], [want], MM_TOL[dtype])
@@ -456,46 +511,104 @@ def _check_mm(label, got, want, dtype):
     return err
 
 
+def _sync_within(label: str) -> None:
+    """Wait for the card under a host-side time limit: a launch that has not
+    finished by then has hung (a wrong mbarrier parity, say); report its
+    label and end the process, whose exit tears the context down. (The
+    kernel itself traps after 10 s in any wait.)"""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while True:
+        try:
+            if done.query():
+                return
+        except Exception as e:  # noqa: BLE001 - the CUDA error of a faulted launch
+            raise RuntimeError(f"{label}: the launch faulted: {e}") from e
+        if time.monotonic() - t0 > MM_HANG_S:
+            print(f"chip_smoke: {label} did not finish within {MM_HANG_S} s: hung", flush=True)
+            os._exit(3)
+        time.sleep(1e-3)
+
+
 def _check_matmul(gen) -> None:
-    """The matmul kernel against its plain version: test_matmul_sweep's
-    shapes with the planned tile, every compiled instance (both dtypes, at
-    a ragged shape), leading dims, transposed operands and the autograd
-    grads."""
+    """Both matmul instances against their plain version. First every wgmma
+    tile and orientation at a tiny shape, each under a host-side time limit;
+    then test_matmul_sweep's shapes with the planned tile, each on the
+    instance the rule routes it to; every wgmma tile in every operand
+    orientation with f32 and bf16 outputs at a ragged TMA-legal shape, with
+    the shallowest and deepest ring; every compiled FMA tile and K slice
+    with aligned, unaligned and transposed operands in both dtypes; leading
+    dims; the autograd grads in f32 and bf16, dx and dy on the kernel."""
+    for bm in TC_BM:
+        for bn in TC_BN:
+            for a_mn, b_mn in MM_ORIENTS:
+                x, y = _mm_orient(*_mm_inputs(gen, 64, 64, 64, torch.bfloat16), a_mn, b_mn)
+                got = matmul_cuda(x, y, bm=bm, bn=bn, bk=TC_BK, out_dtype=torch.float32)
+                label = f"wgmma tile ({bm}, {bn}, {TC_BK}) A M-major {a_mn} B N-major {b_mn}"
+                _sync_within(f"matmul {label} at 64x64x64")
+                _check_mm(label, got, matmul_ref(x, y, torch.float32), torch.bfloat16)
+    print(f"kernel matmul wgmma: every tile {TC_BM} x {TC_BN} in all four operand orientations "
+          f"finished at 64x64x64 within {MM_HANG_S} s and matches")
     for M, N, K in MM_SWEEP:
-        tiles = plan_tiles(M, N, K)
         for dtype in (torch.float32, torch.bfloat16):
             x, y = _mm_inputs(gen, M, N, K, dtype)
+            inst, tiles = instance_for(x, y), plan_for(x, y)
+            before = dict(matmul_cuda.launches_by_instance)
             err = _check_mm(f"{M}x{N}x{K}", matmul(x, y), matmul_ref(x, y), dtype)
-            print(f"kernel matmul {M}x{N}x{K} {str(dtype)[6:]} planned tile {tiles}: max abs err "
-                  f"{err:.3g} (rtol = atol = {MM_TOL[dtype]})")
+            check(matmul_cuda.launches_by_instance[inst] == before[inst] + 1,
+                  f"matmul {M}x{N}x{K} {dtype} did not launch on the {inst} instance")
+            print(f"kernel matmul {M}x{N}x{K} {str(dtype)[6:]} on {inst}, planned tile {tiles}: max "
+                  f"abs err {err:.3g} (rtol = atol = {MM_TOL[dtype]})")
+    worst = 0.0
+    for bm in TC_BM:
+        for bn in TC_BN:
+            deepest = MATMUL_BF16_H100.legalize((bm, bn, 1 << 20), (1 << 20,) * 3)[2]
+            for a_mn, b_mn in MM_ORIENTS:
+                x, y = _mm_orient(*_mm_inputs(gen, 304, 200, 360, torch.bfloat16), a_mn, b_mn)
+                check(instance_for(x, y) == "wgmma", f"304x200x360 {x.stride()} {y.stride()}: not "
+                                                     f"routed to wgmma")
+                for out in (torch.float32, torch.bfloat16):
+                    for bk in (TC_BK, 2 * TC_BK, deepest):
+                        got = matmul_cuda(x, y, bm=bm, bn=bn, bk=bk, out_dtype=out)
+                        worst = max(worst, _check_mm(
+                            f"wgmma tile ({bm}, {bn}, {bk}) A M-major {a_mn} B N-major {b_mn} "
+                            f"-> {out}", got, matmul_ref(x, y, out), torch.bfloat16))
+    print(f"kernel matmul wgmma every tile {TC_BM} x {TC_BN}, rings of 1, 2 and the most stages, "
+          f"all four operand orientations, f32 and bf16 out, at 304x200x360 (ragged M, N, K): "
+          f"max abs err {worst:.3g}")
     worst = {}
-    for bm in MM_TILES:
-        for bn in MM_TILES:
-            for dtype in (torch.float32, torch.bfloat16):
-                x, y = _mm_inputs(gen, 300, 200, 100, dtype)
-                for bk in (16, 48):
+    for bm, bn, bk in fma_tiles():
+        for dtype in (torch.float32, torch.bfloat16):
+            for M, N, K in ((300, 200, 100), (257, 130, 77)):
+                for a_mn, b_mn in MM_ORIENTS:
+                    x, y = _mm_orient(*_mm_inputs(gen, M, N, K, dtype), a_mn, b_mn)
+                    check(instance_for(x, y) == "fma", f"{M}x{N}x{K} {dtype}: not routed to fma")
                     got = matmul_cuda(x, y, bm=bm, bn=bn, bk=bk, out_dtype=dtype)
-                    err = _check_mm(f"tile ({bm}, {bn}, {bk}) {dtype}", got, matmul_ref(x, y), dtype)
+                    err = _check_mm(f"fma tile ({bm}, {bn}, {bk}) {dtype} {M}x{N}x{K} A M-major "
+                                    f"{a_mn} B N-major {b_mn}", got, matmul_ref(x, y), dtype)
                     worst[dtype] = max(worst.get(dtype, 0.0), err)
-    print(f"kernel matmul every compiled tile {MM_TILES} x {MM_TILES}, bk 16 and 48, at 300x200x100: "
-          f"max abs err f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+    print(f"kernel matmul fma every compiled tile and K slice {fma_tiles()} at 300x200x100 (f32: "
+          f"16-byte loads) and 257x130x77 (odd strides: element loads), all four orientations "
+          f"(bf16 rows not 16-byte aligned, so routed to fma): max abs err f32 "
+          f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
     x = torch.randn((2, 3, 64, 32), generator=gen, device="cuda")
     y = torch.randn((32, 48), generator=gen, device="cuda")
     err = _check_mm("leading dims", matmul(x, y), matmul_ref(x, y), torch.float32)
-    xt, yt = (a.t().contiguous().t() for a in _mm_inputs(gen, 96, 160, 72, torch.float32))
-    err = max(err, _check_mm("transposed operands", matmul_cuda(
-        xt, yt, bm=64, bn=128, bk=32, out_dtype=torch.float32), matmul_ref(xt, yt), torch.float32))
-    print(f"kernel matmul (2, 3, 64, 32) x (32, 48) and column-major operands, f32: max abs err "
-          f"{err:.3g}")
-    x, y = (a.requires_grad_() for a in _mm_inputs(gen, 128, 128, 64, torch.float32))
-    g = torch.randn((128, 128), generator=gen, device="cuda")
-    before = matmul_cuda.launches
-    got = torch.autograd.grad(matmul(x, y), (x, y), g)
-    check(matmul_cuda.launches == before + 3, "the matmul grads did not run on the kernel")
-    want = torch.autograd.grad(matmul_ref(x, y), (x, y), g)
-    err = max(_check_mm("grads", a, w, torch.float32) for a, w in zip(got, want))
-    print(f"kernel matmul grads (128x64 . 64x128, f32; dx and dy on the kernel): max abs err "
-          f"{err:.3g} (rtol = atol = {MM_TOL[torch.float32]})")
+    print(f"kernel matmul (2, 3, 64, 32) x (32, 48) f32: max abs err {err:.3g}")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = (a.requires_grad_() for a in _mm_inputs(gen, 128, 128, 64, dtype))
+        g = torch.randn((128, 128), generator=gen, device="cuda").to(dtype)
+        inst = instance_for(x, y)
+        before = dict(matmul_cuda.launches_by_instance)
+        got = torch.autograd.grad(matmul(x, y), (x, y), g)
+        check(matmul_cuda.launches_by_instance[inst] == before[inst] + 3,
+              f"the matmul grads ({dtype}) did not run on the {inst} instance")
+        want = torch.autograd.grad(matmul_ref(x, y), (x, y), g)
+        err = max(_check_mm(f"grads {dtype}", a, w, dtype) for a, w in zip(got, want))
+        print(f"kernel matmul grads (128x64 . 64x128, {str(dtype)[6:]}; forward, dx = g . y^T and "
+              f"dy = x^T . g on the {inst} instance): max abs err {err:.3g} "
+              f"(rtol = atol = {MM_TOL[dtype]})")
 
 
 def _allclose(got, want, tol):
@@ -863,22 +976,35 @@ def _train_kernels_on_vs_off(stamp, cfg):
 
 
 def phase_codesign(stamp) -> dict:
-    """The co-design loop on the card: quickstart step 4 (plan the GEMM,
-    launch it with the planned tile in f32 and bf16, check it), then every
-    kernel space calibrated with CUDA events next to the model's
-    prediction. Returns the loop's kernel launches."""
-    matmul_cuda.launches = flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    """The co-design loop on the card: quickstart step 4 (plan the GEMM in
+    each dtype's space, launch it with the planned tile in f32 and bf16,
+    check it), then every kernel space calibrated with CUDA events next to
+    the model's prediction, both matmul spaces included. Every bf16 matmul
+    launch of the loop must have run on the wgmma instance, shown by the
+    per-instance counts and by the kernel name a profiler window over one
+    bf16 calibration launch records. Returns the loop's kernel launches."""
+    flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = quickstart.run_matmul(*quickstart.GEMM, "cuda")
     rows, scales = quickstart.calibrate("cuda")
     torch.cuda.synchronize()
     launches = {"matmul": matmul_cuda.launches, "flash_attention": flash_attention_cuda.launches,
                 "ssd_scan": ssd_intra_chunk_cuda.launches}
+    by_instance = dict(matmul_cuda.launches_by_instance)
     M, N, K = quickstart.GEMM
-    print(f"codesign: quickstart step 4, {M}x{N}x{K} planned on h100_sm(): tile {tuple(res['tiles'])}; "
-          f"kernel vs plain version max abs err {res['max_abs_err']} (tol {quickstart.TOL} x "
-          f"(1 + max |out|))")
+    print(f"codesign: quickstart step 4, {M}x{N}x{K} planned on h100_sm(): tiles "
+          f"{res['tiles_by_dtype']}; kernel vs plain version max abs err {res['max_abs_err']} "
+          f"(tol {quickstart.TOL} x (1 + max |out|))")
     check(all(n > 0 for n in launches.values()), f"the co-design loop missed a kernel: {launches}")
+    # step 4 launches once per dtype; each calibration row's launches are its space's dtype's
+    want = {"fma": 1 + sum(r["launches"] for r in rows if r["kernel"] == MATMUL_H100.name),
+            "wgmma": 1 + sum(r["launches"] for r in rows if r["kernel"] == MATMUL_BF16_H100.name)}
+    check(by_instance == want and res["launches_by_instance"] == {"wgmma": 1, "fma": 1},
+          f"matmul launches by instance {by_instance} (step 4: {res['launches_by_instance']}): "
+          f"every bf16 launch of the loop should be wgmma's, every f32 one fma's: {want}")
+    print(f"codesign: matmul launches by instance {by_instance}: every bf16 launch of the loop "
+          f"(step 4 and the {MATMUL_BF16_H100.name} rows) ran on wgmma, every f32 one on fma")
     print(f"calibration [{stamp}] (device rows; error after the per-kernel scale):")
     print(f"  {'space':22s} {'shape':20s} {'planned':16s} {'source':7s} {'default':16s} "
           f"{'default/planned':>15s} {'predicted ms':>12s} {'measured ms':>11s} {'error %':>8s} "
@@ -893,6 +1019,7 @@ def phase_codesign(stamp) -> dict:
     print("calibration scales (measured / predicted, geometric mean per space): "
           + ", ".join(f"{k} {v:.4g}" for k, v in scales.items()))
     print(f"codesign: launches {launches} in {time.perf_counter() - t0:.1f} s")
+    _profile_bf16_calibration_launch(rows)
     # every shape and tile the loop launched, held against its plain version
     # (these launches are not the loop's)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -916,7 +1043,7 @@ def phase_codesign(stamp) -> dict:
                     f"{ratio:.3f}, limit 1; the plain version without its last KV tile: "
                     f"{planted:.3f}")
         else:
-            tol = MM_TOL[torch.float32] if space is MATMUL_H100 else SSD_TOL
+            tol = space.tolerance if space in MM_SPACES.values() else SSD_TOL
             (err, ok), rule = _allclose(got, want, tol), f"rtol = atol = {tol}"
         check(ok, f"codesign: {space.name} {shape} tile {config} {dtype}: max abs err {err}, not "
                   f"within {rule}")
@@ -927,13 +1054,38 @@ def phase_codesign(stamp) -> dict:
             "matmul_by_shape": _matmul_launches_by_shape(res, rows)}
 
 
+def _profile_bf16_calibration_launch(rows) -> None:
+    """Bf16 calibration launches (three of the last matmul_bf16_h100 row's
+    shape and tile) under torch.profiler: the device kernel that ran must be
+    the wgmma instance, not only a count that rose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r = [r for r in rows if r["kernel"] == MATMUL_BF16_H100.name][-1]
+    inputs = MATMUL_BF16_H100.example_inputs(tuple(r["shape"]), "cuda",
+                                             torch.Generator(device="cuda").manual_seed(SEED))
+    MATMUL_BF16_H100.run(inputs, tuple(r["config"]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            MATMUL_BF16_H100.run(inputs, tuple(r["config"]))
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    print(f"codesign: profiled bf16 calibration launches {tuple(r['shape'])} tile "
+          f"{tuple(r['config'])}: device kernels {[n[:100] for n in names]}")
+    check(names and any("matmul_wgmma_kernel" in n for n in names),
+          f"the bf16 calibration launches ran {names}, not the wgmma instance")
+
+
 def _matmul_launches_by_shape(res, rows) -> dict:
-    """The loop's matmul launches at each (M, N, K): step 4's and the
-    calibration rows'."""
-    out = {tuple(res["shape"]): res["launches"]}
+    """The loop's matmul launches at each (M, N, K, dtype): step 4's (one
+    in each dtype) and the calibration rows'."""
+    out = {(*res["shape"], t): 1 for t in (torch.float32, torch.bfloat16)}
     for r in rows:
-        if r["kernel"] == MATMUL_H100.name:
-            out[tuple(r["shape"])] = out.get(tuple(r["shape"]), 0) + r["launches"]
+        for dtype, space in MM_SPACES.items():
+            if r["kernel"] == space.name:
+                key = (*r["shape"], dtype)
+                out[key] = out.get(key, 0) + r["launches"]
     return out
 
 
@@ -1046,21 +1198,36 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": None})
 
-    # the matmul kernel with its planned tile, beside torch.matmul (TF32 off)
+    # the matmul kernel with its planned tile, beside torch.matmul (TF32 off):
+    # f32 on the FMA instance, bf16 on the wgmma instance
     for M, N, K, dtype in MM_TIMED:
+        space = MM_SPACES[dtype]
         isz = torch.empty((), dtype=dtype).element_size()
         set_bytes = isz * (M * K + K * N + M * N)
         sets = [_mm_inputs(gen, M, N, K, dtype) for _ in range(max(2, math.ceil(150e6 / set_bytes)))]
         pick = _rotating(sets)
         x, y = sets[0]
-        err = _check_mm(f"{M}x{N}x{K} timed", matmul(x, y), matmul_ref(x, y), dtype)
+        inst = instance_for(x, y)
+        check(inst == ("wgmma" if dtype == torch.bfloat16 else "fma"),
+              f"matmul {M}x{N}x{K} {dtype} routed to {inst}")
+        want = matmul_ref(x, y)
+        err = _check_mm(f"{M}x{N}x{K} timed", matmul(x, y), want, dtype)
+        teeth = ""
+        if dtype == torch.bfloat16:  # the tolerance would catch a lost 64-deep K slice
+            dropped = matmul_ref(x[:, :K - TC_BK], y[:K - TC_BK])
+            planted, ok = _allclose([dropped], [want], MM_TOL[dtype])
+            check(not ok, f"matmul {M}x{N}x{K}: the plain version without its last {TC_BK} of K "
+                          f"passes rtol = atol = {MM_TOL[dtype]}")
+            teeth = (f"; the plain version without its last {TC_BK} of K is off by {planted:.3g}, "
+                     f"outside the tolerance")
         n = max(3, min(50, int(2e11 / (2 * M * N * K))))
-        p = plans[(MATMUL_H100.name, (M, N, K))]
+        p = plans[(space.name, (M, N, K))]
         other = (p.searched if p.source == "default"
-                 else MATMUL_H100.legalize(MATMUL_H100.default_config((M, N, K)), (M, N, K)))
+                 else space.legalize(space.default_config((M, N, K)), (M, N, K)))
         bm, bn, bk = other
         err = max(err, _check_mm(f"{M}x{N}x{K} tile {other}", matmul_cuda(
-            x, y, bm=bm, bn=bn, bk=bk, out_dtype=dtype), matmul_ref(x, y), dtype))
+            x, y, bm=bm, bn=bn, bk=bk, out_dtype=dtype), want, dtype))
+        del want
         ms = _interleaved_ms({
             "plain": lambda: matmul_ref(*pick()),
             "kernel": lambda: matmul(*pick()),
@@ -1070,26 +1237,64 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
         flops = 2 * M * N * K
         peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
         bound, bound_by = _bound(set_bytes, flops, peak)
-        tiles = plan_tiles(M, N, K)
-        launches = loop["matmul_by_shape"].get((M, N, K), 0)
+        tiles = plan_tiles(M, N, K, dtype=dtype)
+        launches = loop["matmul_by_shape"].get((M, N, K, dtype), 0)
         check(tiles == p.config and launches > 0,
               f"matmul {M}x{N}x{K}: tile {tiles} vs plan {p.config}, {launches} loop launches")
-        print(f"time [{stamp}] matmul {M}x{N}x{K} {str(dtype)[6:]} tile {tiles} ({p.source}): "
-              f"kernel {ms['kernel']:.4f} ms, the same kernel at the "
+        print(f"time [{stamp}] matmul {M}x{N}x{K} {str(dtype)[6:]} on {inst}, tile {tiles} "
+              f"({p.source}): kernel {ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f} "
+              f"TFLOP/s), the same kernel at the "
               f"{'searched' if p.source == 'default' else 'default'} tile {other} "
               f"{ms['other']:.4f} ms, plain {ms['plain']:.4f} ms, torch.matmul "
-              f"{ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
-              f"at {peak / 1e12:.0f} TFLOP/s, {set_bytes / 1e6:.1f} MB; "
-              f"{bound / ms['kernel']:.1%} of it); max abs err {err:.3g}; {launches} launches at "
-              f"this shape in the co-design loop")
-        records.append({"name": "matmul", "route": "cuda",
-                        "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
+              f"{ms['library']:.4f} ms (kernel / torch.matmul {ms['kernel'] / ms['library']:.3f}), "
+              f"bound {bound:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s, {set_bytes / 1e6:.1f} MB; {bound / ms['kernel']:.1%} of "
+              f"it); max abs err {err:.3g}{teeth}; {launches} launches at this shape and dtype in "
+              f"the co-design loop")
+        source = "matmul_wgmma.cu" if inst == "wgmma" else "matmul.cu"
+        records.append({"name": "matmul", "route": "cuda", "instance": inst,
+                        "source": f"src/repro_torch/kernels/matmul/csrc/{source}",
                         "replaces": "src/repro/kernels/matmul/matmul.py:39",
                         "shape": f"{M}x{N}x{K} {str(dtype)[6:]} tile {tiles}",
                         "launches": launches, "max_abs_err": err,
                         "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                         "bound_by": bound_by, "library_ms": ms["library"]})
+        del sets, x, y
+    _matmul_host_costs(stamp, gen)
     return records
+
+
+def _matmul_host_costs(stamp, gen) -> None:
+    """Host time one matmul call costs: the op's eager call and a direct
+    launch of each instance at 64x64x64 (the host's work bounds them), and
+    the two tensor-map encodes inside every wgmma launch."""
+    xb, yb = _mm_inputs(gen, 64, 64, 64, torch.bfloat16)
+    xf, yf = xb.float(), yb.float()
+    tb, tf = plan_for(xb, yb), plan_for(xf, yf)
+    fns = {"op bf16 (wgmma)": lambda: matmul(xb, yb), "op f32 (fma)": lambda: matmul(xf, yf),
+           "wgmma launch": lambda: matmul_cuda(xb, yb, bm=tb[0], bn=tb[1], bk=tb[2],
+                                              out_dtype=torch.bfloat16),
+           "fma launch": lambda: matmul_cuda(xf, yf, bm=tf[0], bn=tf[1], bk=tf[2],
+                                            out_dtype=torch.float32)}
+    us = {}
+    for name, fn in fns.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+        us[name] = best
+    M, N, K = quickstart.MATMUL_SHAPES[2]
+    x, y = _mm_inputs(gen, M, N, K, torch.bfloat16)
+    enc = encode_ns(x, y, *plan_tiles(M, N, K, dtype=torch.bfloat16))
+    print(f"time [{stamp}] matmul host work per call (64x64x64, no sync, best of 3 x 500): "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
+          + f"; encoding the two tensor maps of a wgmma launch ({M}x{N}x{K}): {enc / 1e3:.2f} us")
 
 
 def main() -> int:
@@ -1103,9 +1308,9 @@ def main() -> int:
     phase_build()
     plans = phase_plan()
     errs = phase_kernels()
+    loop = phase_codesign(stamp)
     serve_launches = phase_serve(stamp)
     train_launches = phase_train(stamp)
-    loop = phase_codesign(stamp)
     records = phase_times(stamp, plans, serve_launches, train_launches, errs, loop)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ from repro_torch.core.ir.dialects import LayerOp, TensorType
 from repro_torch.core.ir.lowering import lower_layer_to_problem
 from repro_torch.core.optimizer import union_opt
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
-from repro_torch.kernels.matmul import matmul, plan_tiles
+from repro_torch.kernels.matmul import matmul, plan_for
 from repro_torch.kernels.matmul.matmul import matmul_cuda
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
@@ -40,8 +40,10 @@ TOL = 2e-4
 # FFN up projection at 2 x 2048 tokens; attention at the serving decode
 # shape (qwen3-0.6b, cache 512) and zamba2-2.7b's training shape; zamba2's
 # SSD head and state dims
+MATMUL_SHAPES = [GEMM, (1024, 1024, 1024), (4096, 3072, 1024), (4096, 10240, 2560)]
 CALIBRATION_SHAPES = {
-    "matmul_h100": [GEMM, (1024, 1024, 1024), (4096, 3072, 1024), (4096, 10240, 2560)],
+    "matmul_h100": MATMUL_SHAPES,  # the f32 FMA instance
+    "matmul_bf16_h100": MATMUL_SHAPES,  # the bf16 wgmma + TMA instance
     "flash_attention_h100": [(1, 512, 128), (2048, 2048, 80)],
     "ssd_scan_h100": [(64, 64)],
 }
@@ -53,26 +55,33 @@ def kernel_launches() -> int:
 
 
 def run_matmul(M: int, N: int, K: int, device: str, seed: int = 0) -> dict:
-    """Step 4: plan (M, N, K) on the H100 hierarchy, launch the kernel with
-    the planned tile in f32 and bf16, and check each against its plain
-    version (f32 within ``TOL``; bf16 against the plain version on the same
-    bf16 inputs, within ``TOL`` of the output's scale)."""
-    tiles = plan_tiles(M, N, K)
+    """Step 4: plan (M, N, K) on the H100 hierarchy in each dtype's space
+    (f32: the FMA instance's ``matmul_h100``; bf16: the wgmma instance's
+    ``matmul_bf16_h100``), launch the kernel with each planned tile, and
+    check each against its plain version (f32 within ``TOL``; bf16 against
+    the plain version on the same bf16 inputs, within ``TOL`` of the
+    output's scale). Each product is planned by ``plan_for``, in the space
+    of the instance it routes to."""
     before = kernel_launches()
+    by_instance = dict(matmul_cuda.launches_by_instance)
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((M, K), generator=gen, device=device)
     w = torch.randn((K, N), generator=gen, device=device)
-    errs = {}
+    errs, tiles = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         xd, wd = x.to(dtype), w.to(dtype)
-        got = matmul(xd, wd, tiles=tiles, out_dtype=torch.float32)
+        tiles[dtype] = plan_for(xd, wd)
+        got = matmul(xd, wd, tiles=tiles[dtype], out_dtype=torch.float32)
         want = matmul_ref(xd, wd, torch.float32)
         err = (got - want).abs().max().item()
         if not err <= TOL * (1.0 + want.abs().max().item()):
-            raise AssertionError(f"matmul {dtype} with tiles {tiles}: max abs err {err:.3e}")
+            raise AssertionError(f"matmul {dtype} with tiles {tiles[dtype]}: max abs err {err:.3e}")
         errs[str(dtype).replace("torch.", "")] = err
-    return {"shape": [M, N, K], "tiles": list(tiles), "max_abs_err": errs,
-            "launches": kernel_launches() - before}
+    return {"shape": [M, N, K], "tiles": list(tiles[torch.float32]),
+            "tiles_by_dtype": {str(t)[6:]: list(v) for t, v in tiles.items()},
+            "max_abs_err": errs, "launches": kernel_launches() - before,
+            "launches_by_instance": {k: v - by_instance[k]
+                                     for k, v in matmul_cuda.launches_by_instance.items()}}
 
 
 def calibrate(device: str, shapes=None, repeats: int = 3, iters: int = 10):
@@ -137,8 +146,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     # -- 4. the same machinery tiles the CUDA matmul kernel ------------------
     M, N, K = GEMM
     res = run_matmul(M, N, K, args.device)
-    print(f"\nUnion-planned CTA tile for a {M}x{N}x{K} matmul on one H100: "
-          f"bm,bn,bk = {tuple(res['tiles'])}")
+    print(f"\nUnion-planned CTA tiles for a {M}x{N}x{K} matmul on one H100: "
+          f"bm,bn,bk = {tuple(res['tiles'])} (f32, FMA instance), "
+          f"{tuple(res['tiles_by_dtype']['bfloat16'])} (bf16, wgmma instance)")
     print(f"kernel ({args.device}) with the planned tile matches the plain version: "
           f"max abs err {res['max_abs_err']}")
 

@@ -21,7 +21,10 @@ line (CUDA events; inputs rotated over sets larger than the L2):
 - the decode step of qwen3-0.6b at full width (random weights from a seed),
   b=8 at positions 200-219, kernels on and off, in turns;
 - the SSD intra-chunk kernel at zamba2-2.7b's training shape (b=2, 2048
-  steps, 80 heads of 64, state 64, chunk 256, f32, B/C at stride 0).
+  steps, 80 heads of 64, state 64, chunk 256, f32, B/C at stride 0);
+- the matmul op (the checkout's planned tile on the instance it routes
+  to) at the co-design loop's four calibration shapes, in f32 and bf16,
+  beside ``torch.matmul`` (TF32 off).
 
 The script imports nothing but ``torch`` and the port.
 """
@@ -39,12 +42,14 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.matmul import matmul
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
 from repro_torch.models import decode_step, init_cache, init_params
 
 DECODE = dict(b=8, hq=16, hkv=8, d=128, cache=512)
 SSD = dict(b=2, l=2048, nh=80, hp=64, n=64, cl=256)
 ARCH, SLOTS, MAX_LEN = "qwen3-0.6b", 8, 512
+MATMUL_SHAPES = [(512, 3072, 768), (1024, 1024, 1024), (4096, 3072, 1024), (4096, 10240, 2560)]
 
 
 def _time_ms(fn, n, warmup=10) -> float:
@@ -156,6 +161,25 @@ def ssd_kernel_ms(gen) -> float:
                for _ in range(2))
 
 
+def matmul_ms(gen) -> dict:
+    """The matmul op and torch.matmul, in turns, at each calibration shape
+    and dtype; inputs rotated over sets larger than the L2."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, N, K in MATMUL_SHAPES:
+            set_bytes = torch.empty((), dtype=dtype).element_size() * (M * K + K * N + M * N)
+            pick = _rotating([
+                (torch.randn((M, K), generator=gen, device="cuda").to(dtype),
+                 torch.randn((K, N), generator=gen, device="cuda").to(dtype))
+                for _ in range(max(2, math.ceil(150e6 / set_bytes)))])
+            n = max(3, min(50, int(2e11 / (2 * M * N * K))))
+            fns = {"kernel": lambda: matmul(*pick()), "torch": lambda: torch.matmul(*pick())}
+            out[f"{M}x{N}x{K} {str(dtype)[6:]}"] = _turns(
+                fns, lambda name: _time_ms(fns[name], n=n, warmup=2))
+            del pick
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", required=True, help="name of the checkout, printed with its times")
@@ -170,6 +194,8 @@ def main() -> int:
     res = {"label": args.label, "card": stamp, "decode_attention": decode_attention(gen)}
     res["decode_step_ms"] = decode_step_ms(gen)
     res["ssd_kernel_ms"] = ssd_kernel_ms(gen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res["matmul_ms"] = matmul_ms(gen)
     a = res["decode_attention"]
     print(f"[{stamp}] {args.label}: decode attention eager kernel {a['eager_ms']['kernel']:.4f} "
           f"ms, sdpa {a['eager_ms']['sdpa']:.4f} ms; graph replay kernel "
@@ -177,7 +203,11 @@ def main() -> int:
           f"kernels on {res['decode_step_ms']['kernels_on']:.3f} ms, off "
           f"{res['decode_step_ms']['kernels_off']:.3f} ms; ssd kernel "
           f"{res['ssd_kernel_ms']:.4f} ms")
-    assert all(math.isfinite(x) for x in (a["eager_ms"]["kernel"], res["ssd_kernel_ms"]))
+    for key, ms in res["matmul_ms"].items():
+        print(f"[{stamp}] {args.label}: matmul {key}: kernel {ms['kernel']:.4f} ms, torch.matmul "
+              f"{ms['torch']:.4f} ms")
+    assert all(math.isfinite(x) for x in (a["eager_ms"]["kernel"], res["ssd_kernel_ms"],
+                                          *(ms["kernel"] for ms in res["matmul_ms"].values())))
     print(json.dumps(res))
     return 0
 
