@@ -32,13 +32,15 @@
 //    online softmax stays in registers (a row's max and sum reduce over the
 //    4 lanes of a quad); P is rounded to bf16 in registers and used as the
 //    A fragment of P V, with V through ldmatrix.trans. The element mask runs
-//    only on tiles that cross the diagonal or the kv_len edge. `mma.sync`
-//    rather than wgmma: a 160-byte row does not fit wgmma's swizzled layouts
+//    only on tiles that cross the diagonal or the kv_len edge. D = 192 rows
+//    take 400 bytes (25 units) and up to 64 keys a tile, so that Q, O and S
+//    stay in registers. `mma.sync` rather than wgmma: a 160-byte row does not fit wgmma's swizzled layouts
 //    without splitting D into 64 + 16, and 16 rows per warp keep the softmax
 //    free of any exchange across warps.
 // 2. Many query rows in f32 (tests, f32 checks): `fa_fwd_kernel`, FMA loops
-//    on the CUDA cores. Tensor cores would mean TF32, whose ~1e-3 relative
-//    error is outside the 2e-4 f32 tolerance.
+//    on the CUDA cores; at D = 192 a KV tile of 128 keys would pass the
+//    227 KB opt-in, so it takes up to 96. Tensor cores would mean TF32,
+//    whose ~1e-3 relative error is outside the 2e-4 f32 tolerance.
 // 3. Decode (BQ = 1, both dtypes): bounded by bytes, 2 * D multiply-adds per
 //    K/V element read, far below the ~295 FLOP/byte where the tensor cores
 //    become the limit. `fa_decode_kernel`: one CTA per (KV split, query
@@ -48,6 +50,8 @@
 //    and cold L2 take the same time), so its CTA has 8 warps: two threads
 //    per key for the scores, a warp per q-head for the softmax, a warp per
 //    eighth of the keys for P V.
+//    At D = 192 a lane owns two groups of 4 columns in P V, and a CTA may
+//    take all of an SM's registers.
 //    The live keys are cut into `n_split` parts (the wrapper's rule: enough
 //    that b * Hkv * n_split covers the 132 SMs, never more than KV tiles);
 //    each part writes a partial (m, l, acc) in f32 to the wrapper's scratch,
@@ -67,6 +71,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kLoadUnroll = 8;  // 16-byte K and V loads in flight per thread (f32 FMA kernel)
 constexpr int kMaxBk = 128;
+constexpr int kMaxSmem = 232448;  // the opt-in limit of a block's shared memory
 constexpr int kRowTile = 64;    // rows of a many-row CTA
 constexpr int kDecodeRows = 8;  // q-heads of one kv-head a decode CTA holds at once
 constexpr int kDecodeThreads = 256;  // a decode CTA: latency-bound, so 8 warps
@@ -568,14 +573,15 @@ __device__ __forceinline__ int split_tile(int s, int n_tiles, int n_split) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kDecodeThreads, 2) fa_decode_kernel(const Args a, float* part,
-                                                                     int n_split) {
+__global__ void __launch_bounds__(kDecodeThreads, D > 128 ? 1 : 2)
+    fa_decode_kernel(const Args a, float* part, int n_split) {
   constexpr int kStages = 4 / sizeof(T);
   constexpr int kVec = 16 / sizeof(T);
   constexpr int LD = D + kVec;  // an odd number of 16-byte units: no bank conflicts per key
   constexpr int CPR = D / kVec;  // even for every compiled D: two threads share a key
   constexpr int kAcc = (kDecodeRows * D + kDecodeThreads - 1) / kDecodeThreads;  // epilogue
-  constexpr int kLanesD = D / 4;  // lanes of a warp that own 4 columns each in P V
+  constexpr int kQuads = D / 4;  // groups of 4 columns; lane l owns quads l, l + 32, ... in P V
+  constexpr int kQPL = (kQuads + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int bk = a.bk;
   T* const kv_s = reinterpret_cast<T*>(smem_raw);  // stage s: K at s * 2 * bk * LD, then V
@@ -634,11 +640,14 @@ __global__ void __launch_bounds__(kDecodeThreads, 2) fa_decode_kernel(const Args
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
-  // P V: warp w takes keys w, w + 8, ... of a tile; lane l < D / 4 owns
-  // columns 4l .. 4l + 3 of every q-head, so no sum waits on a long chain
-  float acc[kDecodeRows][4];
+  // P V: warp w takes keys w, w + 8, ... of a tile; lane l owns columns
+  // 4q .. 4q + 3 of every q-head for quads q = l, l + 32, ... below D / 4,
+  // so no sum waits on a long chain
+  float acc[kDecodeRows][kQPL][4];
 #pragma unroll
-  for (int g = 0; g < kDecodeRows; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  for (int g = 0; g < kDecodeRows; ++g)
+#pragma unroll
+    for (int u = 0; u < kQPL; ++u) acc[g][u][0] = acc[g][u][1] = acc[g][u][2] = acc[g][u][3] = 0.f;
   __syncthreads();
 
   for (int t = 0; t < nt; ++t) {
@@ -723,24 +732,31 @@ __global__ void __launch_bounds__(kDecodeThreads, 2) fa_decode_kernel(const Args
 #pragma unroll
     for (int g = 0; g < kDecodeRows; ++g) {
       const float al = g < rows ? alpha_s[g] : 0.f;
-      acc[g][0] *= al;
-      acc[g][1] *= al;
-      acc[g][2] *= al;
-      acc[g][3] *= al;
-    }
-    if (lane < kLanesD) {
-#pragma unroll 4
-      for (int kk = warp; kk < n; kk += kDecodeWarps) {
-        float vf[4];
-        widen4(vs + kk * LD + 4 * lane, vf);
 #pragma unroll
-        for (int g = 0; g < kDecodeRows; ++g) {
-          if (g < rows) {
-            const float pv = p_s[g * bk + kk];
-            acc[g][0] = fmaf(pv, vf[0], acc[g][0]);
-            acc[g][1] = fmaf(pv, vf[1], acc[g][1]);
-            acc[g][2] = fmaf(pv, vf[2], acc[g][2]);
-            acc[g][3] = fmaf(pv, vf[3], acc[g][3]);
+      for (int u = 0; u < kQPL; ++u) {
+        acc[g][u][0] *= al;
+        acc[g][u][1] *= al;
+        acc[g][u][2] *= al;
+        acc[g][u][3] *= al;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQPL; ++u) {
+      const int quad = lane + 32 * u;
+      if (quad < kQuads) {
+#pragma unroll 4
+        for (int kk = warp; kk < n; kk += kDecodeWarps) {
+          float vf[4];
+          widen4(vs + kk * LD + 4 * quad, vf);
+#pragma unroll
+          for (int g = 0; g < kDecodeRows; ++g) {
+            if (g < rows) {
+              const float pv = p_s[g * bk + kk];
+              acc[g][u][0] = fmaf(pv, vf[0], acc[g][u][0]);
+              acc[g][u][1] = fmaf(pv, vf[1], acc[g][u][1]);
+              acc[g][u][2] = fmaf(pv, vf[2], acc[g][u][2]);
+              acc[g][u][3] = fmaf(pv, vf[3], acc[g][u][3]);
+            }
           }
         }
       }
@@ -756,12 +772,16 @@ __global__ void __launch_bounds__(kDecodeThreads, 2) fa_decode_kernel(const Args
   // bytes >= the 8 * 8 * D floats needed).
   float* const red = reinterpret_cast<float*>(kv_s);
   __syncthreads();
-  if (lane < kLanesD) {
 #pragma unroll
-    for (int g = 0; g < kDecodeRows; ++g)
-      if (g < rows)
-        *reinterpret_cast<float4*>(red + (warp * kDecodeRows + g) * D + 4 * lane) =
-            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+  for (int u = 0; u < kQPL; ++u) {
+    const int quad = lane + 32 * u;
+    if (quad < kQuads) {
+#pragma unroll
+      for (int g = 0; g < kDecodeRows; ++g)
+        if (g < rows)
+          *reinterpret_cast<float4*>(red + (warp * kDecodeRows + g) * D + 4 * quad) =
+              make_float4(acc[g][u][0], acc[g][u][1], acc[g][u][2], acc[g][u][3]);
+    }
   }
   __syncthreads();
   float out[kAcc];
@@ -844,9 +864,12 @@ cudaError_t opt_in(K kernel, int bytes) {
 template <int D>
 cudaError_t launch_fma(const Args& a, int B, cudaStream_t stream) {
   auto kernel = fa_fwd_kernel<float, D, kRowTile>;
+  // at D = 192 the largest tiles pass the opt-in: those are refused below
+  constexpr int kMostBytes = smem_floats(kRowTile, kMaxBk, D) * (int)sizeof(float);
   static const cudaError_t configured =
-      opt_in(kernel, smem_floats(kRowTile, kMaxBk, D) * (int)sizeof(float));
+      opt_in(kernel, kMostBytes < kMaxSmem ? kMostBytes : kMaxSmem);
   if (configured != cudaSuccess) return configured;
+  if (smem_floats(kRowTile, a.bk, D) * (int)sizeof(float) > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid((a.Sq + kRowTile - 1) / kRowTile, a.Hq, B);
   kernel<<<grid, kThreads, smem_floats(kRowTile, a.bk, D) * sizeof(float), stream>>>(a);
   return cudaGetLastError();
@@ -869,6 +892,15 @@ cudaError_t dispatch_mma(const Args& a, int B, cudaStream_t stream) {
     case 64: return launch_mma<D, 64>(a, B, stream);
     case 96: return launch_mma<D, 96>(a, B, stream);
     case 128: return launch_mma<D, 128>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+// D = 192 keeps Q (48), O (96) and S (4 bk / 8) in registers: up to 64 keys
+template <>
+cudaError_t dispatch_mma<192>(const Args& a, int B, cudaStream_t stream) {
+  switch (a.bk) {
+    case 32: return launch_mma<192, 32>(a, B, stream);
+    case 64: return launch_mma<192, 64>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -950,6 +982,7 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
     case 64: err = dispatch<64>(a, B, bf, bq, p, n_split, s); break;
     case 80: err = dispatch<80>(a, B, bf, bq, p, n_split, s); break;
     case 128: err = dispatch<128>(a, B, bf, bq, p, n_split, s); break;
+    case 192: err = dispatch<192>(a, B, bf, bq, p, n_split, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (prev != l->device) cudaSetDevice(prev);

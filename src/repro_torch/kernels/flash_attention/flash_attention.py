@@ -26,9 +26,13 @@ import torch
 from repro_torch.core.architecture import H100_SXM
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 80, 128)  # compiled D instances
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)  # compiled D instances
+# KV tiles of the bf16 tensor-core (many-row) instance at each D (dispatch_mma):
+# at D = 192 it keeps Q, O and S in registers up to 64 keys
+MMA_TILES = {**{D: (32, 64, 96, 128) for D in HEAD_DIMS}, 192: (32, 64)}
 ROW_TILES = (1, 64)  # compiled BQ instances: decode, many rows
 MAX_BK = 128  # the KV tile the kernel's shared-memory opt-in is sized for
+SMEM_OPT_IN = H100_SXM["smem_optin_bytes"]  # the most shared memory a CTA can have
 DECODE_ROWS = 8  # q-heads of one kv-head a decode CTA holds at once (kDecodeRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,6 +73,47 @@ def n_split(b: int, hkv: int, live: int, bk: int) -> int:
     b * hkv * n_split CTAs cover every SM of the H100 at least once, never
     more parts than KV tiles of ``bk`` keys, and at least one."""
     return max(1, min(math.ceil(live / bk), math.ceil(H100_SXM["sms"] / (b * hkv))))
+
+
+def compiled_dim(d: int, dv: int) -> int:
+    """The compiled head dim the kernel runs (d, dv) at: the smallest D in
+    ``HEAD_DIMS`` that holds both (q and k are zero-padded along d, v along
+    dv). Raises above ``HEAD_DIMS[-1]``."""
+    for D in HEAD_DIMS:
+        if max(d, dv) <= D:
+            return D
+    raise ValueError(f"head dims d={d}, dv={dv}: the CUDA kernel takes d and dv up to "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def max_bk(bq: int, d: int, dtype: torch.dtype) -> int:
+    """The largest KV tile compiled for row tile bq, head dim d and dtype
+    whose CTA fits the shared-memory opt-in (``MMA_TILES`` for the bf16
+    many-row instance; the f32 one at D = 192 fits 96)."""
+    bk = MMA_TILES[d][-1] if bq != 1 and dtype == torch.bfloat16 else MAX_BK
+    while bk > 32 and smem_formula(bq, bk, d, dtype) > SMEM_OPT_IN:
+        bk -= 32
+    return bk
+
+
+def smem_formula(bq: int, bk: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA by the kernel's formula (the card
+    holds it against the compiled ``fa_smem_bytes``):
+
+    - decode (bq == 1): 4 / itemsize stages (f32 one, bf16 two) of K and V
+      tiles, rows of d elements + 16 bytes; f32 Q (8 x d), scores (8 x bk),
+      m, l, alpha;
+    - many rows, bf16 (tensor cores): two stages of K and V, rows of d + 8
+      bf16;
+    - many rows, f32 (FMA): Q (bq x d), K (bk x d+1), V (bk x d), scores
+      (bq x bk), m, l, alpha, all f32.
+    """
+    item = 4 if dtype == torch.float32 else 2
+    if bq == 1:
+        return (4 // item) * 2 * bk * (d * item + 16) + 4 * DECODE_ROWS * (d + bk + 3)
+    if dtype == torch.bfloat16:
+        return 2 * 2 * bk * (d + 8) * 2
+    return 4 * (bq * d + bk * (d + 1) + bk * d + bq * bk + 3 * bq)
 
 
 def check_blocks(bq: int, bk: int) -> None:
@@ -141,6 +186,9 @@ def _layout(q_shape, k_shape, v_shape, q_stride, k_stride, v_stride, q_dtype, k_
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d}: compiled for {HEAD_DIMS}")
     check_blocks(bq, bk)
+    if bk > max_bk(bq, d, q_dtype):
+        raise ValueError(f"bk={bk}: at D={d} in {q_dtype} the kernel takes KV tiles up to "
+                         f"{max_bk(bq, d, q_dtype)}")
     item = 4 if q_dtype == torch.float32 else 2
     for name, st in (("q", q_stride), ("k", k_stride), ("v", v_stride)):
         if st[3] != 1:

@@ -10,7 +10,12 @@ padding rows), 64 rows otherwise, and a KV tile that is a multiple of 32 in
 [32, ``MAX_BK``] whose CTA fits the shared-memory budget.
 
 On a CUDA tensor the op launches the kernel; on a CPU tensor it runs the
-plain version (``ref.attention_ref``). Any other device raises.
+plain version (``ref.attention_ref``). Any other device raises. Like the
+JAX op it takes any head dims d (q, k) and dv (v): the CUDA path zero-pads
+q and k along d and v along dv to the smallest compiled D that holds both
+(:func:`pad_head_dims`; zero columns change no score and give zero output
+columns), launches, and slices the output back to dv. It raises for d or
+dv above ``HEAD_DIMS[-1]`` = 192.
 
 Gradients: the forward runs the kernel; the backward recomputes through
 ``ref.attention_ref`` under autograd, as ``_fa_bwd`` does in the JAX op. It
@@ -31,40 +36,30 @@ from repro_torch.codesign import KernelSpace, round_up
 from repro_torch.core.constraints import tc_aligned
 from repro_torch.core.problem import Problem
 from repro_torch.kernels.flash_attention.flash_attention import (
-    DECODE_ROWS,
-    HEAD_DIMS,
     MAX_BK,
     ROW_TILES,
+    SMEM_OPT_IN,
     check_blocks,
+    compiled_dim,
     flash_attention_cuda,
+    max_bk,
+    smem_formula,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 KV_ALIGN = 32  # the KV tile is a multiple of a warp
 BACKWARD_RANGE = "flash_attention.backward"  # profiler range around the plain backward
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def smem_bytes(bq: int, bk: int, d: int, dtype: Optional[torch.dtype] = None) -> int:
-    """Dynamic shared memory of one CTA, by the kernel's formula; with no
-    ``dtype``, the larger of the float32 and bfloat16 instances (what
-    ``legalize`` binds).
-
-    - decode (bq == 1): 4 / itemsize stages (f32 one, bf16 two) of K and V
-      tiles, rows of d elements + 16 bytes; f32 Q (8 x d), scores (8 x bk),
-      m, l, alpha;
-    - many rows, bf16 (tensor cores): two stages of K and V, rows of d + 8
-      bf16;
-    - many rows, f32 (FMA): Q (bq x d), K (bk x d+1), V (bk x d), scores
-      (bq x bk), m, l, alpha, all f32.
-    """
+    """Dynamic shared memory of one CTA, by the kernel's formula
+    (:func:`~repro_torch.kernels.flash_attention.flash_attention.smem_formula`);
+    with no ``dtype``, the larger of the float32 and bfloat16 instances
+    (what ``legalize`` binds)."""
     if dtype is None:
-        return max(smem_bytes(bq, bk, d, t) for t in (torch.float32, torch.bfloat16))
-    item = torch.empty((), dtype=dtype).element_size()
-    if bq == 1:
-        return (4 // item) * 2 * bk * (d * item + 16) + 4 * DECODE_ROWS * (d + bk + 3)
-    if dtype == torch.bfloat16:
-        return 2 * 2 * bk * (d + 8) * 2
-    return 4 * (bq * d + bk * (d + 1) + bk * d + bq * bk + 3 * bq)
+        return max(smem_bytes(bq, bk, d, t) for t in _DTYPES)
+    return smem_formula(bq, bk, d, dtype)
 
 
 class FlashAttentionSpace(KernelSpace):
@@ -92,13 +87,15 @@ class FlashAttentionSpace(KernelSpace):
     def legalize(self, config, shape, smem_budget=None):
         """BINDING repair into a compiled tile: bq = 1 for decode (Sq == 1)
         and 64 otherwise; bk the proposal rounded down to a multiple of 32,
-        within [32, min(MAX_BK, Skv rounded up to 32)], shrunk until the
-        CTA fits ``smem_budget`` in both dtypes. Never raises."""
+        within [32, min(the largest tile compiled for D in both dtypes, Skv
+        rounded up to 32)], shrunk until the CTA fits ``smem_budget`` (at
+        most the 227 KB opt-in) in both dtypes. Never raises."""
         _bq, bk = (int(c) for c in config)
         Sq, Skv, D = (int(s) for s in shape)
-        budget = int(smem_budget or self.smem_budget)
+        budget = min(int(smem_budget or self.smem_budget), SMEM_OPT_IN)
         bq = ROW_TILES[0] if Sq == 1 else ROW_TILES[-1]
-        bk = min(max(bk // KV_ALIGN * KV_ALIGN, KV_ALIGN), MAX_BK, round_up(Skv, KV_ALIGN))
+        most = min(max_bk(bq, D, t) for t in _DTYPES)
+        bk = min(max(bk // KV_ALIGN * KV_ALIGN, KV_ALIGN), most, round_up(Skv, KV_ALIGN))
         while bk > KV_ALIGN and smem_bytes(bq, bk, D) > budget:
             bk -= KV_ALIGN
         return (bq, bk)
@@ -155,31 +152,48 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     blocks: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Drop-in for ``models.layers.mha``'s math; GQA-native, no padding.
-    ``kv_len`` (valid cache prefix) and ``q_offset`` (global position of
-    q[:, 0]) are Python ints."""
+    """Drop-in for ``models.layers.mha``'s math; GQA-native, no padding of
+    the sequence. ``kv_len`` (valid cache prefix) and ``q_offset`` (global
+    position of q[:, 0]) are Python ints. v may be narrower or wider than q
+    and k (dv != d); ``scale`` defaults to 1 / sqrt(d). The tile is planned
+    at the compiled D that the CUDA path pads to."""
     b, Sq, hq, d = q.shape
     _, Skv, hkv, dv = v.shape
-    if d not in HEAD_DIMS or dv != d:
-        raise ValueError(f"head dims d={d}, dv={dv}: the kernel takes d == dv in {HEAD_DIMS}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     kv_len = Skv if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= Skv or q_offset < 0:
         raise ValueError(f"kv_len={kv_len} must lie in [0, {Skv}] and q_offset={q_offset} >= 0")
-    bq, bk = blocks if blocks is not None else plan_blocks(Sq, Skv, d)
-    check_blocks(bq, bk)
     if not (q.is_cuda or q.device.type == "cpu"):
         raise ValueError(f"flash attention has no path for device {q.device}")
-    args = (causal, scale, int(q_offset), kv_len, bq, bk)
+    if blocks is None and q.is_cuda:
+        blocks = plan_blocks(Sq, Skv, compiled_dim(d, dv))
+    if blocks is not None:
+        check_blocks(*blocks)
+    args = (causal, scale, int(q_offset), kv_len, blocks)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, *args)
     return _forward(q, k, v, *args)  # no graph to record: skip autograd's dispatch
 
 
-def _forward(q, k, v, causal, scale, q_offset, kv_len, bq, bk):
+def pad_head_dims(q, k, v, D: int):
+    """q and k zero-padded along d, and v along dv, to D (the tensors
+    themselves where nothing is padded). The scores and the output's first
+    dv columns are unchanged."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if d != D:
+        q, k = (torch.nn.functional.pad(t, (0, D - d)) for t in (q, k))
+    if dv != D:
+        v = torch.nn.functional.pad(v, (0, D - dv))
+    return q, k, v
+
+
+def _forward(q, k, v, causal, scale, q_offset, kv_len, blocks):
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                                    kv_len=kv_len, bq=bq, bk=bk)
+        dv = v.shape[-1]
+        qp, kp, vp = pad_head_dims(q, k, v, compiled_dim(q.shape[-1], dv))
+        out = flash_attention_cuda(qp, kp, vp, causal=causal, scale=scale, q_offset=q_offset,
+                                   kv_len=kv_len, bq=blocks[0], bk=blocks[1])
+        return out if out.shape[-1] == dv else out[..., :dv]
     return _plain(q, k, v, causal, scale, q_offset, kv_len)
 
 
@@ -193,10 +207,10 @@ def _plain(q, k, v, causal, scale, q_offset, kv_len):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, bq, bk):
+    def forward(ctx, q, k, v, causal, scale, q_offset, kv_len, blocks):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, scale, q_offset, kv_len)
-        return _forward(q, k, v, causal, scale, q_offset, kv_len, bq, bk)
+        return _forward(q, k, v, causal, scale, q_offset, kv_len, blocks)
 
     @staticmethod
     def backward(ctx, g):
@@ -205,4 +219,4 @@ class _FlashAttention(torch.autograd.Function):
         with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
             out = _plain(*inputs, *ctx.args)
             grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None)

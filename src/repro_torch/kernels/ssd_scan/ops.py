@@ -6,15 +6,18 @@ The chunk length comes from the caller (the model passes ``min(256, l)``,
 as JAX's does); without one, :func:`plan_chunk` plans it through the
 co-design layer: :class:`SsdScanSpace` registers the intra-chunk score
 GEMM with ``repro_torch.codesign`` under the name ``ssd_scan_h100``. Its
-``legalize`` is binding on the CUDA kernel's working set (64-row tiles, a
-shared-memory footprint linear in the chunk: 70.6 KB at cl = 256), not on
-the JAX VMEM rule, which picks cl = 512 under 8 MiB.
+``legalize`` is binding on the CUDA kernel's working set (a shared-memory
+footprint linear in the chunk: 78.8 KB at cl = 256 with B/C shared by the
+heads, the larger of its two instances), not on the JAX VMEM rule, which
+picks cl = 512 under 8 MiB. Its ``run`` times the intra-chunk kernel alone;
+the whole op is held against ``ssd_chunked_ref`` by ``chip_smoke.py``.
 
 On a CUDA tensor the intra-chunk part launches the kernel; on a CPU tensor
 it runs the plain version (``ref.ssd_intra_chunk_ref``). Any other device
 raises. The inter-chunk recurrence and the ``y_off`` einsum stay outside
 the kernel, as in the JAX op. Differentiable: the backward recomputes
-through ``ref.ssd_chunked_ref`` under autograd, as ``_ssd_bwd`` does.
+through ``ref.ssd_chunked_ref`` under autograd, as ``_ssd_bwd`` does, inside
+the profiler range ``BACKWARD_RANGE``.
 """
 
 from __future__ import annotations
@@ -28,14 +31,10 @@ from repro_torch import codesign
 from repro_torch.codesign import H100_SMEM_BUDGET, KernelSpace
 from repro_torch.core.problem import Problem
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_intra_chunk_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, ROW_TILE, ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import MAX_CHUNK, smem_formula, ssd_intra_chunk_cuda
 
-
-def smem_bytes(cl: int) -> int:
-    """Dynamic shared memory of one CTA, by the kernel's formula: the
-    chunk's cumulative decay as cl f64 offsets (rounded up to 2) and cl f32
-    runs (rounded up to 4), and four 64 x 68 f32 tiles."""
-    return 8 * ((cl + 1) // 2 * 2) + 4 * ((cl + 3) // 4 * 4 + 4 * ROW_TILE * (ROW_TILE + 4))
+MIN_CHUNK = 64  # the shortest chunk the planner proposes
+BACKWARD_RANGE = "ssd_scan.backward"  # profiler range around the plain backward
 
 
 class SsdScanSpace(KernelSpace):
@@ -58,13 +57,14 @@ class SsdScanSpace(KernelSpace):
 
     def legalize(self, config, shape, smem_budget=None):
         """BINDING repair: the proposal rounded down to a power of two in
-        [64, MAX_CHUNK] (whole 64-row tiles, and a divisor of any
-        power-of-two sequence), halved until the CTA fits ``smem_budget``.
-        Never raises."""
+        [64, MAX_CHUNK] (a divisor of any power-of-two sequence), halved
+        until the CTA fits ``smem_budget`` with B/C shared by the heads or
+        per head. Never raises."""
         (cl,) = (int(c) for c in config)
+        _hp, n = shape
         budget = int(smem_budget or self.smem_budget)
-        cl = min(max(1 << (max(cl, 1).bit_length() - 1), ROW_TILE), MAX_CHUNK)
-        while cl > ROW_TILE and smem_bytes(cl) > budget:
+        cl = min(max(1 << (max(cl, 1).bit_length() - 1), MIN_CHUNK), MAX_CHUNK)
+        while cl > MIN_CHUNK and max(smem_formula(cl, n, s) for s in (False, True)) > budget:
             cl //= 2
         return (cl,)
 
@@ -83,17 +83,19 @@ class SsdScanSpace(KernelSpace):
         def randn(*s):
             return torch.randn(s, generator=generator, device=device)
 
+        # B and C one group expanded over the heads, as the model passes them
         return (randn(b, l, nh, hp), -randn(b, l, nh).abs() * 0.1,
-                randn(b, l, nh, n), randn(b, l, nh, n))
+                randn(b, l, 1, n).expand(b, l, nh, n), randn(b, l, 1, n).expand(b, l, nh, n))
 
     def run(self, inputs, config):
-        x, dA, B, C = inputs
+        """The intra-chunk kernel alone (the inter-chunk recurrence is eager
+        torch and outside the model)."""
         (cl,) = config
-        return ssd_chunked(x, dA, B, C, chunk=min(int(cl), x.shape[1]))
+        return _intra_chunk(*inputs, min(int(cl), inputs[0].shape[1]))
 
     def reference(self, inputs, config):
         (cl,) = config
-        return ssd_chunked_ref(*inputs, chunk=min(int(cl), inputs[0].shape[1]))
+        return ssd_intra_chunk_ref(*inputs, min(int(cl), inputs[0].shape[1]))
 
 
 SSD_SCAN_H100 = codesign.register_space(SsdScanSpace())
@@ -142,9 +144,10 @@ class _SsdChunked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gS):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # the range lets a profile attribute the plain backward's device time
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
             y, S = ssd_chunked_ref(*inputs[:4], chunk=ctx.chunk, init_state=inputs[4])
-        grads = torch.autograd.grad((y, S), inputs, (gy, gS))
+            grads = torch.autograd.grad((y, S), inputs, (gy, gS))
         return (*grads, None)
 
 

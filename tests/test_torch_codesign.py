@@ -56,7 +56,7 @@ from repro_torch.kernels.matmul.matmul import check_tiles
 from repro_torch.kernels.matmul.matmul import smem_bytes as mm_smem
 from repro_torch.kernels.matmul.ops import MATMUL_H100
 from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_H100
-from repro_torch.kernels.ssd_scan.ops import smem_bytes as ssd_smem
+from repro_torch.kernels.ssd_scan.ops import smem_formula as ssd_smem
 
 ROOT = Path(__file__).resolve().parents[1]
 V8 = 8 * (1 << 20)  # the JAX spaces' VMEM budget
@@ -214,7 +214,7 @@ def test_h100_legalize_is_binding_for_any_shape_and_proposal():
         assert fa_smem(bq, bkv, d) <= H100_SMEM_BUDGET
         (cl,) = SSD_SCAN_H100.legalize((r,), (min(a, 64), min(b, 64)))
         assert cl & (cl - 1) == 0 and 64 <= cl <= 1024
-        assert ssd_smem(cl) <= H100_SMEM_BUDGET
+        assert max(ssd_smem(cl, min(b, 64), s) for s in (False, True)) <= H100_SMEM_BUDGET
 
     check()
 

@@ -25,12 +25,18 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention_
 from repro_torch import codesign
 from repro_torch.codesign import H100_SMEM_BUDGET
 from repro_torch.kernels.flash_attention.flash_attention import (
+    HEAD_DIMS,
+    SMEM_OPT_IN,
     check_blocks,
+    compiled_dim,
     live_keys,
+    max_bk,
     n_split,
 )
 from repro_torch.kernels.flash_attention.ops import (
     FLASH_ATTENTION_H100,
+    _plain,
+    pad_head_dims,
     plan_blocks,
     planned_shape,
     smem_bytes,
@@ -148,8 +154,17 @@ def test_plan_blocks_rule(sq, skv, d, want):
 
 def test_flash_attention_rejects_what_the_kernel_does_not_take():
     q, k, v = _torch(_qkv(5, 1, 4, 4, 2, 2, 16), "float32")
-    with pytest.raises(ValueError, match="head dims"):
-        flash_attention(q[..., :12], k[..., :12], v[..., :12], causal=True)
+    # any head dims on the CPU, as the JAX op takes them
+    got = flash_attention(q[..., :12], k[..., :12], v[..., :7], causal=True)
+    np.testing.assert_allclose(_np(got), _np(_plain(q[..., :12], k[..., :12], v[..., :7], True,
+                                                    1 / math.sqrt(12), 0, None)), rtol=1e-6,
+                               atol=1e-6)
+    wide = torch.zeros((1, 4, 2, 200))
+    assert flash_attention(wide, wide, v, causal=True).shape == (1, 4, 2, 16)
+    # the CUDA path pads to a compiled D up to 192 and refuses wider dims
+    for d, dv in ((200, 128), (128, 193)):
+        with pytest.raises(ValueError, match="up to 192"):
+            compiled_dim(d, dv)
     with pytest.raises(ValueError, match="bq="):
         flash_attention(q, k, v, causal=True, blocks=(8, 128))
     with pytest.raises(ValueError, match="bk="):
@@ -292,3 +307,66 @@ def test_calibration_space_is_bf16_with_its_tolerance():
     want = FLASH_ATTENTION_H100.reference(inputs, (64, 96))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("d,dv,want", [(12, 12, 16), (16, 16, 16), (80, 80, 80), (100, 40, 128),
+                                       (192, 128, 192), (130, 100, 192), (40, 24, 64)])
+def test_compiled_dim(d, dv, want):
+    assert compiled_dim(d, dv) == want and want in HEAD_DIMS
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_mla_dims_match_jax(causal):
+    """deepseek-v2-lite's MLA dims (d = 192 for q and k, dv = 128 for v),
+    GQA 2:1, through the op (the kernels-on path; plain here) against the
+    JAX op with its Pallas kernel in interpret mode; f32, 2e-4."""
+    b, sq, skv, hq, hkv, d, dv = 1, 64, 96 if not causal else 64, 4, 2, 192, 128
+    rng = np.random.default_rng(13)
+    arrs = [rng.standard_normal(s, np.float32)
+            for s in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv))]
+    want = jax_flash_attention(*_jax(arrs, "float32"), causal=causal, blocks=(32, 32),
+                               interpret=True)
+    torch_kernels.enable_kernels(True)
+    try:
+        got = mha(*_torch(arrs, "float32"), causal=causal)
+    finally:
+        torch_kernels.enable_kernels(False)
+    assert got.shape == (b, sq, hq, dv)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+    direct = flash_attention(*_torch(arrs, "float32"), causal=causal)
+    np.testing.assert_allclose(_np(direct), _np(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (12, 12), (100, 40), (130, 100), (80, 80)])
+def test_pad_head_dims_leaves_the_plain_output_unchanged(d, dv):
+    """What the CUDA path does around the kernel, through the plain
+    version: q, k zero-padded along d and v along dv to the compiled D,
+    attention at scale 1 / sqrt(d), the output sliced back to dv."""
+    rng = np.random.default_rng(d + dv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((2, 33, 4, d), (2, 40, 2, d), (2, 40, 2, dv)))
+    D = compiled_dim(d, dv)
+    qp, kp, vp = pad_head_dims(q, k, v, D)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == D
+    assert (qp is q) == (d == D) and (vp is v) == (dv == D)
+    assert not qp[..., d:].any() and not kp[..., d:].any() and not vp[..., dv:].any()
+    for causal in (True, False):
+        got = _plain(qp, kp, vp, causal, 1 / math.sqrt(d), 3, 37)[..., :dv]
+        want = _plain(q, k, v, causal, 1 / math.sqrt(d), 3, 37)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bq", [1, 64])
+def test_legalize_keeps_d192_within_the_opt_in(bq):
+    """At D = 192 the tile fits the 227 KB opt-in in both dtypes and is a
+    compiled one (bf16 many rows: up to 64 keys), whatever the budget."""
+    shape = (1 if bq == 1 else 2048, 2048, 192)
+    for budget in (None, SMEM_OPT_IN, 10 * SMEM_OPT_IN):
+        got_bq, bk = FLASH_ATTENTION_H100.legalize((64, 128), shape, smem_budget=budget)
+        assert got_bq == bq
+        check_blocks(bq, bk)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert bk <= max_bk(bq, 192, dtype)
+            assert smem_bytes(bq, bk, 192, dtype) <= SMEM_OPT_IN
+    assert max_bk(64, 192, torch.bfloat16) == 64 and max_bk(64, 192, torch.float32) == 96
+    assert max_bk(1, 192, torch.float32) == max_bk(64, 128, torch.float32) == 128

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.flash_attention import (
     HEAD_DIMS,
     MAX_BK,
+    MMA_TILES,
     flash_attention_cuda,
     live_keys,
     n_split,
@@ -95,12 +96,12 @@ def _want(q, k, v, **kw):
 @pytest.mark.gpu
 @pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("bk", [32, 64, 96, 128])
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d,bk", [(d, bk) for d in HEAD_DIMS for bk in MMA_TILES[d]])
 def test_bf16_tensor_core_instance_matches_plain(d, bk, causal, offset):
     """The many-row bf16 instance (mma.sync) at every compiled head dim and
-    KV tile: ragged Sq and Skv (not multiples of 16 or 64), GQA 2:1, and
-    with ``offset`` a query offset with kv_len short of the cache."""
+    KV tile (D = 192 up to 64 keys): ragged Sq and Skv (not multiples of 16
+    or 64), GQA 2:1, and with ``offset`` a query offset with kv_len short
+    of the cache."""
     _need_gpu()
     b, sq, skv, hq, hkv = 2, 77, 141, 4, 2
     q_offset, kv_len = (20, 130) if offset else (0, skv)
@@ -240,3 +241,48 @@ def test_split_decode_keeps_no_state_between_calls():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, flash_attention_cuda(q, k, v, **kw))
+
+
+D192_CASES = [  # (b, sq, skv, hq, hkv, d, dv, causal, q_offset, kv_len)
+    (2, 150, 150, 4, 2, 192, 192, True, 0, None),  # many rows, the compiled D
+    (2, 150, 150, 4, 2, 192, 128, True, 0, None),  # deepseek-v2-lite's MLA dims, padded v
+    (1, 96, 200, 4, 4, 192, 128, False, 0, None),
+    (2, 70, 70, 2, 2, 130, 100, True, 0, None),  # both padded to 192
+    (4, 1, 256, 8, 2, 192, 192, False, 180, 181),  # split decode at D = 192
+    (4, 1, 256, 8, 2, 192, 128, False, 255, 256),
+    (2, 1, 64, 4, 4, 40, 24, False, 20, 21),  # padded to 64
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,q_offset,kv_len", D192_CASES)
+def test_head_dims_up_to_192_match_plain(b, sq, skv, hq, hkv, d, dv, causal, q_offset, kv_len,
+                                         dtype):
+    """The D = 192 instances of all three kernel families, and head dims
+    that the op pads to a compiled D (q, k along d, v along dv), against
+    the plain version on the unpadded tensors; scale 1 / sqrt(d)."""
+    _need_gpu()
+    rng = np.random.default_rng(d + dv + sq)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to("cuda", dt)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, dv)))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and got.shape == (b, sq, hq, dv)
+    want = _want(q, k, v, scale=1.0 / math.sqrt(d), **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_head_dims_above_192_raise_on_the_card():
+    _need_gpu()
+    q = torch.zeros((1, 8, 2, 200), device="cuda")
+    v = torch.zeros((1, 8, 2, 128), device="cuda")
+    with pytest.raises(ValueError, match="up to 192"):
+        flash_attention(q, q, v, causal=True)
+    with pytest.raises(ValueError, match="up to 192"):
+        flash_attention(v, v, q, causal=True)

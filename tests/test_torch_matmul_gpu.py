@@ -16,6 +16,7 @@ the output), as ``tests/test_kernels.py`` holds the TPU kernel.
 """
 
 import itertools
+import math
 import time
 
 import numpy as np
@@ -96,6 +97,31 @@ def test_matmul_kernel_sweep_planned(m, n, k, dtype):
     assert matmul_cuda.launches == before + 1
     assert matmul_cuda.launches_by_instance[inst] == by[inst] + 1
     _close(got, matmul_ref(x, y), TOL[dtype])
+
+
+def _f32_rounding_ratio(got, x, y) -> float:
+    """Worst |got - x y| / (sqrt(K) u (|x| |y|)), x y in float64 and u =
+    2^-24: the rounding estimate of a K-term f32 sum in any order, whose
+    errors do not line up."""
+    x64, y64 = x.double(), y.double()
+    limit = math.sqrt(x.shape[-1]) * 2.0 ** -24 * (x64.abs() @ y64.abs())
+    return ((got.double() - x64 @ y64).abs() / limit.clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("m,n,k", SWEEP)
+def test_f32_within_rounding_limit_of_exact(m, n, k, seed):
+    """The f32 FMA instance against a float64 evaluation, on several draws:
+    within sqrt(K) u (|x| |y|), a limit that does not depend on where the
+    outputs cancel; operands rounded to TF32 miss it."""
+    _cuda_or_skip()
+    x, y = _xy(m, n, k, torch.float32, seed=seed)
+    got = matmul(x, y)
+    torch.cuda.synchronize()
+    assert _f32_rounding_ratio(got, x, y) <= 1.0
+    tf32 = [(t.view(torch.int32) & ~0x1FFF).view(torch.float32) for t in (x, y)]
+    assert _f32_rounding_ratio(matmul_ref(*tf32), x, y) > 1.0
 
 
 @pytest.mark.gpu

@@ -20,13 +20,23 @@ from repro.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_pallas
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch import codesign
 from repro_torch.codesign import H100_SMEM_BUDGET
-from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_H100, plan_chunk, smem_bytes
+from repro_torch.kernels.ssd_scan.ops import (
+    BACKWARD_RANGE,
+    SSD_SCAN_H100,
+    plan_chunk,
+    smem_formula,
+)
 from repro_torch.kernels.ssd_scan.ref import (
     ssd_chunked_ref,
     ssd_intra_chunk_ref,
     ssd_recurrent_ref,
 )
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import (
+    MAX_DIM,
+    check_shapes,
+    shares_scores,
+    ssd_intra_chunk_cuda,
+)
 
 TOL = 1e-4
 SWEEP = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 8, 4, 64), (2, 96, 1, 32, 16, 16)]  # test_ssd_sweep
@@ -98,6 +108,22 @@ def test_intra_chunk_ref_matches_pallas(b, l, nh, hp, n, chunk):
     _close(dte, np.asarray(want[2]).transpose(0, 2, 3, 1).reshape(b, l, nh))
 
 
+@pytest.mark.parametrize("hp,n", [(8, 8), (96, 96), (128, 128), (8, 128), (128, 96), (20, 12)])
+def test_ssd_head_and_state_dims_match_jax(hp, n):
+    """Head and state dims up to the kernel's 128, and ones that are not
+    multiples of 8, through the op against the JAX op (Pallas kernel in
+    interpret mode), with B/C shared by the heads as the model passes them."""
+    x, dA, B, C = _inputs(8, 1, 64, 2, hp, n)
+    B, C = (np.ascontiguousarray(np.broadcast_to(a[:, :, :1], a.shape)) for a in (B, C))
+    y_j, S_j = jax_ssd_chunked(*_j((x, dA, B, C)), chunk=32, interpret=True)
+    xt, dAt, Bt, Ct = _t((x, dA, B, C))
+    y, S = ssd_chunked(xt, dAt, Bt[:, :, :1].expand(B.shape), Ct[:, :, :1].expand(C.shape),
+                       chunk=32)
+    assert y.shape == (1, 64, 2, hp) and S.shape == (1, 2, hp, n)
+    _close(y, y_j)
+    _close(S, S_j)
+
+
 def test_ssd_chunk_invariance():
     """Chunk size is a pure performance knob -- results identical."""
     arrs = _t(_inputs(3, 1, 128, 2, 8, 4))
@@ -152,11 +178,12 @@ def test_ssd_shared_bc_stride0_equals_materialised():
                                        (32, 64, 64)])
 def test_plan_chunk_rule(hp, n, want):
     """The chunk is the planner's (codesign.plan on the H100 hierarchy): a
-    power of two of whole 64-row tiles whose CTA fits the budget."""
+    power of two of at least 64 steps whose CTA fits the budget, with B/C
+    shared by the heads or per head."""
     cl = plan_chunk(hp, n)
     assert cl == want == codesign.plan(SSD_SCAN_H100, (hp, n)).config[0]
     assert cl & (cl - 1) == 0 and 64 <= cl <= 1024
-    assert smem_bytes(cl) <= H100_SMEM_BUDGET
+    assert max(smem_formula(cl, n, s) for s in (False, True)) <= H100_SMEM_BUDGET
 
 
 def test_ssd_rejects_what_the_kernel_does_not_take():
@@ -168,3 +195,59 @@ def test_ssd_rejects_what_the_kernel_does_not_take():
     # the kernel's launcher takes CUDA tensors only: no silent CPU fallback
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_intra_chunk_cuda(x, dA, B, C, 32)
+    # its sizes: hp and n up to 128, chunks up to 1024 dividing l
+    check_shapes(2, 2048, 80, MAX_DIM, MAX_DIM, 1024)
+    check_shapes(1, 7, 1, 3, 5, 7)
+    for hp, n in ((MAX_DIM + 1, 64), (64, MAX_DIM + 1), (0, 8)):
+        with pytest.raises(ValueError, match=f"in \\[1, {MAX_DIM}\\]"):
+            check_shapes(1, 64, 2, hp, n, 32)
+    with pytest.raises(ValueError, match="lie in"):
+        check_shapes(1, 2048, 2, 64, 64, 2048)
+    with pytest.raises(ValueError, match="must divide"):
+        check_shapes(1, 100, 2, 64, 64, 32)
+
+
+def test_shares_scores_rule():
+    """One score block per chunk serves every head where B and C are one
+    group expanded with stride 0 (as ``models.ssm._heads`` passes them), or
+    there is one head; per-head B/C build their own."""
+    B = torch.zeros((2, 64, 1, 16))
+    assert shares_scores(B.expand(2, 64, 8, 16), B.expand(2, 64, 8, 16))
+    assert shares_scores(B, B)
+    assert not shares_scores(B.repeat(1, 1, 8, 1), B.expand(2, 64, 8, 16))
+    assert not shares_scores(B.repeat(1, 1, 8, 1), B.repeat(1, 1, 8, 1))
+
+
+def _formula(cl, nmax, shared):
+    """cl rounded up to 32 of f64 + f32; 2 stages of a 32-step B tile (rows
+    of nmax + 4 floats) and x tile (rows of 68) and, shared, 8 warps' 16 x 32
+    score blocks (rows of 40); not shared, the C rows of 8 groups of 16."""
+    clp = -(-cl // 32) * 32
+    stage = 32 * (nmax + 4) + 32 * 68 + (128 * 40 if shared else 0)
+    return 12 * clp + 4 * (2 * stage + (0 if shared else 128 * (nmax + 4)))
+
+
+@pytest.mark.parametrize("cl,n,shared,want", [
+    (256, 64, False, 72_704),  # the earlier kernel's footprint, 12 cl + 69,632
+    (256, 64, True, 78_848),
+    (100, 128, True, _formula(100, 128, True)),
+    (1024, 100, False, _formula(1024, 128, False)),
+    (7, 8, True, _formula(7, 64, True)),
+])
+def test_smem_formula(cl, n, shared, want):
+    """The space's shared-memory formula (the card holds it against the
+    compiled ``ssd_smem_bytes`` for both instances); every CTA fits the
+    227 KB opt-in."""
+    got = smem_formula(cl, n, shared)
+    assert got == want == _formula(cl, 64 if n <= 64 else 128, shared) <= 232_448
+
+
+def test_ssd_backward_runs_inside_its_profiler_range():
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = [t.requires_grad_() for t in _t(_inputs(9, 1, 64, 2, 8, 4))]
+    y, _ = ssd_chunked(*ts, chunk=32)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        y.sum().backward()
+    assert [e.name for e in prof.events()].count(BACKWARD_RANGE) == 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in ts)

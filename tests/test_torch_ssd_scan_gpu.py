@@ -22,7 +22,12 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention_
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_ref, ssd_recurrent_ref
-from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import (
+    shares_scores,
+    smem_bytes,
+    smem_formula,
+    ssd_intra_chunk_cuda,
+)
 
 SSD_TOL = 1e-4
 FA_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -65,11 +70,68 @@ def test_ssd_kernel_matches_plain_on_gpu(b, l, nh, hp, n, chunk, shared_bc):
     before = ssd_intra_chunk_cuda.launches
     got = ssd_intra_chunk_cuda(x, dA, B, C, chunk)
     torch.cuda.synchronize()
-    assert ssd_intra_chunk_cuda.launches == before + 1
+    # the score kernel, where B/C are shared by the heads, then the main kernel
+    assert ssd_intra_chunk_cuda.launches == before + (2 if shares_scores(B, C) else 1)
     want = ssd_intra_chunk_ref(x, dA, B, C, chunk)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def _check_ssd(x, dA, B, C, chunk):
+    before = ssd_intra_chunk_cuda.launches
+    got = ssd_intra_chunk_cuda(x, dA, B, C, chunk)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_cuda.launches == before + (2 if shares_scores(B, C) else 1)
+    want = ssd_intra_chunk_ref(x, dA, B, C, chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# every compiled instance: scores from the score kernel (B/C shared by the
+# heads, stride 0) or built per CTA (per-head B/C), state dims up to 64 and
+# up to 128
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_every_instance(shared, n):
+    _cuda_or_skip()
+    x, dA, B, C = _ssd_inputs(2, 512, 8, 64, n, shared, seed=n)
+    assert shares_scores(B, C) == shared
+    _check_ssd(x, dA, B, C, 256)
+
+
+@pytest.mark.gpu
+def test_compiled_smem_equals_the_formula():
+    """The compiled ssd_smem_bytes equals the Python formula (which the
+    space's legalize binds) for both instances."""
+    _cuda_or_skip()
+    for shared in (False, True):
+        for n in (1, 64, 65, 128):
+            for cl in (1, 31, 256, 1024):
+                assert smem_bytes(cl, n, shared) == smem_formula(cl, n, shared), (cl, n, shared)
+
+
+# head and state dims up to 128, not multiples of 8 (zero-filled tails) or
+# of 4 (rows not 16-byte aligned: 4-byte copies), hp in two 64-wide slices
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("hp,n", [(128, 128), (96, 96), (8, 8), (20, 12), (10, 6), (128, 20),
+                                  (72, 100)])
+def test_ssd_head_and_state_dims(hp, n, shared):
+    _cuda_or_skip()
+    _check_ssd(*_ssd_inputs(2, 256, 4, hp, n, shared, seed=hp + n), 128)
+
+
+# chunk lengths from 16 to the longest the kernel takes, and ones that are
+# not multiples of 16 or 32
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 32, 64, 256, 1024, 1, 7, 40, 100])
+def test_ssd_chunk_lengths(chunk):
+    _cuda_or_skip()
+    l = chunk * max(1, 2048 // chunk // 2)
+    _check_ssd(*_ssd_inputs(1, l, 4, 64, 64, True, seed=chunk), chunk)
 
 
 @pytest.mark.gpu
