@@ -44,6 +44,17 @@ Phases (any failure raises and the exit code is non-zero):
      it, every bf16 matmul launch on the wgmma instance (per-instance counts
      and the kernel name in a profiler window over bf16 calibration
      launches, the process's first profiler window);
+  mappers: for every calibration row, each of Union's five mappers
+     (heuristic, exhaustive, random, genetic, decoupled) searches the
+     space's problem on its H100 hierarchy without the space's tile
+     constraints; each tile is decoded, legalized, predicted under the
+     calibration scale just measured, held against its plain version on
+     three input draws and timed like the calibration rows beside the plain
+     version and the PyTorch call, next to the row's ``codesign.plan`` tile
+     and its default; every kernel and both matmul instances must have
+     launched in the timed windows; the table is printed, the full record
+     written to ``chiprun_out/mappers.json``, and each (row, tile) is a
+     record of its own in the kernels' JSON line;
   5. serve: qwen3-0.6b at full width (random weights from a seeded
      generator on the card), 16 requests through ``WaveServer`` with the
      kernels on; the kernel launch counts must match the steps run, and one
@@ -69,8 +80,9 @@ Phases (any failure raises and the exit code is non-zero):
      serving tokens/s, decode-step time,
      train step time, tokens/s and peak memory. Every time is stamped with
      the card and its power limit.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record: the main paths'
+records (each with its own path's launches), then the mappers phase's, one
+per (row, tile); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,6 +106,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import codesign, kernels  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.architecture import H100_SXM  # noqa: E402
+from repro_torch.core.optimizer import union_opt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -126,7 +139,12 @@ from repro_torch.kernels.matmul.matmul import (  # noqa: E402
 )
 from repro_torch.kernels.matmul.matmul import smem_bytes as mm_smem_formula  # noqa: E402
 from repro_torch.kernels.matmul.ops import MATMUL_BF16_H100, MATMUL_H100  # noqa: E402
-from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.matmul.ref import (  # noqa: E402
+    BF16_TOL,
+    f32_product_ratio,
+    matmul_ref,
+    product_check,
+)
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as ssd_launcher  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import SSD_SCAN_H100, plan_chunk  # noqa: E402
@@ -200,11 +218,10 @@ MODEL_LOGIT_TOL = 0.25
 # The bf16 matmul against its plain version: tests/test_kernels.py's bound
 # (numpy's allclose rule), one bf16 rounding of the output. The f32 matmul
 # (IEEE FMA, no TF32) is held to a float64 evaluation within its rounding
-# estimate sqrt(K) u (|a| |b|) (_f32_product_ratio): against another f32 sum
+# estimate sqrt(K) u (|a| |b|) (f32_product_ratio): against another f32 sum
 # order at rtol = atol = 2e-5 it passed or failed with the draw (6.1e-5 at
 # 256x128x384 on one), where outputs cancel to near 0
-MM_TOL = {torch.bfloat16: 2e-2}
-F32_U = 2.0 ** -24  # unit roundoff of float32
+MM_TOL = {torch.bfloat16: BF16_TOL}
 MM_SWEEP = [(128, 128, 128), (256, 128, 384), (300, 200, 100), (64, 512, 256), (1, 257, 33)]
 # (M, N, K, dtype) timed: the co-design loop's four calibration shapes
 # (quickstart step 4's GEMM, a cube, qwen3-0.6b's gate/up projection at 4096
@@ -563,36 +580,19 @@ def _mm_orient(x, y, a_mn, b_mn):
     return (x.t().contiguous().t() if a_mn else x), (y if b_mn else y.t().contiguous().t())
 
 
-def _f32_product_ratio(got, a, b) -> float:
-    """Worst |got - a b| / (sqrt(K) u (|a| |b|)) for a product of f32
-    operands K deep, a b evaluated in float64. A K-term f32 sum in any order
-    is within K u (|a| |b|) of the exact one; rounding errors that do not line
-    up, as with these random operands, give about sqrt(K) u (|a| |b|) at
-    most, whatever the order. At most 1 passes; operands rounded to TF32
-    miss it by two orders of magnitude and more."""
-    a64, b64 = a.double(), b.double()
-    limit = math.sqrt(a.shape[-1]) * F32_U * (a64.abs() @ b64.abs())
-    return ((got.double() - a64 @ b64).abs() / limit.clamp_min(1e-300)).max().item()
-
-
 def _tf32(t):
     """t with its mantissa cut to TF32's 10 bits."""
     return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def _check_mm(label, got, a, b, out_dtype=None):
-    """Hold got = a b to its plain version: f32 operands to a float64
-    evaluation by _f32_product_ratio, bf16 ones to matmul_ref within
-    MM_TOL. Returns the max abs error."""
+    """Hold got = a b to its plain version (``product_check``: f32 operands
+    to a float64 evaluation within sqrt(K) u |a||b|, bf16 ones to
+    matmul_ref within MM_TOL). Returns the max abs error."""
     torch.cuda.synchronize()
-    if a.dtype == torch.float32:
-        ratio = _f32_product_ratio(got, a, b)
-        err = (got.double() - a.double() @ b.double()).abs().max().item()
-        check(math.isfinite(ratio) and ratio <= 1.0,
-              f"matmul {label}: |err| / (sqrt(K) u |a||b|) = {ratio:.3f} > 1 (max abs err {err})")
-        return err
-    err, ok = _allclose([got], [matmul_ref(a, b, out_dtype)], MM_TOL[a.dtype])
-    check(ok, f"matmul {label}: max abs err {err}, not within rtol = atol = {MM_TOL[a.dtype]}")
+    err, ratio, rule = product_check(got, a, b, out_dtype)
+    check(math.isfinite(ratio) and ratio <= 1.0,
+          f"matmul {label}: max abs err {err}, worst |err| / limit {ratio:.3f}, not within {rule}")
     return err
 
 
@@ -645,8 +645,8 @@ def _check_matmul(gen) -> None:
             check(matmul_cuda.launches_by_instance[inst] == before[inst] + 1,
                   f"matmul {M}x{N}x{K} {dtype} did not launch on the {inst} instance")
             if dtype == torch.float32:
-                ratio, planted = (_f32_product_ratio(got, x, y),
-                                  _f32_product_ratio(matmul_ref(_tf32(x), _tf32(y)), x, y))
+                ratio, planted = (f32_product_ratio(got, x, y),
+                                  f32_product_ratio(matmul_ref(_tf32(x), _tf32(y)), x, y))
                 check(planted > 1.0, f"matmul {M}x{N}x{K}: the rounding limit passes a product "
                                      f"of TF32-rounded operands ({planted:.3f})")
                 rule = (f"vs float64; worst |err| / (sqrt(K) u |a||b|) {ratio:.3f} (limit 1; "
@@ -1084,14 +1084,16 @@ def _train_kernels_on_vs_off(stamp, cfg):
              f"kernels on, under the profiler)", one_step, 1)
 
 
-def phase_codesign(stamp) -> dict:
+def phase_codesign(stamp, gen) -> dict:
     """The co-design loop on the card: quickstart step 4 (plan the GEMM in
     each dtype's space, launch it with the planned tile in f32 and bf16,
     check it), then every kernel space calibrated with CUDA events next to
     the model's prediction, both matmul spaces included. Every bf16 matmul
     launch of the loop must have run on the wgmma instance, shown by the
     per-instance counts and by the kernel name a profiler window over one
-    bf16 calibration launch records. Returns the loop's kernel launches."""
+    bf16 calibration launch records. Each calibration row is then held
+    against its plain version on inputs drawn from ``gen``. Returns the
+    loop's kernel launches."""
     flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
     reset_launches()
     t0 = time.perf_counter()
@@ -1131,45 +1133,265 @@ def phase_codesign(stamp) -> dict:
     _profile_bf16_calibration_launch(rows)
     # every shape and tile the loop launched, held against its plain version
     # (these launches are not the loop's)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     for r in rows:
         space, shape, config = codesign.get_space(r["kernel"]), tuple(r["shape"]), tuple(r["config"])
         inputs = space.example_inputs(shape, "cuda", gen)
-        got, want = space.run(inputs, config), space.reference(inputs, config)
-        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
-        check(len(got) == len(want) and all(a.shape == b.shape for a, b in zip(got, want)),
-              f"{space.name} {shape} tile {config}: output shapes differ from the plain version's")
-        dtype = str(inputs[0].dtype)[6:]
-        if space is FLASH_ATTENTION_H100:  # calibrated in bf16: the space's tolerance, and
-            # the row-scaled limit (a kernel that drops a KV tile fails it)
-            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-            q, k, v = inputs
-            ratio, planted = _fa_check_rows(f"{space.name} {shape}", got[0], want[0], q, k, v,
-                                            config[1], causal=False,
-                                            scale=1.0 / math.sqrt(q.shape[-1]))
-            ok = math.isfinite(err) and err <= space.tolerance
-            rule = (f"tol {space.tolerance}; worst |err| / (2^-7 max_row |want| + 1e-3) "
-                    f"{ratio:.3f}, limit 1; the plain version without its last KV tile: "
-                    f"{planted:.3f}")
-        elif space is MATMUL_H100:  # f32: the rounding limit against a float64 evaluation
-            err, ok = _check_mm(f"{space.name} {shape}", got[0], *inputs), True
-            rule = "vs float64, within sqrt(K) u |a||b|"
-        else:
-            tol = space.tolerance if space is MATMUL_BF16_H100 else SSD_TOL
-            (err, ok), rule = _allclose(got, want, tol), f"rtol = atol = {tol}"
-            if space is SSD_SCAN_H100:  # the space times the kernel alone; the whole op too
-                cl = min(config[0], inputs[0].shape[1])
-                whole, ok_whole = _allclose(ssd_chunked(*inputs, chunk=cl),
-                                            ssd_chunked_ref(*inputs, chunk=cl), tol)
-                ok = ok and ok_whole
-                rule += f"; the whole op ssd_chunked vs ssd_chunked_ref: max abs err {whole:.3g}"
-        check(ok, f"codesign: {space.name} {shape} tile {config} {dtype}: max abs err {err}, not "
-                  f"within {rule}")
-        print(f"codesign: {space.name} {shape} tile {config} {dtype}, {r['launches']} launches in "
-              f"the loop: kernel vs plain version max abs err {err:.3g} ({rule})")
-        del inputs, got, want
+        err, ratio, rule = _check_space_output(space, shape, config, inputs, space.run(inputs, config))
+        ok = math.isfinite(ratio) and ratio <= 1.0
+        if space is SSD_SCAN_H100:  # the space times the kernel alone; the whole op too
+            cl = min(config[0], inputs[0].shape[1])
+            whole, ok_whole = _allclose(ssd_chunked(*inputs, chunk=cl),
+                                        ssd_chunked_ref(*inputs, chunk=cl), SSD_TOL)
+            ok = ok and ok_whole
+            rule += f"; the whole op ssd_chunked vs ssd_chunked_ref: max abs err {whole:.3g}"
+        check(ok, f"codesign: {space.name} {shape} tile {config} {str(inputs[0].dtype)[6:]}: max "
+                  f"abs err {err}, not within {rule}")
+        print(f"codesign: {space.name} {shape} tile {config} {str(inputs[0].dtype)[6:]}, "
+              f"{r['launches']} launches in the loop: kernel vs plain version max abs err "
+              f"{err:.3g} ({rule})")
+        del inputs
     return {"launches": launches, "max_abs_err": max(res["max_abs_err"].values()),
-            "matmul_by_shape": _matmul_launches_by_shape(res, rows)}
+            "matmul_by_shape": _matmul_launches_by_shape(res, rows), "scales": scales}
+
+
+def _check_space_output(space, shape, config, inputs, got, exact=False):
+    """Hold a space's kernel output ``got`` at ``config`` against the
+    space's plain version on the same inputs: flash attention (bf16) within
+    the space's tolerance and the row-scaled limit (a kernel that drops a
+    KV tile fails it); the matmul by ``product_check`` (f32 within sqrt(K)
+    u |a||b| of a float64 evaluation, bf16 within rtol = atol); the SSD
+    kernel within rtol = atol. With ``exact``, the SSD kernel is held within
+    rtol = atol of the plain version evaluated in float64, as the kernel
+    phase holds it at the training shape (both f32 versions round; the
+    float64 one is the answer they approximate), and the plain f32
+    version's distance from it is reported. Returns (max abs error, worst
+    error over its limit, the rule): the output passes where the second is
+    at most 1."""
+    if exact and space is SSD_SCAN_H100:
+        cl = min(config[0], inputs[0].shape[1])
+        want = ssd_intra_chunk_ref(*inputs, cl, dtype=torch.float64)
+        plain = space.reference(inputs, config)
+        ratio = _allclose_ratio(got, want, SSD_TOL)
+        rule = (f"rtol = atol = {SSD_TOL} of a float64 evaluation; the plain f32 version: "
+                f"{_allclose(plain, want, SSD_TOL)[0]:.3g} from it "
+                f"({_allclose_ratio(plain, want, SSD_TOL):.3f}), {_allclose(got, plain, SSD_TOL)[0]:.3g} "
+                f"from the kernel")
+        return _allclose(got, want, SSD_TOL)[0], ratio, rule
+    want = space.reference(inputs, config)
+    got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+    check(len(got) == len(want) and all(a.shape == b.shape for a, b in zip(got, want)),
+          f"{space.name} {shape} tile {config}: output shapes differ from the plain version's")
+    if space is FLASH_ATTENTION_H100:
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        q, k, v = inputs
+        rows, planted = _fa_check_rows(f"{space.name} {shape}", got[0], want[0], q, k, v,
+                                       config[1], causal=False,
+                                       scale=1.0 / math.sqrt(q.shape[-1]))
+        return (err, max(err / space.tolerance, rows),
+                f"tol {space.tolerance}; worst |err| / (2^-7 max_row |want| + 1e-3) {rows:.3f}, "
+                f"limit 1; the plain version without its last KV tile: {planted:.3f}")
+    if space in (MATMUL_H100, MATMUL_BF16_H100):
+        torch.cuda.synchronize()
+        return product_check(got[0], *inputs)
+    return _allclose(got, want, SSD_TOL)[0], _allclose_ratio(got, want, SSD_TOL), \
+        f"rtol = atol = {SSD_TOL}"
+
+
+MAPPERS = ("heuristic", "exhaustive", "random", "genetic", "decoupled")
+MAPPER_DRAWS = 3  # input draws each tile of the mappers phase is checked on; the first is timed
+
+
+def _kernel_keys(space) -> dict:
+    """The kernels-line keys naming the CUDA kernel a space launches and
+    the TPU kernel it replaces."""
+    name, source, replaces = {
+        FLASH_ATTENTION_H100.name: ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention/flash_attention.py:100"),
+        SSD_SCAN_H100.name: ("ssd_scan", "ssd_scan/csrc/ssd_scan.cu",
+                             "src/repro/kernels/ssd_scan/ssd_scan.py:69"),
+        MATMUL_H100.name: ("matmul", "matmul/csrc/matmul.cu", "src/repro/kernels/matmul/matmul.py:39"),
+        MATMUL_BF16_H100.name: ("matmul", "matmul/csrc/matmul_wgmma.cu",
+                                "src/repro/kernels/matmul/matmul.py:39"),
+    }[space.name]
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
+            "replaces": replaces}
+
+
+def _ssd_work(b, l, nh, hp, n, cl):
+    """Bytes and operations of one intra-chunk call with B/C shared by the
+    heads: x, dA, y, S_c and dte once, B and C once (one group); the score
+    block C B^T once per (batch, chunk), its decayed product with x and S_c
+    per head."""
+    nc = -(-l // cl)
+    bytes_ = 4 * (b * l * nh * hp + b * l * nh + 2 * b * l * n
+                  + b * l * nh * hp + b * nc * nh * n * hp + b * l * nh)
+    tri = cl * (cl + 1) // 2
+    return bytes_, b * nc * (2 * tri * n + nh * (2 * tri * hp + 2 * cl * n * hp))
+
+
+def _space_bound(space, shape, tile, inputs):
+    """(bound ms, what bounds it) of one launch of ``space`` at ``tile`` on
+    ``inputs``: each input read and each output written once at 3.35 TB/s,
+    against the operations at the peak of the route the kernel takes."""
+    if space in (MATMUL_H100, MATMUL_BF16_H100):
+        M, N, K = shape
+        peak = F32_FLOP_PER_S if inputs[0].dtype == torch.float32 else BF16_FLOP_PER_S
+        return _bound(inputs[0].element_size() * (M * K + K * N + M * N), 2 * M * N * K, peak)
+    if space is FLASH_ATTENTION_H100:
+        sq, skv, d = shape
+        return _bound(2 * (2 * sq * d + 2 * skv * d), 4 * sq * skv * d, BF16_FLOP_PER_S)
+    b, l, nh, hp = inputs[0].shape
+    bytes_, flops = _ssd_work(b, l, nh, hp, shape[1], min(tile[0], l))
+    return _bound(bytes_, 3 * flops, TF32_FLOP_PER_S)  # 3xTF32 on the tensor cores
+
+
+def _library_call(space, inputs):
+    """The PyTorch call computing what the space's kernel computes on
+    ``inputs``, or None (the SSD intra-chunk step has none)."""
+    if space in (MATMUL_H100, MATMUL_BF16_H100):
+        return lambda: torch.matmul(*inputs)
+    if space is FLASH_ATTENTION_H100:
+        q, k, v = (t.transpose(1, 2) for t in inputs)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return None
+
+
+def _mapper_tile(space, shape, tile, draws) -> dict:
+    """One tile of the mappers phase: held against its plain version on
+    every draw (the first launch under the hang limit), then timed on the
+    first draw as the calibration table times (``time_launches``), beside
+    the plain version. Only the timed launches are counted."""
+    err, ratio, rule = 0.0, -math.inf, ""
+    for i, inputs in enumerate(draws):
+        got = space.run(inputs, tile)
+        if i == 0:
+            _sync_within(f"mappers {space.name} {shape} tile {tile}")
+        e, r, why = _check_space_output(space, shape, tile, inputs, got, exact=True)
+        check(math.isfinite(r) and r <= 1.0,
+              f"mappers: {space.name} {shape} tile {tile}, draw {i}: max abs err {e}, worst "
+              f"|err| / limit {r:.3f}, not within {why}")
+        err = max(err, e)
+        if r > ratio:
+            ratio, rule = r, why
+        del got
+    inputs = draws[0]
+    before = quickstart.kernel_launches()
+    ms = codesign.time_launches(lambda: space.run(inputs, tile), "cuda") * 1e3
+    torch.cuda.synchronize()
+    launches = quickstart.kernel_launches() - before
+    plain_ms = codesign.time_launches(lambda: space.reference(inputs, tile), "cuda") * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "launches": launches, "max_abs_err": err,
+            "ratio": ratio, "rule": rule}
+
+
+def phase_mappers(stamp, scales, gen) -> list:
+    """Which tile each of Union's five mappers gives each kernel, on the
+    card. For every calibration row (``quickstart.CALIBRATION_SHAPES``) and
+    every mapper, ``union_opt`` searches the space's problem on its H100
+    hierarchy with the space's cost model and metric but without its tile
+    constraints (under them the sampling mappers find only the trivial
+    mapping, as the reference's do); the C1 tile is decoded and legalized
+    and predicted under the calibration scale of this run. Each distinct
+    tile of the row (the mappers', the row's ``codesign.plan`` tile and its
+    default) is held against its plain version on ``MAPPER_DRAWS`` input
+    sets drawn from ``gen`` and timed as the calibration table times (CUDA
+    events, inputs warm in L2, best of 3 windows of 10 launches) beside the
+    plain version and, once a row, the PyTorch call. Returns one
+    kernels-line record per (row, distinct tile), with its timed launches."""
+    flash_attention_cuda.launches = ssd_intra_chunk_cuda.launches = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    rows, records, host, worst = [], [], 0.0, {}
+    for name, shapes in quickstart.CALIBRATION_SHAPES.items():
+        space = codesign.get_space(name)
+        for shape in shapes:
+            cands = [{"mapper": "plan", "evaluated": None, "host_s": None, "raw": None,
+                      "tile": codesign.plan(space, shape).config},
+                     {"mapper": "default", "evaluated": None, "host_s": None, "raw": None,
+                      "tile": space.legalize(space.default_config(shape), shape)}]
+            for mapper in MAPPERS:
+                t1 = time.perf_counter()
+                sol = union_opt(space.problem(shape), space.arch(), mapper=mapper,
+                                cost_model=space.cost_model, metric=space.metric)
+                dt = time.perf_counter() - t1
+                host += dt
+                raw = space.decode(sol.mapping, shape)
+                cands.append({"mapper": mapper, "evaluated": sol.search.evaluated, "host_s": dt,
+                              "raw": list(raw), "tile": space.legalize(raw, shape)})
+            draws = [space.example_inputs(shape, "cuda", gen) for _ in range(MAPPER_DRAWS)]
+            library = _library_call(space, draws[0])
+            library_ms = None if library is None else codesign.time_launches(library, "cuda") * 1e3
+            tiles = {}
+            for c in cands:
+                tile = tuple(c["tile"])
+                if tile not in tiles:
+                    tiles[tile] = {**_mapper_tile(space, shape, tile, draws), "mappers": []}
+                t = tiles[tile]
+                t["mappers"].append(c["mapper"])
+                c.update(tile=list(tile), measured_ms=t["ms"], max_abs_err=t["max_abs_err"],
+                         over_limit=t["ratio"], rule=t["rule"],
+                         predicted_ms=codesign.predict_cost(space, shape, tile).latency_s * 1e3
+                         * scales[name])
+            for c in cands:
+                c["over_plan"] = c["measured_ms"] / cands[0]["measured_ms"]
+                rows.append({"space": name, "shape": list(shape), **c})
+            inst = {"instance": instance_for(*draws[0])} if space in MM_SPACES.values() else {}
+            for tile, t in tiles.items():
+                bound, bound_by = _space_bound(space, shape, tile, draws[0])
+                records.append({
+                    **_kernel_keys(space), **inst, "path": "mappers",
+                    "shape": f"{name} {'x'.join(map(str, shape))} tile {tile} "
+                             f"({', '.join(t['mappers'])}); warm L2, best of 3 x 10",
+                    "launches": t["launches"], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": library_ms, "worst_over_limit": t["ratio"]})
+                worst[name] = max(worst.get(name, -math.inf), t["ratio"])
+            del draws, library
+    torch.cuda.synchronize()
+    timed = {}
+    for r in records:
+        key = r["name"] + (f" {r['instance']}" if "instance" in r else "")
+        timed[key] = timed.get(key, 0) + r["launches"]
+    check(sorted(timed) == ["flash_attention", "matmul fma", "matmul wgmma", "ssd_scan"]
+          and all(n > 0 for n in timed.values()),
+          f"the mappers phase's timed launches missed a kernel or an instance: {timed}")
+    n_search = sum(len(v) for v in quickstart.CALIBRATION_SHAPES.values()) * len(MAPPERS)
+    print(f"mappers [{stamp}] ({n_search} searches without the spaces' tile constraints, "
+          f"{host:.1f} s of host search; tiles decoded, legalized, checked on {MAPPER_DRAWS} "
+          f"draws and timed with CUDA events, best of 3 x 10 launches, inputs warm in L2; "
+          f"predicted under this run's calibration scales):")
+    print(f"  {'space':20s} {'shape':18s} {'mapper':10s} {'evals':>6s} {'host s':>7s} "
+          f"{'raw tile':16s} {'launched':16s} {'pred ms':>9s} {'meas ms':>9s} {'/plan':>6s}")
+    for r in rows:
+        evals = "" if r["evaluated"] is None else str(r["evaluated"])
+        hs = "" if r["host_s"] is None else f"{r['host_s']:.2f}"
+        raw = "" if r["raw"] is None else str(tuple(r["raw"]))
+        print(f"  {r['space']:20s} {str(tuple(r['shape'])):18s} {r['mapper']:10s} {evals:>6s} "
+              f"{hs:>7s} {raw:16s} {str(tuple(r['tile'])):16s} {r['predicted_ms']:9.4f} "
+              f"{r['measured_ms']:9.4f} {r['over_plan']:6.3f}")
+    for name, shapes in quickstart.CALIBRATION_SHAPES.items():
+        for shape in map(tuple, shapes):
+            rs = [r for r in rows if r["space"] == name and tuple(r["shape"]) == shape]
+            ms = {r["mapper"]: r["measured_ms"] for r in rs}
+            best = min((r for r in rs if r["mapper"] in MAPPERS), key=lambda r: r["measured_ms"])
+            def beats(t):
+                return "beats" if t < ms["default"] else "does not beat"
+
+            print(f"mappers: {name} {shape}: plan {ms['plan']:.4f} ms, default "
+                  f"{ms['default']:.4f} ms{' (the plan loses)' if ms['plan'] > ms['default'] else ''}"
+                  f"; fastest mapper tile {tuple(best['tile'])} ({best['mapper']}) "
+                  f"{best['measured_ms']:.4f} ms ({beats(best['measured_ms'])} the default); "
+                  f"exhaustive argmin {ms['exhaustive']:.4f} ms ({beats(ms['exhaustive'])} the "
+                  f"default)")
+    print(f"mappers: worst |err| / limit over {MAPPER_DRAWS} draws a tile, per space: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "mappers.json").write_text(json.dumps(
+        {"device": stamp, "rows": rows, "tiles": records, "worst_over_limit": worst}, indent=1))
+    print(f"mappers: timed launches {timed} ({len(records)} tiles) in "
+          f"{time.perf_counter() - t0:.1f} s; the full record is in chiprun_out/mappers.json")
+    return records
 
 
 def _profile_bf16_calibration_launch(rows) -> None:
@@ -1211,10 +1433,9 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
     """Each kernel at its main-path shape beside its bound, its plain version
     and, where one exists, the PyTorch call computing the same function. A
     matmul whose plan is not the searched tile (the model rated the default
-    cheaper once launched) is timed at both."""
-    fa = {"name": "flash_attention", "route": "cuda",
-          "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100"}
+    cheaper once launched) is timed at both. Each record's launches are its
+    own path's at its shape: serving, training or the co-design loop."""
+    fa = _kernel_keys(FLASH_ATTENTION_H100)
     records = []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
 
@@ -1303,15 +1524,12 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
         "per_head": lambda: ssd_intra_chunk_cuda(*per_head(), cl),
     }, n=20)
     del pick, per_head
-    # what these inputs need: x, dA, y, S_c and dte, B and C once (one group);
-    # the score block C B^T once per (batch, chunk), its decayed product with
-    # x and S_c per head. The kernel runs them as 3xTF32 on the tensor cores
-    # (three TF32 products each); the f32 FMA figure and the earlier count
-    # (scores per head) are printed for continuity.
-    bytes_ = 4 * (b * l * nh * hp + b * l * nh + 2 * b * l * n
-                  + b * l * nh * hp + b * nc * nh * n * hp + b * l * nh)
+    # what these inputs need (_ssd_work). The kernel runs the products as
+    # 3xTF32 on the tensor cores (three TF32 products each); the f32 FMA
+    # figure and the earlier count (scores per head) are printed for
+    # continuity.
+    bytes_, flops = _ssd_work(b, l, nh, hp, n, cl)
     tri = cl * (cl + 1) // 2
-    flops = b * nc * (2 * tri * n + nh * (2 * tri * hp + 2 * cl * n * hp))
     per_head_flops = b * nh * nc * (2 * tri * (n + hp) + 2 * cl * n * hp)
     bound, bound_by = _bound(bytes_, 3 * flops, TF32_FLOP_PER_S)
     tc_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
@@ -1329,9 +1547,7 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
           f"{per_head_flops / F32_FLOP_PER_S * 1e3:.4f} ms); registers / spill bytes "
           + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in regs.items())
           + "; no single PyTorch call computes it")
-    records.append({"name": "ssd_scan", "route": "cuda",
-                    "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-                    "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:69",
+    records.append({**_kernel_keys(SSD_SCAN_H100),
                     "shape": f"train b={b} l={l} nh={nh} hp={hp} n={n} cl={cl} f32",
                     "launches": train_launches["ssd_scan"], "max_abs_err": errs["ssd_train"],
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
@@ -1391,10 +1607,7 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
               f"{peak / 1e12:.0f} TFLOP/s, {set_bytes / 1e6:.1f} MB; {bound / ms['kernel']:.1%} of "
               f"it); max abs err {err:.3g}{teeth}; {launches} launches at this shape and dtype in "
               f"the co-design loop")
-        source = "matmul_wgmma.cu" if inst == "wgmma" else "matmul.cu"
-        records.append({"name": "matmul", "route": "cuda", "instance": inst,
-                        "source": f"src/repro_torch/kernels/matmul/csrc/{source}",
-                        "replaces": "src/repro/kernels/matmul/matmul.py:39",
+        records.append({**_kernel_keys(space), "instance": inst,
                         "shape": f"{M}x{N}x{K} {str(dtype)[6:]} tile {tiles}",
                         "launches": launches, "max_abs_err": err,
                         "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
@@ -1448,11 +1661,13 @@ def main() -> int:
     phase_build()
     plans = phase_plan()
     errs = phase_kernels()
-    loop = phase_codesign(stamp)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)  # the loop's and the mappers' inputs
+    loop = phase_codesign(stamp, gen)
+    mapper_records = phase_mappers(stamp, loop["scales"], gen)
     serve_launches = phase_serve(stamp)
     train_launches = phase_train(stamp)
     records = phase_times(stamp, plans, serve_launches, train_launches, errs, loop)
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + mapper_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

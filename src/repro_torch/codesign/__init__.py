@@ -42,4 +42,5 @@ from repro_torch.codesign.calibrate import (  # noqa: F401
     CalibrationTable,
     calibrate_kernel,
     measure_kernel,
+    time_launches,
 )

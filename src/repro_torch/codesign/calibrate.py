@@ -317,6 +317,50 @@ class CalibrationTable:
 # ---------------------------------------------------------------------- #
 # measurement
 # ---------------------------------------------------------------------- #
+def _timing_device(device):
+    """``device`` as a torch.device the timers can time on: CUDA (raises
+    without a card; nothing falls back to the CPU) or the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("calibrate: device cuda requested but no CUDA device is available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"calibrate: no timing path for device {device}")
+    return device
+
+
+def time_launches(run, device="cuda", *, repeats: int = 3, iters: int = 10) -> float:
+    """Seconds per call of ``run()``: the best of ``repeats`` windows of
+    ``iters`` calls each, after one untimed call (best-of-N, because
+    scheduling noise only ever adds time). On CUDA the windows are timed
+    with CUDA events on the current stream; on the CPU with the host
+    clock. ``device="cuda"`` without a card raises; it never falls back to
+    the CPU."""
+    import torch
+
+    device = _timing_device(device)
+    run()  # warm-up: builds and loads the kernel
+    best = math.inf
+    for _ in range(max(1, int(repeats))):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                run()
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) * 1e-3
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            dt = time.perf_counter() - t0
+        best = min(best, dt / iters)
+    return best
+
+
 def measure_kernel(
     space: KernelSpace,
     shape: Sequence[int],
@@ -327,40 +371,18 @@ def measure_kernel(
     iters: int = 10,
     seed: int = 0,
 ) -> float:
-    """Seconds per launch at ``config``: the best of ``repeats`` windows of
-    ``iters`` launches each, after an untimed warm-up (best-of-N, because
-    scheduling noise only ever adds time). On CUDA the windows are timed
-    with CUDA events on the current stream; on the CPU with the host
-    clock around the plain version. ``device="cuda"`` without a card
-    raises; it never falls back to the CPU."""
+    """Seconds per launch at ``config`` on inputs made from ``seed``
+    (:func:`time_launches`; on the CPU the plain version runs).
+    ``device="cuda"`` without a card raises; it never falls back to the
+    CPU."""
     import torch
 
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("measure_kernel: device cuda requested but no CUDA device is available")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"measure_kernel: no timing path for device {device}")
+    device = _timing_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     inputs = space.example_inputs(shape, device, gen)
-    space.run(inputs, config)  # warm-up: builds and loads the kernel
-    best = math.inf
-    for _ in range(max(1, int(repeats))):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                space.run(inputs, config)
-            end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) * 1e-3
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                space.run(inputs, config)
-            dt = time.perf_counter() - t0
-        best = min(best, dt / iters)
-    return best
+    return time_launches(
+        lambda: space.run(inputs, config), device, repeats=repeats, iters=iters
+    )
 
 
 def calibrate_kernel(

@@ -6,9 +6,12 @@ Unified abstractions (paper Sec. IV):
   mapping       -- cluster-target loop-centric mapping + legality rules
   mapspace      -- map-space enumeration with pruning
   constraints   -- user constraint files (paper Sec. IV-E)
-  cost          -- plug-and-play cost models (Timeloop-like, MAESTRO-like)
-  mappers       -- plug-and-play mappers (heuristic; the others are queued)
-  ir            -- mini-MLIR dialect stack + lowering + conformability
+  cost          -- plug-and-play cost models (Timeloop-like, MAESTRO-like,
+                   TPU roofline)
+  mappers       -- plug-and-play mappers (exhaustive, random, decoupled,
+                   genetic, heuristic)
+  genome_batch  -- array-native candidate generation for the mappers
+  ir            -- mini-MLIR dialect stack + lowering + TTGT + conformability
 """
 
 from repro_torch.core.problem import Problem, DataSpace, AffineExpr, Term  # noqa: F401

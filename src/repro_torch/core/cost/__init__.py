@@ -8,8 +8,8 @@ paper's interoperability contribution: any mapper can drive any model.
                    (per-level access counts + bandwidth roofline)
   maestro_like  -- cluster data-centric model (NoC multicast energy,
                    per-cluster scheduling)
-
-The TPU roofline model of the reference package is not ported.
+  roofline      -- TPU v5e three-term roofline (compute/memory/collective);
+                   a model of a TPU-like accelerator, not of the H100
 """
 
 from repro_torch.core.cost.base import Cost, CostModel  # noqa: F401
@@ -17,3 +17,4 @@ from repro_torch.core.cost.engine import EngineStats, EvaluationEngine, mapping_
 from repro_torch.core.cost.store import ResultStore  # noqa: F401
 from repro_torch.core.cost.timeloop_like import TimeloopLikeModel  # noqa: F401
 from repro_torch.core.cost.maestro_like import MaestroLikeModel  # noqa: F401
+from repro_torch.core.cost.roofline import TPURooflineModel  # noqa: F401

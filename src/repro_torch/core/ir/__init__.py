@@ -8,9 +8,9 @@ Three levels, mirroring the paper's TOSA/Linalg/Affine pipeline:
 
 plus the final lowering into a Union ``Problem`` and:
 
+  ttgt          -- TC -> transpose-transpose-GEMM-transpose rewriting
+                   (algorithm exploration, paper Sec. V-A)
   conformability-- cost-model-dependent conformability passes
-
-(The reference package's TTGT rewriting is not ported.)
 """
 
 from repro_torch.core.ir.dialects import AffineLoopNest, EinsumGeneric, LayerOp, TensorType  # noqa: F401
@@ -20,4 +20,5 @@ from repro_torch.core.ir.lowering import (  # noqa: F401
     generic_to_affine,
     lower_layer_to_problem,
 )
+from repro_torch.core.ir.ttgt import TTGTPlan, enumerate_ttgt_plans, best_ttgt_plan  # noqa: F401
 from repro_torch.core.ir.conformability import conformable_models, ConformabilityReport  # noqa: F401

@@ -1,27 +1,25 @@
 """Plug-and-play mappers (paper Sec. III-B1).
 
 Every mapper searches the SAME MapSpace and scores candidates with ANY
-CostModel. The port has the heuristic mapper, which the co-design planner
-uses; the others wait their turn in :data:`QUEUED_MAPPERS`.
+CostModel -- the unified mapping abstraction is what makes e.g. a
+GAMMA-style genetic mapper usable with a Timeloop-like cost model, which
+the paper highlights as impossible in the tightly-coupled status quo.
 """
 
 from repro_torch.core.mappers.base import Mapper, SearchResult  # noqa: F401
+from repro_torch.core.mappers.exhaustive import ExhaustiveMapper  # noqa: F401
+from repro_torch.core.mappers.random_search import RandomMapper  # noqa: F401
+from repro_torch.core.mappers.decoupled import DecoupledMapper  # noqa: F401
+from repro_torch.core.mappers.genetic import GeneticMapper  # noqa: F401
 from repro_torch.core.mappers.heuristic import HeuristicMapper  # noqa: F401
 
-
-class _Registry(dict):
-    def __missing__(self, name):
-        queued = f" (queued to be ported: {name!r})" if name in QUEUED_MAPPERS else ""
-        raise KeyError(
-            f"mapper {name!r} is not in the port{queued}; it has {sorted(self)}, "
-            f"and {sorted(QUEUED_MAPPERS)} are still to be ported"
-        )
-
-
-#: mappers of the reference package that the port does not have yet
-QUEUED_MAPPERS = ("decoupled", "exhaustive", "genetic", "random")
-
-MAPPER_REGISTRY = _Registry(heuristic=HeuristicMapper)
+MAPPER_REGISTRY = {
+    "exhaustive": ExhaustiveMapper,
+    "random": RandomMapper,
+    "decoupled": DecoupledMapper,
+    "genetic": GeneticMapper,
+    "heuristic": HeuristicMapper,
+}
 
 
 def get_mapper(name: str, **kw) -> Mapper:

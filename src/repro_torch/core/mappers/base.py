@@ -124,6 +124,14 @@ class Mapper(abc.ABC):
     ) -> SearchResult:
         ...
 
+    def batch_hints(self) -> List[int]:
+        """Miss-batch sizes this mapper's searches are likely to dispatch
+        (the reference package pre-traces its jitted engine program at
+        them before a sweep). Purely advisory: an empty list means none.
+        Nothing in the port calls it yet; it is kept for parity with the
+        reference's mappers until the sweep executor is ported."""
+        return []
+
     def _mk_engine(
         self,
         space: MapSpace,

@@ -69,6 +69,9 @@ class HeuristicMapper(Mapper):
         self.chunk = chunk
         self.probe = probe
 
+    def batch_hints(self):
+        return [self.chunk, self.probe]
+
     # ------------------------------------------------------------------ #
     def _greedy_seed(self, space: MapSpace, rng: random.Random) -> Mapping:
         problem, arch = space.problem, space.arch

@@ -629,6 +629,35 @@ class MapSpace:
                 return g
         return a
 
+    # ------------------------------------------------------------------ #
+    # Array-native batch generation (seed_version=2 samplers). The heavy
+    # lifting lives in ``repro_torch.core.genome_batch`` (imported lazily --
+    # that module imports this one); these wrappers are the discoverable
+    # entry points mirroring random_genome/enumerate_genomes.
+    # ------------------------------------------------------------------ #
+    def random_genome_batch(self, rng, k: int):
+        """``k`` legal candidates as ONE dense :class:`GenomeBatch`
+        (vectorized counter-based sampling; ``rng`` is a numpy Generator,
+        see ``genome_batch.philox_rng``). Draws a different stream than
+        ``random_genome`` -- the mappers version it as ``seed_version=2``.
+        The mappers call ``genome_batch.random_genome_batch`` directly, as
+        the reference's do; this entry point is kept for parity with the
+        reference's ``MapSpace``."""
+        from repro_torch.core.genome_batch import random_genome_batch
+
+        return random_genome_batch(self, rng, k)
+
+    def enumerate_genome_batches(self, max_mappings=None, batch_size: int = 256):
+        """The exhaustive candidate stream as :class:`GenomeBatch` chunks:
+        vectorized mixed-radix decoding of the per-dim chain lists,
+        bit-identical in content and order to ``enumerate_genomes`` with
+        canonical orders and no constraints (callers gate on that)."""
+        from repro_torch.core.genome_batch import exhaustive_genome_batches
+
+        return exhaustive_genome_batches(
+            self, max_mappings=max_mappings, batch_size=batch_size
+        )
+
     # Mapping-object compatibility wrappers (hill-climbers and external
     # callers hold Mappings; the genome ops above are the hot path).
     def _genome_of(self, mapping: Mapping) -> Genome:

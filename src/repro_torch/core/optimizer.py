@@ -10,9 +10,10 @@ constraint file, a mapper choice and a cost-model choice, Union-opt:
      Fig. 5(e)/Fig. 9 style).
 
 This is the entry point the co-design planner (``repro_torch.codesign``)
-maps every kernel's problem through. The port has the heuristic mapper and
-the timeloop-like and maestro-like cost models; multi-search sweeps
-(``union_opt_sweep``) are still to be ported.
+maps every kernel's problem through: any of the five mappers of
+``MAPPER_REGISTRY`` against any of the three cost models of
+:data:`COST_MODEL_REGISTRY`. Multi-search sweeps (``union_opt_sweep``) are
+still to be ported.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional, Union as TUnion
 
 from repro_torch.core.architecture import Architecture
 from repro_torch.core.constraints import Constraints
-from repro_torch.core.cost import MaestroLikeModel, TimeloopLikeModel
+from repro_torch.core.cost import MaestroLikeModel, TimeloopLikeModel, TPURooflineModel
 from repro_torch.core.cost.base import Cost, CostModel
 from repro_torch.core.cost.engine import EvaluationEngine
 from repro_torch.core.cost.store import ResultStore
@@ -38,6 +39,7 @@ from repro_torch.core.problem import Problem
 COST_MODEL_REGISTRY = {
     "timeloop": TimeloopLikeModel,
     "maestro": MaestroLikeModel,
+    "tpu_roofline": TPURooflineModel,
 }
 
 

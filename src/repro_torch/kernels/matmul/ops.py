@@ -48,7 +48,7 @@ from repro_torch.kernels.matmul.matmul import (
     smem_bytes,
     tc_smem_bytes,
 )
-from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.matmul.ref import BF16_TOL, matmul_ref
 
 ROW_ALIGN = 64  # one wgmma row group: the M and N alignment the planner works at
 # the FMA instance's default K slice: on the card its 128x128 tile ran 9-10%
@@ -136,7 +136,7 @@ class MatmulBf16Space(MatmulSpace):
 
     name = "matmul_bf16_h100"
     dtype = torch.bfloat16
-    tolerance = 2e-2
+    tolerance = BF16_TOL
     smem_budget = SMEM_OPTIN
 
     def problem(self, shape):

@@ -22,7 +22,9 @@ import torch
 
 from repro.codesign import plan as jax_plan, repair_tile
 from repro.core.architecture import cloud_accelerator as jax_cloud, tpu_chip as jax_tpu
+from repro.core.mappers import MAPPER_REGISTRY as JAX_MAPPER_REGISTRY
 from repro.core.mapping import mapping_signature as jax_signature
+from repro.core.optimizer import COST_MODEL_REGISTRY as JAX_COST_MODEL_REGISTRY
 from repro.core.optimizer import union_opt as jax_union_opt
 from repro.core.problem import Problem as JaxProblem
 from repro.kernels.flash_attention.ops import FLASH_ATTENTION_SPACE
@@ -45,9 +47,9 @@ from repro_torch.core.cost.engine import EvaluationEngine
 from repro_torch.core.cost.maestro_like import MaestroLikeModel
 from repro_torch.core.cost.store import ResultStore
 from repro_torch.core.cost.timeloop_like import TimeloopLikeModel
-from repro_torch.core.mappers import MAPPER_REGISTRY
+from repro_torch.core.mappers import MAPPER_REGISTRY, get_mapper
 from repro_torch.core.mapping import mapping_signature
-from repro_torch.core.optimizer import union_opt
+from repro_torch.core.optimizer import COST_MODEL_REGISTRY, union_opt
 from repro_torch.core.problem import Problem
 from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS, ROW_TILES, check_blocks
 from repro_torch.kernels.flash_attention.ops import FLASH_ATTENTION_H100
@@ -101,13 +103,25 @@ def test_engine_backends_agree_and_jax_raises():
             EvaluationEngine(TimeloopLikeModel(), problem, arch, backend=bad)
 
 
-def test_unported_mappers_and_models_raise():
-    with pytest.raises(KeyError, match="still to be ported"):
-        MAPPER_REGISTRY["genetic"]
-    with pytest.raises(KeyError, match="heuristic"):
-        union_opt(Problem.gemm(64, 64, 64), cloud_accelerator(), mapper="random")
+def test_registries_match_reference():
+    """All five mappers and all three cost models, under the reference's
+    names; each mapper's batch hints as the reference's; unknown names
+    raise KeyError."""
+    assert sorted(MAPPER_REGISTRY) == sorted(JAX_MAPPER_REGISTRY) == [
+        "decoupled", "exhaustive", "genetic", "heuristic", "random"]
+    assert sorted(COST_MODEL_REGISTRY) == sorted(JAX_COST_MODEL_REGISTRY) == [
+        "maestro", "timeloop", "tpu_roofline"]
+    for name, cls in MAPPER_REGISTRY.items():
+        m, j = cls(), JAX_MAPPER_REGISTRY[name]()
+        assert m.name == j.name == name
+        assert m.batch_hints() == j.batch_hints()
+        assert get_mapper(name).name == name
+    for name, cls in COST_MODEL_REGISTRY.items():
+        assert cls().name == JAX_COST_MODEL_REGISTRY[name]().name
     with pytest.raises(KeyError):
-        union_opt(Problem.gemm(64, 64, 64), cloud_accelerator(), cost_model="tpu_roofline")
+        union_opt(Problem.gemm(64, 64, 64), cloud_accelerator(), mapper="bogus")
+    with pytest.raises(KeyError):
+        union_opt(Problem.gemm(64, 64, 64), cloud_accelerator(), cost_model="bogus")
 
 
 # ------------------------------------------------------------------ #
