@@ -55,6 +55,20 @@ Phases (any failure raises and the exit code is non-zero):
      launched in the timed windows; the table is printed, the full record
      written to ``chiprun_out/mappers.json``, and each (row, tile) is a
      record of its own in the kernels' JSON line;
+  whole_model: Union's whole-model layer (``core/opstream.py``): the
+     operator streams of three full-width steps (the serve phase's
+     qwen3-0.6b decode at 8 slots x max_len 512, a prefill of the same
+     slots, the train phase's zamba2-2.7b step at 2 x 2048), each within
+     the MODEL_FLOPS reconciliation band; one ``union_opt_sweep`` over
+     their mappable entries on ``h100_sm()`` (heuristic mapper, timeloop
+     model) serially, on 8 spawned processes with a journal, and replayed
+     from the journal: the same mappings and costs bit for bit, no pool
+     fallen back to serial, nothing re-searched on replay (host times
+     printed); every unique GEMM entry planned in ``matmul_bf16_h100``,
+     launched through the op's routing (wgmma), held against its plain
+     version and timed beside ``torch.matmul`` and its bound, next to
+     Union's prediction for it, with multiplicity-weighted sums per step;
+     each (entry, tile) is a record of the kernels' JSON line;
   5. serve: qwen3-0.6b at full width (random weights from a seeded
      generator on the card), 16 requests through ``WaveServer`` with the
      kernels on; the kernel launch counts must match the steps run, and one
@@ -79,14 +93,21 @@ Phases (any failure raises and the exit code is non-zero):
      the plain version without its last 64 of K must fail the tolerance);
      serving tokens/s, decode-step time,
      train step time, tokens/s and peak memory. Every time is stamped with
-     the card and its power limit.
+     the card and its power limit. Then Union's whole-model predictions
+     beside what this run measured: each step's predicted latency by role
+     beside the measured decode and train steps (prefill: predicted only),
+     by device busy time under the profiler (the decode step profiled at
+     the stream's KV length, 512) and by wall time, and the stream entries
+     each fused kernel computes (chosen by role and einsum) beside its time.
 The line before the last is the kernels' JSON record: the main paths'
 records (each with its own path's launches), then the mappers phase's, one
-per (row, tile); the last line is ``{"ok": true, "device": {...}}``.
+per (row, tile), then the whole_model phase's, one per GEMM entry; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -104,9 +125,16 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import codesign, kernels  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.architecture import H100_SXM  # noqa: E402
-from repro_torch.core.optimizer import union_opt  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.core.architecture import H100_SXM, h100_sm  # noqa: E402
+from repro_torch.core.opstream import (  # noqa: E402
+    RECONCILE_BAND,
+    aggregate_stream_costs,
+    build_opstream,
+    reconcile_model_flops,
+    stream_sweep_tasks,
+)
+from repro_torch.core.optimizer import union_opt, union_opt_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -138,7 +166,7 @@ from repro_torch.kernels.matmul.matmul import (  # noqa: E402
     tc_smem_bytes,
 )
 from repro_torch.kernels.matmul.matmul import smem_bytes as mm_smem_formula  # noqa: E402
-from repro_torch.kernels.matmul.ops import MATMUL_BF16_H100, MATMUL_H100  # noqa: E402
+from repro_torch.kernels.matmul.ops import MATMUL_BF16_H100, MATMUL_H100, planned_shape  # noqa: E402
 from repro_torch.kernels.matmul.ref import (  # noqa: E402
     BF16_TOL,
     f32_product_ratio,
@@ -830,22 +858,31 @@ def phase_serve(stamp):
         torch.cuda.synchronize()
         step_ms.setdefault(on_, []).append((time.perf_counter() - t0) / 20 * 1e3)
     kernels.enable_kernels(True)
-    _profile_decode(stamp, cfg, model, toks)
+    _profile_decode(stamp, cfg, model, toks, 200)
+    # at the last positions too, where the whole_model phase's decode stream
+    # (KV = MAX_LEN) sits
+    busy = _profile_decode(stamp, cfg, model, toks, MAX_LEN - PROFILE_STEPS - 1)
     print(f"time [{stamp}] serve: {new_tokens} new tokens in {dt:.3f} s = {new_tokens / dt:.1f} "
           f"tok/s ({steps * SLOTS / dt:.1f} tok/s incl. prefill); peak memory "
           f"{peak / 2**30:.3f} GiB")
     print(f"time [{stamp}] decode step (b={SLOTS}, pos 200-219): kernels on "
           f"{min(step_ms[True]):.3f} ms, kernels off {min(step_ms[False]):.3f} ms")
-    return launches
+    return launches, {"wall_ms": min(step_ms[True]), "device_ms": busy}
 
 
-def _profile_decode(stamp, cfg, model, toks, n=5):
-    """Where a decode step's time goes: torch.profiler over n steps."""
+PROFILE_STEPS = 5  # decode steps under the profiler
+
+
+def _profile_decode(stamp, cfg, model, toks, start, n=PROFILE_STEPS):
+    """Where a decode step's time goes: torch.profiler over the n steps at
+    positions start + 1 .. start + n (one step at ``start`` warms up).
+    Returns the device busy ms a step."""
     cache = init_cache(cfg, SLOTS, MAX_LEN, "cuda")
-    decode_step(cfg, model, cache, toks, 200)
-    pos = iter(range(201, 201 + n))
-    _profile(stamp, f"decode step (b={SLOTS}, pos 201-{200 + n}, kernels on, under the profiler)",
-             lambda: decode_step(cfg, model, cache, toks, next(pos)), n)
+    decode_step(cfg, model, cache, toks, start)
+    pos = iter(range(start + 1, start + 1 + n))
+    return _profile(stamp, f"decode step (b={SLOTS}, pos {start + 1}-{start + n}, kernels on, "
+                           f"under the profiler)",
+                    lambda: decode_step(cfg, model, cache, toks, next(pos)), n)
 
 
 FA_KERNELS = ("fa_mma_kernel", "fa_fwd_kernel", "fa_decode_kernel", "fa_combine_kernel")
@@ -856,7 +893,8 @@ def _profile(stamp, label, fn, n):
     share, device kernels per call, the flash-attention kernels' share of
     the busy time, the device time of the plain attention backward (the
     kernels launched inside ops.BACKWARD_RANGE) and the top kernels by
-    device time."""
+    device time. Returns the device busy ms a call, None where the profiler
+    saw no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -874,7 +912,7 @@ def _profile(stamp, label, fn, n):
     if not events:
         print(f"profile [{stamp}] {label}: the profiler saw no device kernels "
               f"(wall {wall:.3f} ms under the profiler)")
-        return
+        return None
     busy = sum(e.self_device_time_total for e in events) / n / 1e3
     launches = sum(e.count for e in events) / n
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
@@ -898,6 +936,7 @@ def _profile(stamp, label, fn, n):
     for e in top:
         print(f"  {e.self_device_time_total / n / 1e3:.4f} ms/call  x{e.count // n:<5d} "
               f"{e.key[:90]}")
+    return busy
 
 
 def _time_ms(fn, n=100, warmup=10) -> float:
@@ -964,7 +1003,7 @@ def _bound(bytes_: float, flops: float, flop_per_s: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_train(stamp) -> dict:
+def phase_train(stamp) -> tuple:
     """zamba2-2.7b at full width through the training entry point, then a
     kernels-on vs kernels-off check of one batch's loss and grads and a
     profile of one train step."""
@@ -1013,8 +1052,8 @@ def phase_train(stamp) -> dict:
           f"(max_memory_allocated)")
     gc.collect()
     torch.cuda.empty_cache()
-    _train_kernels_on_vs_off(stamp, cfg)
-    return launches
+    busy = _train_kernels_on_vs_off(stamp, cfg)
+    return launches, {"wall_ms": step_s * 1e3, "device_ms": busy}
 
 
 def _train_kernels_on_vs_off(stamp, cfg):
@@ -1080,7 +1119,7 @@ def _train_kernels_on_vs_off(stamp, cfg):
         state, _ = step(state, {"tokens": torch.from_numpy(b["tokens"]).cuda()})
 
     one_step()  # warm-up
-    _profile(stamp, f"train step ({t['arch']}, batch {t['batch']} x {t['seq']}, adamw, remat, "
+    return _profile(stamp, f"train step ({t['arch']}, batch {t['batch']} x {t['seq']}, adamw, remat, "
              f"kernels on, under the profiler)", one_step, 1)
 
 
@@ -1196,6 +1235,28 @@ def _check_space_output(space, shape, config, inputs, got, exact=False):
     return _allclose(got, want, SSD_TOL)[0], _allclose_ratio(got, want, SSD_TOL), \
         f"rtol = atol = {SSD_TOL}"
 
+
+# The whole_model phase: Union's operator streams of three full-width model
+# steps, the serve phase's qwen3-0.6b decode step (8 slots, max_len 512) and
+# a prefill of the same slots, and the train phase's zamba2-2.7b step
+# (2 x 2048); one union_opt_sweep over their mappable entries on h100_sm(),
+# serially and on SWEEP_WORKERS spawned processes
+WHOLE_MODEL = [("qwen3-0.6b", ShapeConfig("h100_decode", MAX_LEN, SLOTS, "decode")),
+               ("qwen3-0.6b", ShapeConfig("h100_prefill", MAX_LEN, SLOTS, "prefill")),
+               (TRAIN["arch"], ShapeConfig("h100_train", TRAIN["seq"], TRAIN["batch"], "train"))]
+SWEEP_WORKERS = 8
+GEMM_EINSUM = "bi,io->bo"  # the stream's linear layers: (M, N, K) = (b, o, i)
+GRAPH_BELOW_MS = 0.05  # GEMM rows with less device time are timed by CUDA-graph replay
+CHECK_ROWS = 256  # outputs wider than CHECK_WIDE elements are checked on the first and last rows
+CHECK_WIDE = 1 << 28
+# the stream entries each fused kernel computes, one call each: (role,
+# einsums); the inter-chunk SSD term (clhn,chpn->clhp) lies outside the kernel
+FUSED = {"flash_attention": ("attention_score", ("bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd")),
+         "ssd_scan": ("ssm_scan", ("clhn,cshn->chls", "chls,cshp->clhp", "clhp,cln->chpn"))}
+# the (model, shape) streams that must hold each fused group
+FUSED_IN = {"flash_attention": {("qwen3-0.6b", "h100_decode"), ("qwen3-0.6b", "h100_prefill"),
+                                (TRAIN["arch"], "h100_train")},
+            "ssd_scan": {(TRAIN["arch"], "h100_train")}}
 
 MAPPERS = ("heuristic", "exhaustive", "random", "genetic", "decoupled")
 MAPPER_DRAWS = 3  # input draws each tile of the mappers phase is checked on; the first is timed
@@ -1392,6 +1453,260 @@ def phase_mappers(stamp, scales, gen) -> list:
     print(f"mappers: timed launches {timed} ({len(records)} tiles) in "
           f"{time.perf_counter() - t0:.1f} s; the full record is in chiprun_out/mappers.json")
     return records
+
+
+@contextlib.contextmanager
+def _spawn_without_this_script():
+    """Spawned processes re-run the parent's main script by its path
+    before they work; this one imports torch, which a sweep worker needs
+    not (it imports numpy and repro_torch.core). Hide the path meanwhile."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
+
+
+def _sweep_view(sweep) -> list:
+    return [(s.mapping.to_dict(), s.cost) for s in sweep]
+
+
+def phase_whole_model(stamp, gen) -> dict:
+    """Union's whole-model layer on the card's hierarchy, and every GEMM of
+    the three steps on the card. Each stream of ``WHOLE_MODEL`` is built at
+    full width and depth and its parameter FLOPs reconciled with the
+    MODEL_FLOPS formula; one ``union_opt_sweep`` (heuristic mapper,
+    timeloop model, ``h100_sm()``) over all mappable entries runs serially,
+    then on ``SWEEP_WORKERS`` spawned processes with a journal, then replays
+    the journal: the three must agree bit for bit, no pool may have fallen
+    back to serial, and the replay must search nothing. Every unique GEMM
+    entry is then planned in ``matmul_bf16_h100`` (as the op plans it),
+    launched through the op's routing (wgmma), held against its plain
+    version and timed beside ``torch.matmul`` (CUDA-graph replay below
+    ``GRAPH_BELOW_MS``, else CUDA events; inputs rotated past L2), next to
+    Union's prediction for the entry and its bound. Returns the kernels-line
+    records (``path`` "whole_model", the timed launches) and what the final
+    report needs."""
+    arch = h100_sm()
+    streams = []
+    for model, shape in WHOLE_MODEL:
+        s = build_opstream(model, shape)
+        r = reconcile_model_flops(s)
+        lo, hi = RECONCILE_BAND
+        print(f"whole_model: {model} {shape.name} ({shape.kind}, batch {shape.global_batch} x "
+              f"{shape.seq_len}): {s.meta['n_ops_pre_dedup']:.0f} ops -> {len(s)} unique "
+              f"({len(s.mappable_entries())} mappable), {s.total_flops() / 1e12:.3f} TFLOP a "
+              f"step, stream / MODEL_FLOPS {r['ratio']:.4f} (band {lo}-{hi})")
+        check(lo <= r["ratio"] <= hi, f"{model} {shape.name}: stream / MODEL_FLOPS {r['ratio']} "
+                                      f"outside {RECONCILE_BAND}")
+        streams.append(s)
+    tasks, index = stream_sweep_tasks(streams, arch)
+    t0 = time.perf_counter()
+    serial = union_opt_sweep(tasks)
+    serial_s = time.perf_counter() - t0
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    journal = out / "whole_model_journal.json"
+    journal.unlink(missing_ok=True)
+    with _spawn_without_this_script():
+        t0 = time.perf_counter()
+        pooled = union_opt_sweep(tasks, workers=SWEEP_WORKERS, pool="process",
+                                 journal=str(journal))
+        pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = union_opt_sweep(tasks, journal=str(journal), resume=True)
+    replay_s = time.perf_counter() - t0
+    st = pooled.stats
+    print(f"whole_model [{stamp}] sweep of {len(tasks)} entries ({st['engines']} engine groups, "
+          f"heuristic mapper, timeloop model, h100_sm(); host time): serial {serial_s:.2f} s, "
+          f"{SWEEP_WORKERS} spawned processes {pooled_s:.2f} s ({st['attempts']} attempts, "
+          f"{st['retries']} retries, {st['stragglers']} stragglers, pool_failed "
+          f"{st['pool_failed']}), journal replay {replay_s:.3f} s "
+          f"({replay.stats['replayed_groups']} groups replayed)")
+    check(_sweep_view(pooled) == _sweep_view(serial),
+          "whole_model: the process-pool sweep differs from the serial one")
+    check(serial.stats["pool_failed"] == 0 and st["pool_failed"] == 0,
+          f"whole_model: a pool fell back to serial ({st['pool_failed']})")
+    check(_sweep_view(replay) == _sweep_view(serial)
+          and replay.stats["replayed_groups"] == st["engines"]
+          and all(g["replayed"] for g in replay.stats["group_wall"]),
+          f"whole_model: the journal replay re-searched groups: {replay.stats['group_wall']}")
+    costs = aggregate_stream_costs(streams, index, serial.solutions, arch)
+    sol = dict(zip(index, serial.solutions))
+    for s, c in zip(streams, costs):
+        print(f"whole_model: Union's {s.model} {s.shape} step on h100_sm(): "
+              f"{c.latency_s * 1e3:.4f} ms, {c.energy_j:.4g} J; by role "
+              + ", ".join(f"{k} {v['latency_s'] * 1e3:.4f} ms" for k, v in c.roles.items()))
+
+    reset_launches()
+    records, rows = [], []
+    print(f"whole_model [{stamp}] every unique GEMM entry on the card, bf16, planned in "
+          f"{MATMUL_BF16_H100.name} (union ms: the sweep's prediction for the entry, raw cycles "
+          f"at the h100_sm() clock; plan ms: the space's model at the planned tile, unscaled; "
+          f"ms per call, one step's multiplicity beside it):")
+    print(f"  {'model':12s} {'shape':12s} {'entry':18s} {'role':9s} {'MxNxK':22s} {'mult':>5s} "
+          f"{'tile':16s} {'union ms':>9s} {'plan ms':>9s} {'kernel ms':>9s} {'torch ms':>9s} "
+          f"{'plain ms':>9s} {'bound ms':>9s} {'k/torch':>7s} {'timed by':8s}")
+    for si, s in enumerate(streams):
+        for ei, e in enumerate(s.entries):
+            if not e.mappable or e.problem.attrs.get("einsum") != GEMM_EINSUM:
+                continue
+            dims = e.problem.dims
+            M, N, K = dims["b"], dims["o"], dims["i"]
+            pshape = planned_shape(M, N, K, torch.bfloat16)
+            plan = codesign.plan(MATMUL_BF16_H100, pshape)
+            plan_ms = codesign.predict_cost(MATMUL_BF16_H100, pshape, plan.config).latency_s * 1e3
+            set_bytes = 2 * (M * K + K * N + M * N)
+            sets = [_mm_inputs(gen, M, N, K, torch.bfloat16)
+                    for _ in range(max(2, math.ceil(150e6 / set_bytes)))]
+            pick = _rotating(sets)
+            x, y = sets[0]
+            inst = instance_for(x, y)
+            check(inst == "wgmma" and plan_for(x, y) == plan.config,
+                  f"whole_model {e.problem.name} {M}x{N}x{K}: routed to {inst}, tile "
+                  f"{plan_for(x, y)} vs plan {plan.config}")
+            got = matmul(x, y)
+            _sync_within(f"whole_model {e.problem.name} {M}x{N}x{K} tile {plan.config}")
+            if M * N > CHECK_WIDE:  # the first and last rows: both edges of the M tiles
+                rows_ = torch.cat([torch.arange(CHECK_ROWS), torch.arange(M - CHECK_ROWS, M)])
+                rows_ = rows_.to(x.device)
+                err = _check_mm(f"{M}x{N}x{K} rows", got[rows_], x[rows_], y)
+            else:
+                err = _check_mm(f"{M}x{N}x{K}", got, x, y)
+            del got
+            fns = {"plain": lambda: matmul_ref(*pick()), "kernel": lambda: matmul(*pick()),
+                   "library": lambda: torch.matmul(*pick())}
+            before = matmul_cuda.launches
+            n = max(3, min(50, int(2e11 / (2 * M * N * K))))
+            # decided by the kernel's device time (a short graph), not by an
+            # eager probe, which times the host's launch at these sizes
+            if _graph_interleaved_ms({"kernel": fns["kernel"]}, n=3, replays=3)["kernel"] < (
+                    GRAPH_BELOW_MS):
+                ms, timed_by = _graph_interleaved_ms(fns, n=n), "graph"
+            else:
+                ms, timed_by = _interleaved_ms(fns, n=n), "events"
+            launches = matmul_cuda.launches - before
+            bound, bound_by = _bound(set_bytes, 2 * M * N * K, BF16_FLOP_PER_S)
+            union_ms = sol[(si, ei)].cost.latency_s * 1e3
+            rows.append({"model": s.model, "shape": s.shape, "entry": e.problem.name,
+                         "role": e.role, "mnk": (M, N, K), "mult": e.multiplicity,
+                         "bf": s.backward_factor, "tile": plan.config, "union_ms": union_ms,
+                         "plan_ms": plan_ms, "ms": ms["kernel"], "library_ms": ms["library"],
+                         "plain_ms": ms["plain"], "bound_ms": bound})
+            print(f"  {s.model:12s} {s.shape:12s} {e.problem.name:18s} {e.role:9s} "
+                  f"{f'{M}x{N}x{K}':22s} {e.multiplicity:5.0f} {str(plan.config):16s} "
+                  f"{union_ms:9.4f} {plan_ms:9.4f} {ms['kernel']:9.4f} {ms['library']:9.4f} "
+                  f"{ms['plain']:9.4f} {bound:9.4f} {ms['kernel'] / ms['library']:7.3f} "
+                  f"{timed_by:8s}")
+            check(launches > 0, f"whole_model {e.problem.name}: no timed launch")
+            records.append({**_kernel_keys(MATMUL_BF16_H100), "instance": inst,
+                            "path": "whole_model",
+                            "shape": f"{s.model} {s.shape} {e.problem.name} {M}x{N}x{K} bf16 "
+                                     f"tile {plan.config}; timed by {timed_by}",
+                            "launches": launches, "max_abs_err": err, "ms": ms["kernel"],
+                            "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": bound_by,
+                            "library_ms": ms["library"]})
+            del sets, x, y, pick, fns
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    by_instance = dict(matmul_cuda.launches_by_instance)
+    check(by_instance["wgmma"] == matmul_cuda.launches > 0,
+          f"whole_model: matmul launches by instance {by_instance}: every one should be wgmma's")
+    sums = {}
+    for r in rows:
+        w = r["mult"] * r["bf"]
+        acc = sums.setdefault((r["model"], r["shape"]), dict.fromkeys(
+            ("union_ms", "plan_ms", "ms", "library_ms", "plain_ms", "bound_ms"), 0.0))
+        for k in acc:
+            acc[k] += w * r[k]
+    for (model, shape), acc in sums.items():
+        bf = next(s.backward_factor for s in streams if (s.model, s.shape) == (model, shape))
+        print(f"whole_model [{stamp}] {model} {shape} GEMMs, multiplicity-weighted"
+              f"{' x3 (backward)' if bf == 3 else ''}: Union {acc['union_ms']:.3f} ms, plan "
+              f"model {acc['plan_ms']:.3f} ms, kernel "
+              f"{acc['ms']:.3f} ms, torch.matmul {acc['library_ms']:.3f} ms, plain "
+              f"{acc['plain_ms']:.3f} ms, bound {acc['bound_ms']:.3f} ms (kernel / bound "
+              f"{acc['ms'] / acc['bound_ms']:.2f})")
+    out.joinpath("whole_model.json").write_text(json.dumps(
+        {"device": stamp, "rows": rows, "sums": [{"model": m, "shape": sh, **acc}
+                                                 for (m, sh), acc in sums.items()]},
+        indent=1, default=str))
+    print("whole_model: the full table is in chiprun_out/whole_model.json")
+    return {"records": records, "costs": {(c.model, c.shape): c for c in costs},
+            "fused": _fused_predictions(streams, sol),
+            "sweep_s": {"serial": serial_s, "pooled": pooled_s}}
+
+
+def _fused_predictions(streams, sol) -> dict:
+    """Union's ms for the stream entries each fused kernel computes, summed
+    per (model, shape, kernel); fails unless each stream of ``FUSED_IN``
+    holds its whole group, swept, and no other stream holds any of it."""
+    fused = {}
+    for si, s in enumerate(streams):
+        for name, (role, einsums) in FUSED.items():
+            found = {e.problem.attrs.get("einsum"): ei for ei, e in enumerate(s.entries)
+                     if e.role == role and e.problem.attrs.get("einsum") in einsums}
+            if (s.model, s.shape) not in FUSED_IN[name]:
+                check(not found, f"whole_model: {s.model} {s.shape} holds {name}'s entries")
+                continue
+            check(sorted(found) == sorted(einsums) and all((si, ei) in sol for ei in found.values()),
+                  f"whole_model: {s.model} {s.shape}: {name}'s entries {einsums} not all in the "
+                  f"swept stream (found {sorted(found)})")
+            fused[(s.model, s.shape, name)] = sum(
+                sol[(si, ei)].cost.latency_s * 1e3 for ei in found.values())
+    return fused
+
+
+def report_whole_model(stamp, wm, decode_step, train_step, time_records) -> None:
+    """Union's whole-model predictions beside the steps and fused kernels
+    this run measured: the share of each step outside Union's stream. Each
+    step is compared by its device busy time under the profiler (the decode
+    step at the stream's KV length) and, apart, by its wall time."""
+    measured = {
+        ("qwen3-0.6b", "h100_decode"): (
+            decode_step, f"profiled at positions {MAX_LEN - PROFILE_STEPS}-{MAX_LEN - 1} (KV "
+                         f"{MAX_LEN - PROFILE_STEPS + 1}-{MAX_LEN}; the stream's KV is {MAX_LEN})",
+            "eager, positions 200-219, host dispatch included"),
+        (TRAIN["arch"], "h100_train"): (
+            train_step, "one profiled step", f"median of steps 2-{TRAIN['steps']}")}
+    for (model, shape), c in wm["costs"].items():
+        pred = c.latency_s * 1e3
+        roles = ", ".join(f"{k} {v['latency_s'] * 1e3:.4f}" for k, v in c.roles.items())
+        head = (f"whole_model [{stamp}] {model} {shape}: Union predicts {pred:.4f} ms a step "
+                f"(ms by role: {roles})")
+        if (model, shape) not in measured:
+            print(f"{head}; no step measured at this shape")
+            continue
+        step, dev_how, wall_how = measured[(model, shape)]
+        dev = ("device busy not measured (the profiler saw no kernel)"
+               if step["device_ms"] is None else
+               f"device busy {step['device_ms']:.3f} ms ({dev_how}), "
+               f"{step['device_ms'] / pred:.2f}x the prediction")
+        print(f"{head}; measured step: {dev}; wall {step['wall_ms']:.3f} ms ({wall_how}), "
+              f"{step['wall_ms'] / pred:.2f}x")
+
+    def timed(name, prefix, key="ms"):
+        return next(r[key] for r in time_records
+                    if r["name"] == name and r["shape"].startswith(prefix))
+
+    kernel_ms = {("qwen3-0.6b", "h100_decode", "flash_attention"):
+                 (timed("flash_attention", "decode", "device_ms"), "decode, device time"),
+                 (TRAIN["arch"], "h100_train", "flash_attention"):
+                 (timed("flash_attention", "train"), "training shape, causal"),
+                 (TRAIN["arch"], "h100_train", "ssd_scan"):
+                 (timed("ssd_scan", "train"), "training shape")}
+    for (model, shape, name), pred in wm["fused"].items():
+        got = kernel_ms.get((model, shape, name))
+        what = " + ".join(FUSED[name][1])
+        if got is None:
+            print(f"whole_model [{stamp}] {model} {shape} {name} ({what}): Union {pred:.4f} ms "
+                  f"a call; no kernel time at this shape")
+        else:
+            print(f"whole_model [{stamp}] {model} {shape} {name} ({what}): Union {pred:.4f} ms "
+                  f"a call, the kernel {got[0]:.4f} ms ({got[1]}), "
+                  f"{got[0] / pred:.3f}x the prediction")
 
 
 def _profile_bf16_calibration_launch(rows) -> None:
@@ -1664,10 +1979,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)  # the loop's and the mappers' inputs
     loop = phase_codesign(stamp, gen)
     mapper_records = phase_mappers(stamp, loop["scales"], gen)
-    serve_launches = phase_serve(stamp)
-    train_launches = phase_train(stamp)
+    wm = phase_whole_model(stamp, gen)
+    serve_launches, decode_step = phase_serve(stamp)
+    train_launches, train_step = phase_train(stamp)
     records = phase_times(stamp, plans, serve_launches, train_launches, errs, loop)
-    print(json.dumps({"kernels": records + mapper_records}))
+    report_whole_model(stamp, wm, decode_step, train_step, records)
+    print(json.dumps({"kernels": records + mapper_records + wm["records"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ from repro_torch.codesign.planner import (  # noqa: F401
     planner_stats,
     predict_cost,
     reset_planner_stats,
+    set_plan_store,
 )
 from repro_torch.codesign.calibrate import (  # noqa: F401
     CALIBRATION_VERSION,

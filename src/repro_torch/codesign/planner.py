@@ -98,10 +98,26 @@ def _bump(key: str) -> None:
 # plan store
 # ---------------------------------------------------------------------- #
 _default_store = ResultStore()
+_default_store_lock = threading.Lock()
 
 
 def get_plan_store() -> ResultStore:
     return _default_store
+
+
+def set_plan_store(store: "Union[ResultStore, str, None]") -> ResultStore:
+    """Replace the process-wide default plan store. Pass a directory path
+    for a persistent disk tier, a ready :class:`ResultStore`, or ``None``
+    to reset to a fresh in-memory store."""
+    global _default_store
+    with _default_store_lock:
+        if store is None:
+            _default_store = ResultStore()
+        elif isinstance(store, ResultStore):
+            _default_store = store
+        else:
+            _default_store = ResultStore(str(store))
+        return _default_store
 
 
 # ---------------------------------------------------------------------- #

@@ -18,7 +18,8 @@ dies on the throughput of that loop, so this module centralizes it:
     population at once. Cache misses are scored as ONE vectorized array
     program (``CostModel.evaluate_signature_batch`` over the stacked
     signature matrices in numpy, bit-identical to the scalar path; or
-    ``backend=None`` for the per-candidate scalar path).
+    ``backend=None`` for the per-candidate scalar path), or optionally
+    fanned out to a process pool (``workers > 0``).
 
 The engine is the single evaluation path for all mappers (see
 ``repro_torch.core.mappers``) and reports evaluated / cache-hit / pruned counters
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import logging
 import math
+import pickle
 from collections import OrderedDict
 from dataclasses import dataclass, replace
 from time import perf_counter
@@ -78,6 +80,10 @@ class EngineStats:
     considered: int = 0
     admit_s: float = 0.0  # wall-clock spent in the admission (bound) stage
     score_s: float = 0.0  # wall-clock spent scoring admitted misses
+    # the process pool (``workers > 0``) could not start and the engine
+    # scores its misses in-process instead, as the reference does quietly;
+    # counted (and logged) so a run can assert it did not happen
+    pool_failed: int = 0
 
     def snapshot(self) -> "EngineStats":
         return replace(self)
@@ -92,6 +98,25 @@ class EngineStats:
         return self.cache_hits / seen if seen else 0.0
 
 
+# ------------------------------------------------------------------ #
+# Process-pool plumbing. Workers hold the (cost model, problem, arch)
+# triple in module state (shipped once via the initializer) and receive
+# only mapping dicts per task. A spawned worker imports this module and
+# numpy, never torch.
+# ------------------------------------------------------------------ #
+_POOL_STATE: Optional[Tuple[CostModel, Problem, Architecture]] = None
+
+
+def _pool_init(payload: bytes) -> None:
+    global _POOL_STATE
+    _POOL_STATE = pickle.loads(payload)
+
+
+def _pool_eval(mapping_dicts: List[dict]) -> List[Cost]:
+    cm, problem, arch = _POOL_STATE  # type: ignore[misc]
+    return [cm.evaluate(problem, Mapping.from_dict(d), arch) for d in mapping_dicts]
+
+
 class EvaluationEngine:
     """Single evaluation path for (one cost model, one problem, one arch).
 
@@ -100,6 +125,14 @@ class EvaluationEngine:
     metric:      the search objective; used to scalarize lower bounds.
     cache_size:  LRU memo capacity (signatures -> Cost).
     prune:       enable the lower-bound admission filter.
+    workers:     >0 fans cache misses of ``evaluate_batch`` out to a
+                 spawned process pool (beneficial for expensive models /
+                 large batches; 0 keeps everything in-process). A pool
+                 that cannot be built (a payload that does not pickle, a
+                 host without process queues) leaves the engine serial,
+                 counted in ``stats.pool_failed`` and logged; a worker that
+                 then fails to spawn raises from the batch, as in the
+                 reference.
     backend:     array backend for the vectorized miss-batch analysis AND
                  the batched admission bound: "numpy" (default) or None
                  (per-candidate scalar path). Any other name raises
@@ -120,6 +153,7 @@ class EvaluationEngine:
         metric: str = "edp",
         cache_size: int = 1 << 16,
         prune: bool = True,
+        workers: int = 0,
         backend: Optional[str] = "numpy",
         store: Optional[ResultStore] = None,
     ) -> None:
@@ -133,6 +167,7 @@ class EvaluationEngine:
         self.metric = metric
         self.cache_size = cache_size
         self.prune = prune
+        self.workers = max(0, int(workers))
         self.backend = backend
         self.stats = EngineStats()
         self._dims: Tuple[str, ...] = tuple(problem.dims.keys())
@@ -146,6 +181,8 @@ class EvaluationEngine:
         self._store_skey = (
             store.space_key(cost_model, problem, arch) if store is not None else None
         )
+        self._pool = None
+        self._pool_failed = False
 
     # -------------------------------------------------------------- #
     def signature(self, cand) -> Signature:
@@ -510,23 +547,73 @@ class EvaluationEngine:
         stacked=None,
         select=None,
     ) -> List[Cost]:
-        if self.backend is not None and (
-            stacked is not None or len(misses) >= _BATCH_MIN
-        ):
-            # with a pre-stacked batch the models never touch the
-            # signatures -- the array program runs off the matrices
-            sigs = (
-                None
-                if stacked is not None
-                else [self.signature(cand) for _key, cand in misses]
+        pool = self._get_pool() if (self.workers and len(misses) >= 8) else None
+        if pool is None:
+            if self.backend is not None and (
+                stacked is not None or len(misses) >= _BATCH_MIN
+            ):
+                # with a pre-stacked batch the models never touch the
+                # signatures -- the array program runs off the matrices
+                sigs = (
+                    None
+                    if stacked is not None
+                    else [self.signature(cand) for _key, cand in misses]
+                )
+                costs = self.cost_model.evaluate_signature_batch(
+                    self.problem,
+                    self.arch,
+                    sigs,
+                    stacked=stacked,
+                    select=select,
+                )
+                if costs is not None:
+                    return list(costs)
+            return [self._evaluate_one(cand) for _key, cand in misses]
+        mappings = [self._materialize(cand) for _key, cand in misses]
+        nchunks = min(len(mappings), self.workers * 4)
+        step = math.ceil(len(mappings) / nchunks)
+        chunks = [mappings[i : i + step] for i in range(0, len(mappings), step)]
+        futs = [pool.submit(_pool_eval, [m.to_dict() for m in ch]) for ch in chunks]
+        out: List[Cost] = []
+        for f in futs:
+            out.extend(f.result())
+        return out
+
+    def _get_pool(self):
+        if self._pool is not None or self._pool_failed:
+            return self._pool
+        try:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            payload = pickle.dumps((self.cost_model, self.problem, self.arch))
+            # spawn, not fork: a parent holding a CUDA context or other
+            # threads must not be forked
+            self._pool = ProcessPoolExecutor(
+                max_workers=self.workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_pool_init,
+                initargs=(payload,),
             )
-            costs = self.cost_model.evaluate_signature_batch(
-                self.problem,
-                self.arch,
-                sigs,
-                stacked=stacked,
-                select=select,
-            )
-            if costs is not None:
-                return list(costs)
-        return [self._evaluate_one(cand) for _key, cand in misses]
+        except Exception as e:  # noqa: BLE001 - the reference's fall-back
+            # an unpicklable model or a host without the semaphores a
+            # process queue needs: degrade to serial, counted. Workers start
+            # at the first submit; one that cannot start raises from it, as
+            # in the reference
+            self._pool_failed = True
+            self._pool = None
+            self.stats.pool_failed += 1
+            log.warning("engine process pool failed to start (%s: %s); "
+                        "scoring in-process", type(e).__name__, e)
+        return self._pool
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
+
+    def __del__(self) -> None:  # pragma: no cover - best effort
+        try:
+            self.close()
+        except Exception:
+            pass

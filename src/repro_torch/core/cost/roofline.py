@@ -110,6 +110,27 @@ class RooflineReport:
             "roofline_frac": self.roofline_fraction,
         }
 
+    @staticmethod
+    def from_artifact(name: str, art: Dict) -> "RooflineReport":
+        """Build from a dry-run artifact dict (the reference's
+        ``launch/dryrun.py`` output, read as JSON; the port does not make
+        such artifacts yet).
+
+        Prefers the structure-corrected costs (scan bodies x trip count);
+        raw cost_analysis numbers are the fallback for artifacts produced
+        without the correction pass.
+        """
+        src = art.get("corrected", art)
+        return RooflineReport(
+            name=name,
+            chips=int(art["chips"]),
+            flops_per_chip=float(src["flops_per_device"]),
+            hbm_bytes_per_chip=float(src["bytes_per_device"]),
+            collective_bytes_per_chip=float(src["collective_bytes_per_device"]),
+            model_flops_total=float(art.get("model_flops", 0.0)),
+            extras={k: float(v) for k, v in art.get("extras", {}).items()},
+        )
+
 
 class TPURooflineModel(CostModel):
     """Analytic three-term roofline over (Problem, Mapping) on a TPU arch."""

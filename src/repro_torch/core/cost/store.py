@@ -633,3 +633,132 @@ class ResultStore:
 
     def __exit__(self, *exc) -> None:
         self.flush()
+
+
+# --------------------------------------------------------------------- #
+# Sweep journal (crash-safe resume)
+# --------------------------------------------------------------------- #
+class SweepJournal:
+    """Crash-safe progress journal for one named sweep.
+
+    The concurrent sweep executor (``repro_torch.core.sweep_exec``) records every
+    completed task's SOLUTION RECORD (mapping dict + Cost record + search
+    stats -- the exact data a solution is rebuilt from) keyed by a stable
+    task fingerprint, plus per-group attempt counts. A sweep killed
+    mid-flight and restarted with ``resume=True`` replays the journaled
+    records verbatim -- completed groups are skipped entirely, in-flight
+    groups re-run warm against the shared :class:`ResultStore` -- so the
+    restarted sweep's outputs match an uninterrupted run's.
+
+    File layout (single JSON file, usually next to the store's space
+    files)::
+
+        {"version": 1,
+         "groups": {group_key: {"attempts": int, "done": bool}},
+         "tasks":  {fingerprint: <opaque solution record>}}
+
+    Flush discipline matches :meth:`ResultStore.flush`: writer-unique tmp
+    + atomic rename under an advisory flock (``<journal>.lock``), stale
+    ``.jtmp`` scratch files cleaned under the lock. The journal is
+    flushed at every group START (attempts survive a crash, so "fail
+    group N on attempt K" fault specs stay deterministic across restarts)
+    and at every group COMPLETION -- a SIGKILL can lose at most the
+    in-flight group's work, never corrupt the file.
+
+    A journal opened without ``resume`` IGNORES any existing file and
+    starts fresh (first flush replaces it): attempts and done flags from
+    an unrelated earlier sweep must not leak into a new cold run.
+    Corrupt or version-mismatched files are discarded (counted in
+    ``corrupt``), mirroring the store's tolerance.
+    """
+
+    def __init__(self, path, resume: bool = False) -> None:
+        self.path = Path(path)
+        self.groups: Dict[str, dict] = {}
+        self.tasks: Dict[str, object] = {}
+        self.corrupt = 0
+        self.resumed = False  # a prior journal was actually loaded
+        if resume:
+            try:
+                payload = json.loads(self.path.read_text())
+                if (
+                    isinstance(payload, dict)
+                    and payload.get("version") == JOURNAL_VERSION
+                ):
+                    self.groups = dict(payload.get("groups", {}))
+                    self.tasks = dict(payload.get("tasks", {}))
+                    self.resumed = True
+                else:
+                    self.corrupt += 1
+            except FileNotFoundError:
+                pass  # nothing to resume: behaves like a fresh journal
+            except Exception:
+                self.corrupt += 1
+
+    # -------------------------------------------------------------- #
+    def group_attempts(self, gkey: str) -> int:
+        return int(self.groups.get(gkey, {}).get("attempts", 0))
+
+    def group_done(self, gkey: str) -> bool:
+        return bool(self.groups.get(gkey, {}).get("done", False))
+
+    def note_group_start(self, gkey: str) -> None:
+        g = self.groups.setdefault(gkey, {"attempts": 0, "done": False})
+        g["attempts"] = int(g["attempts"]) + 1
+        self.flush()
+
+    def record_group(self, gkey: str, records: Dict[str, object]) -> None:
+        """Mark ``gkey`` complete with its tasks' solution records."""
+        self.tasks.update(records)
+        g = self.groups.setdefault(gkey, {"attempts": 0, "done": False})
+        g["done"] = True
+        self.flush()
+
+    def get_task(self, fingerprint: str):
+        return self.tasks.get(fingerprint)
+
+    # -------------------------------------------------------------- #
+    @contextlib.contextmanager
+    def _lock(self):
+        """Advisory flock on ``<journal>.lock`` (constant file, never
+        unlinked -- same rationale as the store's directory lock)."""
+        if fcntl is None:
+            yield
+            return
+        with open(self.path.with_name(self.path.name + ".lock"), "w") as lf:
+            fcntl.flock(lf, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(lf, fcntl.LOCK_UN)
+
+    def flush(self) -> None:
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "version": JOURNAL_VERSION,
+            "groups": self.groups,
+            "tasks": self.tasks,
+        }
+        with self._lock():
+            now = time.time()
+            for tmp in self.path.parent.glob(f".{self.path.name}.*.jtmp"):
+                try:
+                    if fcntl is None and now - tmp.stat().st_mtime < 60.0:
+                        continue
+                    tmp.unlink()  # crashed writer's scratch: clean it
+                except OSError:
+                    pass
+            tmp = self.path.with_name(
+                f".{self.path.name}.{os.getpid()}.{uuid.uuid4().hex[:8]}.jtmp"
+            )
+            tmp.write_text(json.dumps(payload, separators=(",", ":")))
+            tmp.replace(self.path)
+
+    def stats_dict(self) -> dict:
+        return {
+            "groups": len(self.groups),
+            "groups_done": sum(1 for g in self.groups.values() if g.get("done")),
+            "tasks": len(self.tasks),
+            "corrupt": self.corrupt,
+            "resumed": self.resumed,
+        }
