@@ -26,7 +26,9 @@ results are exactly the ones the naive nested-loop formulation produces.
 
 from __future__ import annotations
 
+import logging
 import math
+import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -37,6 +39,8 @@ from repro_torch.core.architecture import Architecture
 from repro_torch.core.mapping import Mapping, mapping_signature
 from repro_torch.core.problem import DataSpace, Problem
 
+log = logging.getLogger("repro_torch.analysis")
+
 # Exactness headroom for the vectorized (float64) batch path: every
 # integer-valued product the scalar analysis computes exactly (arbitrary-
 # precision Python ints) must stay below 2**53 for the float pipeline to be
@@ -45,15 +49,97 @@ from repro_torch.core.problem import DataSpace, Problem
 # of 2 absorbs rounding drift in the guard computation itself.
 BATCH_EXACT_LIMIT = float(1 << 52)
 
+# The failures the torch backend degrades on (to numpy, counted and
+# logged): torch missing (ImportError) and what a device raises -- CUDA
+# errors, out of memory, the injected ``UNION_FAULT_JAX`` fault, all
+# RuntimeError. Anything else (a TypeError or IndexError from a shape or
+# dtype mismatch) is a bug in a program and propagates.
+BACKEND_ERRORS = (ImportError, RuntimeError)
+
+# ---------------------------------------------------------------------- #
+# Process-global trace registry. Every torch-backend dispatch registers its
+# (program identity, padded batch size) combination here at its first
+# dispatch; the set's size is therefore the number of DISTINCT array
+# programs (one per pow2 batch bucket) the process has run -- the
+# counterpart of the reference's jit traces, and the unit a CUDA-graph
+# capture of each program would be keyed by. Shape-generic programs
+# register under their structural ShapeClassKey -- content-different
+# contexts in one shape class share a single entry per bucket -- while the
+# per-context programs register under the context's identity. Engines
+# sample ``global_trace_count()`` deltas around their dispatches to
+# attribute programs to a search (``EngineStats.n_traces``).
+# ---------------------------------------------------------------------- #
+_GENERIC_PROGRAMS: Dict[tuple, object] = {}
+_TRACE_COMBOS: set = set()
+
+
+def global_trace_count() -> int:
+    """Number of distinct (program, padded batch size) combinations this
+    process has dispatched (shape-generic programs count once per shape
+    class, not once per context)."""
+    return len(_TRACE_COMBOS)
+
+
+def _record_trace(program_key, padded_batch: int) -> None:
+    _TRACE_COMBOS.add((program_key, int(padded_batch)))
+
+
+def reset_trace_registry() -> None:
+    """Drop trace accounting AND the shared generic-program cache (test
+    isolation helper; programs are rebuilt on demand)."""
+    _TRACE_COMBOS.clear()
+    _GENERIC_PROGRAMS.clear()
+
+
+def _xp_torch(device):
+    """The torch namespace of ``device`` (imports torch on first use)."""
+    from repro_torch.core.cost import _xp_torch
+
+    return _xp_torch.namespace(device)
+
+
+def astype(xp, a, dtype):
+    """``a`` converted to ``dtype``: the array method on numpy (the
+    reference's call, unchanged), ``Tensor.to`` on the torch namespace."""
+    return a.astype(dtype) if xp is np else xp.astype(a, dtype)
+
+
+def device_scalar(xp, v):
+    """A host constant as an operand of an array program: the plain value
+    on numpy, a 0-dim float64 tensor on the torch namespace's device (a
+    tensor passes through). Needed where torch would otherwise rewrite the
+    operation: ``float / tensor`` runs as ``reciprocal(tensor) * float``,
+    and a CUDA tensor divided by a CPU scalar as ``x * (1/c)``."""
+    if xp is np:
+        return v
+    return xp.scalar(v)
+
+
 def exact_divisor(xp, v):
-    """A host constant to DIVIDE by inside an array program. With numpy
-    (the only array stack of the port) it is the plain value; the ``xp``
-    argument keeps the signature of the array-generic cores."""
-    return v
+    """A host constant to DIVIDE by inside an array program.
+
+    numpy returns the plain value. On the torch namespace the value
+    becomes a 0-dim float64 tensor on the program's device (a parameter
+    tensor passes through): torch's CUDA kernel divides by a CPU scalar
+    as ``x * (1/c)``, which is exact only for powers of two and would
+    break bit-identity with the host numpy division for every other
+    bandwidth/frequency/PE-count constant.
+    """
+    return device_scalar(xp, v)
 
 
 def ordered_sum(xp, init, addends):
-    """Left-associated ``((init + a0) + a1) + ...`` with numpy semantics."""
+    """Left-associated ``((init + a0) + a1) + ...`` with numpy semantics.
+
+    One loop serves both array stacks: on numpy each add is one rounding,
+    and on the torch namespace each ``acc + a`` is its own eager kernel,
+    so every addend (typically an ``int_counts * energy`` product) is
+    materialized -- i.e. ROUNDED -- before it joins the accumulator, and
+    no ``acc + a*b`` is ever contracted into an FMA. This is what keeps
+    fractional (energy) accumulations bit-identical between the host
+    numpy program and the device program; a float ``sum`` over the
+    stacked addends would reorder them and is never used.
+    """
     acc = init
     for a in addends:
         acc = acc + a
@@ -61,9 +147,11 @@ def ordered_sum(xp, init, addends):
 
 
 def ordered_pair_sum(xp, init, pairs):
-    """Left-associated ``acc + (x + y)`` accumulation over ``pairs`` (the
-    inner ``x + y`` rounds first, exactly as the scalar program associates
-    its two-term energy addends)."""
+    """Left-associated ``acc + (x + y)`` accumulation over ``pairs``, with
+    the same one-kernel-per-add structure as :func:`ordered_sum` (the
+    inner ``x + y`` rounds first, exactly as the scalar/numpy programs
+    associate their two-term energy addends). Pass ``y = 0.0`` for single
+    addends: ``x + 0.0`` is exact for the non-negative energy terms."""
     acc = init
     for x, y in pairs:
         acc = acc + (x + y)
@@ -98,16 +186,22 @@ class StackedBatch:
     One StackedBatch is built per engine miss-batch and SHARED between the
     admission stage (:meth:`AnalysisContext.lower_bound_batch`) and the
     scoring stage (:meth:`AnalysisContext.signature_traffic_batch`), so the
-    batch is stacked exactly once; the scoring stage runs on the admitted
+    batch is stacked exactly once. On the torch backend the padded
+    matrices are uploaded to the device once (``devp``) and shared by the
+    lower-bound and fused programs; the scoring stage runs on the admitted
     subset (``select``) only.
     """
 
-    __slots__ = ("tt", "st", "perm")
+    __slots__ = ("tt", "st", "perm", "devp")
 
     def __init__(self, tt: np.ndarray, st: np.ndarray, perm: np.ndarray) -> None:
         self.tt = tt
         self.st = st
         self.perm = perm
+        # (device, (tt, st, perm, B)): pow2-PADDED tensors for the fused
+        # full-batch programs (padding runs host-side in numpy before ONE
+        # upload, so a dispatch pays one host-to-device copy)
+        self.devp = None
 
     @property
     def size(self) -> int:
@@ -293,6 +387,26 @@ class AnalysisContext:
         # --- vectorized batch-analysis state (built lazily) ------------- #
         self._np_batch_core = None
         self._np_lb_core = None
+        # torch programs by device: {device: core}
+        self._torch_batch_cores: Dict[str, object] = {}
+        self._torch_lb_cores: Dict[str, object] = {}
+        # the torch backend broke (import, device or dispatch failure):
+        # engines on this context degrade to numpy (see the engine's
+        # ``_check_backend_degraded``); a circuit breaker may re-arm it
+        self._torch_failed = False
+        # torch-program invocations (lb, traffic, or fused admit+score):
+        # the observable "dispatches per batch" count tests probe.
+        self.device_dispatches = 0
+        # fused admit+score runners, keyed by (model store-key parts,
+        # metric, device): engines come and go per search, the program is
+        # reused (equal store_key_parts => bit-identical costs, so sharing
+        # is sound by the same contract the ResultStore relies on)
+        self._fused_runners: Dict[Tuple, object] = {}
+        # shape-generic machinery (lazy): the structural key + parameter
+        # pack that let ONE process-global program serve every context in
+        # this shape class
+        self._shape_class_key: Optional[tuple] = None
+        self._shape_params: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def ds_projection_axes(self) -> List[Tuple[int, List[List[Tuple[int, int]]], Tuple[int, ...]]]:
@@ -307,6 +421,74 @@ class AnalysisContext:
         spans) should use it instead of the private ``_ds_axes_idx``.
         """
         return self._ds_axes_idx
+
+    # ------------------------------------------------------------------ #
+    # Shape-generic program support. ``shape_class_key`` captures every
+    # STRUCTURAL property the batch/lower-bound cores branch or reshape
+    # on (ranks, level topology, projection term layout, which levels
+    # carry bandwidth terms); ``shape_params`` packs every VALUE those
+    # cores consume (dim sizes, projection coefficients, energies,
+    # bandwidth reciprocals) as arrays whose shapes are fully determined
+    # by the key. Two contexts with equal keys therefore run the SAME
+    # program -- only the parameter pack differs -- and because
+    # the generic cores replay the per-context closures' float operations
+    # in the identical order, results stay bit-identical per row.
+    # ------------------------------------------------------------------ #
+    def shape_class_key(self) -> tuple:
+        """Structural identity of this context's array programs (hashable;
+        equal keys <=> one shape-generic program serves both
+        contexts)."""
+        if self._shape_class_key is None:
+            axes_struct = tuple(
+                tuple(tuple(j for _c, j in ax) for ax in axes)
+                for _wb, axes, _rel in self._ds_axes_idx
+            )
+            self._shape_class_key = (
+                self.n_levels,
+                len(self.dims),
+                len(self._ds_rel_sets),
+                tuple(self.real_levels),
+                tuple(-1 if p is None else p for p in self.real_parent),
+                tuple(bool(ds.is_output) for ds, _rel in self.ds_rel),
+                axes_struct,
+                -1 if self._lb_dram_child is None else self._lb_dram_child,
+                tuple(lv for lv, _c in self._lb_bw_levels),
+            )
+        return self._shape_class_key
+
+    def shape_params(self) -> Dict[str, np.ndarray]:
+        """Parameter pack for the shape-generic cores: every value
+        the per-context closures bake in as Python constants, as arrays
+        keyed/shaped by :meth:`shape_class_key` (content may differ across
+        contexts of one class; shapes never do)."""
+        if self._shape_params is None:
+            D = len(self.dims)
+            coeffs = [
+                float(c)
+                for _wb, axes, _rel in self._ds_axes_idx
+                for ax in axes
+                for c, _j in ax
+            ]
+            self._shape_params = {
+                "sizes": np.asarray(self._size_tuple, dtype=np.int64),
+                "mpc": np.float64(self.macs_per_cycle),
+                "rel": np.array(
+                    [[j in rset for j in range(D)] for rset in self._ds_rel_sets],
+                    dtype=bool,
+                ),
+                "coeffs": np.asarray(coeffs, dtype=np.float64),
+                "wb": np.asarray(
+                    [wb for wb, _a, _r in self._ds_axes_idx], dtype=np.float64
+                ),
+                "e_base": np.float64(self._lb_energy_base),
+                "tre": np.float64(self._top_read_e),
+                "twe": np.float64(self._top_write_e),
+                "bw_cpb": np.asarray(
+                    [c for _lv, c in self._lb_bw_levels], dtype=np.float64
+                ),
+                "freq": np.float64(self.arch.frequency_hz),
+            }
+        return self._shape_params
 
     # ------------------------------------------------------------------ #
     def analyze(self, mapping: Mapping) -> AccessProfile:
@@ -509,7 +691,8 @@ class AnalysisContext:
     # as one array program. ``signature_traffic_batch`` stacks the batch
     # into dense [B, n_levels, D] tile/order matrices and runs the same
     # reuse rules as ``signature_traffic`` over all candidates at once --
-    # in numpy. All quantities are integer-valued and computed in float64;
+    # numpy by default, optionally the same program on float64 tensors of
+    # a torch device (``backend="torch"``). All quantities are integer-valued and computed in float64;
     # they are exact (bit-identical to the scalar path) as long as they
     # stay below BATCH_EXACT_LIMIT, which the cost models enforce before
     # trusting a batch result.
@@ -557,13 +740,13 @@ class AnalysisContext:
     def _make_batch_core(self, xp):
         """Build the (tt, st, perm) -> stacked-traffic array program.
 
-        ``xp`` is the array stack (numpy). The program is the exact vectorization of
-        :meth:`signature_traffic`: same trip/fan derivation, same
-        relevant/irrelevant prefix products (the order-dependent
-        ``changes`` term uses a cummax over the last relevant loop
-        position), same footprint spans.
+        ``xp`` is numpy or a torch namespace (:mod:`._xp_torch`). The
+        program is the exact vectorization of :meth:`signature_traffic`:
+        same trip/fan derivation, same relevant/irrelevant prefix products
+        (the order-dependent ``changes`` term uses a cummax over the last
+        relevant loop position), same footprint spans.
         """
-        sizes_row = np.asarray(self._size_tuple, dtype=np.int64)[None, None, :]
+        sizes_row = xp.asarray(np.asarray(self._size_tuple, dtype=np.int64)[None, None, :])
         n = self.n_levels
         D = len(self.dims)
         real_levels = list(self.real_levels)
@@ -573,34 +756,34 @@ class AnalysisContext:
         K = len(self._ds_rel_sets)
         # [K, D] relevance mask, stacked over data spaces: the reuse
         # cumprods below run for ALL data spaces in one array op.
-        rel_stack = np.array(
+        rel_stack = xp.asarray(np.array(
             [[j in rset for j in range(D)] for rset in self._ds_rel_sets], dtype=bool
-        )
+        ))
         ds_axes = [axes for _wb, axes, _rel in self._ds_axes_idx]
         ds_out = [ds.is_output for ds, _rel in self.ds_rel]
-        ends = np.asarray([(i + 1) * D - 1 for i in real_levels])
-        real_arr = np.asarray(real_levels)
+        ends = xp.asarray(np.asarray([(i + 1) * D - 1 for i in real_levels]))
+        real_arr = xp.asarray(np.asarray(real_levels))
         # parent gather indices for rel_spatial (parentless levels divide by
         # themselves -> ratio 1.0 exactly)
-        parent_arr = np.asarray(
+        parent_arr = xp.asarray(np.asarray(
             [real_parent[i] if real_parent[i] is not None else i for i in real_levels]
-        )
-        pos_seq = np.arange(n * D)
+        ))
+        pos_seq = xp.asarray(np.arange(n * D))
 
         def core(tt, st, perm):
             B = tt.shape[0]
             tt = xp.maximum(tt, 1)
             st = xp.maximum(st, 1)
             outer = xp.concatenate(
-                [xp.broadcast_to(xp.asarray(sizes_row), (B, 1, D)), st[:, :-1, :]],
+                [xp.broadcast_to(sizes_row, (B, 1, D)), st[:, :-1, :]],
                 axis=1,
             )
             trips = xp.maximum(outer // tt, 1)
             fans = xp.maximum(tt // st, 1)
-            tripsf = trips.astype(xp.float64)
-            fansf = fans.astype(xp.float64)
+            tripsf = astype(xp, trips, xp.float64)
+            fansf = astype(xp, fans, xp.float64)
             total_trips = xp.prod(tripsf.reshape(B, n * D), axis=1)
-            leaf_macs = xp.prod(tt[:, -1, :].astype(xp.float64), axis=1)
+            leaf_macs = xp.prod(astype(xp, tt[:, -1, :], xp.float64), axis=1)
             compute_cycles = total_trips * xp.ceil(leaf_macs / exact_divisor(xp, mpc))
             par = xp.prod(fansf.reshape(B, n * D), axis=1)
             lvl_all = xp.prod(fansf, axis=2)  # [B, n]
@@ -610,11 +793,11 @@ class AnalysisContext:
             )
             # temporal loop sequence in emission order (order-major per level)
             perm_flat = perm.reshape(B, n * D)
-            tseqf = xp.take_along_axis(trips, perm, axis=2).reshape(B, n * D).astype(
-                xp.float64
+            tseqf = astype(
+                xp, xp.take_along_axis(trips, perm, axis=2).reshape(B, n * D), xp.float64
             )
             # ---- all data spaces at once: [K, B, S] ---------------------- #
-            rel_seq = xp.asarray(rel_stack)[:, perm_flat]  # [K, B, S]
+            rel_seq = rel_stack[:, perm_flat]  # [K, B, S]
             present = (tseqf > 1.0)[None, :, :]
             relm = rel_seq & present
             irrm = (~rel_seq) & present
@@ -625,14 +808,17 @@ class AnalysisContext:
             # the (exclusive == inclusive, s is relevant) irrprod at that
             # position, 1.0 when no relevant loop yet.
             idx = xp.where(relm, pos_seq[None, None, :], -1)
-            lastrel = np.maximum.accumulate(idx, axis=2)
+            if xp is np:
+                lastrel = np.maximum.accumulate(idx, axis=2)
+            else:
+                lastrel = xp.cummax(idx, axis=2)
             gathered = xp.take_along_axis(irrprod, xp.maximum(lastrel, 0), axis=2)
             ip = xp.where(lastrel >= 0, gathered, 1.0)
             unique = relprod[:, :, ends]  # [K, B, L]
             changes = unique * ip[:, :, ends]
             # spatial: relevant-fan products per level, exclusive cumprod
             lvl_rel = xp.prod(
-                xp.where(xp.asarray(rel_stack)[:, None, None, :], fansf[None], 1.0),
+                xp.where(rel_stack[:, None, None, :], fansf[None], 1.0),
                 axis=3,
             )  # [K, B, n]
             cp_rel = xp.cumprod(lvl_rel, axis=2)
@@ -642,7 +828,7 @@ class AnalysisContext:
             # exact: srel_excl at the parent divides srel_excl at the level
             rel_sp = srel_excl[:, :, real_arr] / srel_excl[:, :, parent_arr]
             # footprints per data space (projections differ per ds)
-            ttf_real = tt[:, real_arr, :].astype(xp.float64)  # [B, L, D]
+            ttf_real = astype(xp, tt[:, real_arr, :], xp.float64)  # [B, L, D]
             rows = []
             for k in range(K):
                 foot = xp.ones((B, L), dtype=xp.float64)
@@ -662,19 +848,119 @@ class AnalysisContext:
 
         return core
 
+    def _ensure_torch(self, device):
+        """The torch namespace of ``device``: every torch path funnels
+        through here.
+
+        ``UNION_FAULT_JAX=1`` (the reference's knob, read here as "the
+        array backend fails") simulates a broken backend at this choke
+        point: the raise is caught by the callers' degradation handling,
+        which sets ``_torch_failed`` and falls back to numpy -- the path
+        the sweep executor's ``jaxfail`` fault spec and the fault-injection
+        tests exercise without a genuinely broken install.
+        """
+        if os.environ.get("UNION_FAULT_JAX"):
+            raise RuntimeError("injected array-backend failure (UNION_FAULT_JAX)")
+        return _xp_torch(device)
+
+    def _backend_failure(self, what: str) -> None:
+        """Mark the torch backend broken (callers fall back to numpy) and
+        log the traceback of the exception being handled."""
+        self._torch_failed = True
+        log.warning("torch array backend failed in %s on %s; numpy takes over "
+                    "(results identical by the backend contract)", what,
+                    getattr(self.problem, "name", "?"), exc_info=True)
+
+    @staticmethod
+    def _pad_pow2_host(sb: StackedBatch, select=None):
+        """``(tt, st, perm, B)``: the (selected) batch matrices with the
+        batch axis padded to the next power of two by repeating row 0 -- a
+        real candidate, so padding can never trip the exactness guard (the
+        lb core's guard reduces over the padded batch). Padding bounds the
+        distinct program shapes to one per pow2 bucket (the unit the trace
+        registry counts)."""
+        tt, st, perm = sb.tt, sb.st, sb.perm
+        if select is not None:
+            idx = np.asarray(select, dtype=np.int64)
+            tt, st, perm = tt[idx], st[idx], perm[idx]
+        B = int(tt.shape[0])
+        B2 = 1 << max(0, (B - 1).bit_length())
+        if B2 != B:
+            padn = B2 - B
+            tt, st, perm = (
+                np.concatenate([a, np.broadcast_to(a[:1], (padn,) + a.shape[1:])])
+                for a in (tt, st, perm)
+            )
+        return tt, st, perm, B
+
+    @staticmethod
+    def _upload(xp, tt, st, perm):
+        """The three int64 matrices as device tensors, in ONE host-to-device
+        copy (stacked host-side, split into views on the device)."""
+        return tuple(xp.asarray(np.stack([tt, st, perm])).unbind(0))
+
+    def _torch_device_padded(self, sb: StackedBatch, xp, select=None):
+        """Pow2-padded device matrices ``(tt, st, perm, B)`` for one
+        dispatch. Without ``select`` they are memoized on the handle, so a
+        batch whose lower bound and scores run as two programs uploads
+        once."""
+        dev = str(xp.device)
+        if select is None and sb.devp is not None and sb.devp[0] == dev:
+            return sb.devp[1]
+        tt, st, perm, B = self._pad_pow2_host(sb, select)
+        out = self._upload(xp, tt, st, perm) + (B,)
+        if select is None:
+            sb.devp = (dev, out)
+        return out
+
+    def _torch_core(self, cores: Dict[str, object], make, xp):
+        core = cores.get(str(xp.device))
+        if core is None:
+            core = cores[str(xp.device)] = make(xp)
+        return core
+
+    def _run_torch_core(self, sb: StackedBatch, device, select=None):
+        """The batch core on the torch backend over a (device-resident)
+        StackedBatch: optionally the ``select`` row subset, padded to a
+        power of two, float64 on the device; returns numpy arrays of the
+        unpadded (selected) batch -- or None so the caller falls back to
+        numpy (the backend broke)."""
+        if self._torch_failed:
+            return None
+        try:
+            xp = self._ensure_torch(device)
+            core = self._torch_core(self._torch_batch_cores, self._make_batch_core, xp)
+            tt, st, perm, B = self._torch_device_padded(sb, xp, select)
+            self.device_dispatches += 1
+            _record_trace(("ctx-core", id(self), str(xp.device)), int(tt.shape[0]))
+            out = core(tt, st, perm)
+            compute_cycles, total_trips, par, inst_at, tt_c, st_c, fans, rows = out
+            flat = [compute_cycles, total_trips, par, inst_at, tt_c, st_c, fans]
+            flat += [a for r in rows for a in r]
+            host = [a[:B] for a in to_host(flat)]
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            self._backend_failure("the traffic program")
+            return None
+        K = len(rows)
+        return tuple(host[:7]) + (tuple(tuple(host[7 + 5 * k: 12 + 5 * k]) for k in range(K)),)
+
     def signature_traffic_batch(
         self,
         sigs=None,
+        backend: str = "numpy",
         stacked: Optional[StackedBatch] = None,
         select=None,
+        device=None,
     ) -> Optional[BatchTraffic]:
         """Stacked :meth:`signature_traffic` over a batch of signatures.
 
-        ``stacked`` reuses an already-stacked batch -- the
-        evaluation engine stacks each miss-batch ONCE and shares the handle
-        between the admission filter and this scoring pass. ``select``
-        restricts the program to the given row indices of the stacked
-        batch. Returns None for an empty batch/selection.
+        ``backend`` selects the array program: ``"numpy"`` (default) or
+        ``"torch"`` (float64 tensors on ``device``; falls back to numpy
+        when the backend breaks). ``stacked`` reuses an already-stacked
+        batch -- the evaluation engine stacks each miss-batch ONCE and
+        shares the handle between the admission filter and this scoring
+        pass. ``select`` restricts the program to the given row indices of
+        the stacked batch. Returns None for an empty batch/selection.
         """
         sb = stacked
         if sb is None:
@@ -683,13 +969,17 @@ class AnalysisContext:
             sb = self.stacked_batch(sigs)
         if sb.size == 0 or (select is not None and len(select) == 0):
             return None
-        if self._np_batch_core is None:
-            self._np_batch_core = self._make_batch_core(np)
-        tt, st, perm = sb.tt, sb.st, sb.perm
-        if select is not None:
-            idx = np.asarray(select, dtype=np.int64)
-            tt, st, perm = tt[idx], st[idx], perm[idx]
-        out = self._np_batch_core(tt, st, perm)
+        out = None
+        if backend == "torch":
+            out = self._run_torch_core(sb, device, select=select)
+        if out is None:
+            if self._np_batch_core is None:
+                self._np_batch_core = self._make_batch_core(np)
+            tt, st, perm = sb.tt, sb.st, sb.perm
+            if select is not None:
+                idx = np.asarray(select, dtype=np.int64)
+                tt, st, perm = tt[idx], st[idx], perm[idx]
+            out = self._np_batch_core(tt, st, perm)
         compute_cycles, total_trips, par, inst_at, tt_c, st_c, fans, rows = out
         return BatchTraffic(
             compute_cycles=np.asarray(compute_cycles),
@@ -879,14 +1169,16 @@ class AnalysisContext:
     def _make_lb_core(self, xp):
         """Build the (tt, st, perm) -> (cycles[B], energy_pj[B], guard_max)
         program: the exact vectorization of :meth:`signature_lower_bound`."""
-        sizes_row = np.asarray(self._size_tuple, dtype=np.int64)[None, None, :]
+        sizes_row = xp.asarray(np.asarray(self._size_tuple, dtype=np.int64)[None, None, :])
         n = self.n_levels
         D = len(self.dims)
         mpc = self.macs_per_cycle
         K = len(self._ds_rel_sets)
-        rel_stack = np.array(
+        rel_np = np.array(
             [[j in rset for j in range(D)] for rset in self._ds_rel_sets], dtype=bool
         )
+        rel_stack = xp.asarray(rel_np)
+        rel_rows = [xp.asarray(rel_np[k]) for k in range(K)]
         wb_list = [wb for wb, _axes, _rel in self._ds_axes_idx]
         ds_axes = [axes for _wb, axes, _rel in self._ds_axes_idx]
         ds_out = [ds.is_output for ds, _rel in self.ds_rel]
@@ -895,7 +1187,7 @@ class AnalysisContext:
         tre = self._top_read_e
         twe = self._top_write_e
         bw_levels = list(self._lb_bw_levels)
-        pos_seq = np.arange(n * D)
+        pos_seq = xp.asarray(np.arange(n * D))
 
         def ds_foot(ttf_lvl, k):
             return batch_projection_footprint(ds_axes[k], ttf_lvl, xp)
@@ -905,13 +1197,13 @@ class AnalysisContext:
             tt = xp.maximum(tt, 1)
             st = xp.maximum(st, 1)
             outer = xp.concatenate(
-                [xp.broadcast_to(xp.asarray(sizes_row), (B, 1, D)), st[:, :-1, :]],
+                [xp.broadcast_to(sizes_row, (B, 1, D)), st[:, :-1, :]],
                 axis=1,
             )
             trips = xp.maximum(outer // tt, 1)
-            tripsf = trips.astype(xp.float64)
+            tripsf = astype(xp, trips, xp.float64)
             total_trips = xp.prod(tripsf.reshape(B, n * D), axis=1)
-            leaf_macs = xp.prod(tt[:, -1, :].astype(xp.float64), axis=1)
+            leaf_macs = xp.prod(astype(xp, tt[:, -1, :], xp.float64), axis=1)
             cycles = total_trips * xp.ceil(leaf_macs / exact_divisor(xp, mpc))
             # fractional energy addends are collected as (x, y) pairs and
             # summed through ordered_pair_sum in the scalar path's order
@@ -924,12 +1216,12 @@ class AnalysisContext:
                 # (order-major): enough to reproduce changes/unique exactly.
                 S = (dc + 1) * D
                 perm_pref = perm[:, : dc + 1, :]
-                tseqf = (
-                    xp.take_along_axis(trips[:, : dc + 1, :], perm_pref, axis=2)
-                    .reshape(B, S)
-                    .astype(xp.float64)
+                tseqf = astype(
+                    xp,
+                    xp.take_along_axis(trips[:, : dc + 1, :], perm_pref, axis=2).reshape(B, S),
+                    xp.float64,
                 )
-                rel_seq = xp.asarray(rel_stack)[:, perm_pref.reshape(B, S)]  # [K,B,S]
+                rel_seq = rel_stack[:, perm_pref.reshape(B, S)]  # [K,B,S]
                 present = (tseqf > 1.0)[None, :, :]
                 relm = rel_seq & present
                 irrm = (~rel_seq) & present
@@ -946,10 +1238,10 @@ class AnalysisContext:
                     irrprod, xp.maximum(lastrel, 0)[:, :, None], axis=2
                 )[:, :, 0]
                 changes = unique * xp.where(lastrel >= 0, gathered, 1.0)
-                ttf_dc = tt[:, dc, :].astype(xp.float64)
+                ttf_dc = astype(xp, tt[:, dc, :], xp.float64)
                 if dc > 0:
-                    fans_pref = xp.maximum(tt[:, :dc, :] // st[:, :dc, :], 1).astype(
-                        xp.float64
+                    fans_pref = astype(
+                        xp, xp.maximum(tt[:, :dc, :] // st[:, :dc, :], 1), xp.float64
                     )
                 dc_boundary = xp.zeros(B, dtype=xp.float64)
                 for k in range(K):
@@ -957,7 +1249,7 @@ class AnalysisContext:
                     if dc > 0:
                         rel_sp = xp.prod(
                             xp.where(
-                                xp.asarray(rel_stack[k])[None, None, :], fans_pref, 1.0
+                                rel_rows[k][None, None, :], fans_pref, 1.0
                             ).reshape(B, dc * D),
                             axis=1,
                         )
@@ -987,11 +1279,11 @@ class AnalysisContext:
                 if level == dc:
                     cycles = xp.maximum(cycles, dc_boundary * cyc_per_byte)
                     continue
-                ttf_lvl = tt[:, level, :].astype(xp.float64)
+                ttf_lvl = astype(xp, tt[:, level, :], xp.float64)
                 # unique per ds: product of relevant trips of levels <= level
                 relprod_lvl = xp.prod(
                     xp.where(
-                        xp.asarray(rel_stack)[:, None, None, :],
+                        rel_stack[:, None, None, :],
                         tripsf[None, :, : level + 1, :],
                         1.0,
                     ).reshape(K, B, (level + 1) * D),
@@ -1008,10 +1300,31 @@ class AnalysisContext:
 
         return core
 
+    def _run_torch_lb(self, sb: StackedBatch, device):
+        """The lower-bound core on the torch backend over a
+        device-resident StackedBatch; the uploaded matrices stay on
+        ``sb.devp`` for the scoring pass. Returns numpy (cycles, energy,
+        guard) or None (fallback to numpy)."""
+        if self._torch_failed:
+            return None
+        try:
+            xp = self._ensure_torch(device)
+            core = self._torch_core(self._torch_lb_cores, self._make_lb_core, xp)
+            tt, st, perm, B = self._torch_device_padded(sb, xp)
+            self.device_dispatches += 1
+            _record_trace(("ctx-lb", id(self), str(xp.device)), int(tt.shape[0]))
+            cyc, en, mx = to_host(core(tt, st, perm))
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            self._backend_failure("the lower-bound program")
+            return None
+        return cyc[:B], en[:B], mx
+
     def lower_bound_batch(
         self,
         sigs=None,
+        backend: str = "numpy",
         stacked: Optional[StackedBatch] = None,
+        device=None,
     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Stacked :meth:`signature_lower_bound`: float64 ``(cycles[B],
         energy_pj[B])`` arrays, bit-identical per candidate to the scalar
@@ -1019,7 +1332,8 @@ class AnalysisContext:
         guaranteed (any guarded integer quantity at/above
         :data:`BATCH_EXACT_LIMIT` -- the caller then falls back to the
         per-candidate bound). ``stacked`` shares an already-stacked batch
-        with the scoring pass (see :meth:`signature_traffic_batch`)."""
+        with the scoring pass (see :meth:`signature_traffic_batch`);
+        ``backend``/``device`` as there."""
         sb = stacked
         if sb is None:
             if not sigs:
@@ -1027,13 +1341,160 @@ class AnalysisContext:
             sb = self.stacked_batch(sigs)
         if sb.size == 0:
             return None
-        if self._np_lb_core is None:
-            self._np_lb_core = self._make_lb_core(np)
-        out = self._np_lb_core(sb.tt, sb.st, sb.perm)
+        out = None
+        if backend == "torch":
+            out = self._run_torch_lb(sb, device)
+        if out is None:
+            if self._np_lb_core is None:
+                self._np_lb_core = self._make_lb_core(np)
+            out = self._np_lb_core(sb.tt, sb.st, sb.perm)
         cycles, energy, mx = out
         if not (float(mx) < BATCH_EXACT_LIMIT):
             return None
         return np.asarray(cycles), np.asarray(energy)
+
+    # ------------------------------------------------------------------ #
+    # Single-dispatch fused admit+score. One device program runs the
+    # model's lower-bound core, derives the admit mask, runs the traffic
+    # core, and accumulates the model's latency/energy/utilization terms
+    # -- so one dispatch per miss-batch covers the whole pipeline and only
+    # per-candidate scalars (plus small [B] breakdown arrays) ever return
+    # to host. The numpy backend keeps the two-stage flow but runs the
+    # SAME terms array program per row, so values are bit-identical.
+    # ------------------------------------------------------------------ #
+    def _metric_scalarize(self, metric: str, xp):
+        """Device twin of ``EvaluationEngine._scalarize_batch``: identical
+        float operations per element (the frequency divisor goes through
+        :func:`exact_divisor`), so on-device admit/reject decisions are
+        bit-identical to the host filter."""
+        freq = self.arch.frequency_hz
+        if metric == "latency":
+            return lambda cyc, en: cyc
+        if metric == "energy":
+            return lambda cyc, en: en
+        if metric == "edp":
+            return lambda cyc, en: (en * 1e-12) * (cyc / exact_divisor(xp, freq))
+        return lambda cyc, en: cyc * 0.0
+
+    def _make_fused_core(self, xp, lb_builder, terms, metric: str):
+        """Build the (tt, st, perm, incumbent) -> (admit[B], lb_guard,
+        latency[B], energy[B], util[B], score_guard, extras) program.
+
+        ``lb_builder(xp)`` yields the model's admission-bound core
+        (``CostModel.batch_admit_core_builder``); ``terms`` is the model's
+        cost-terms program (``CostModel.batch_cost_terms_fn``). Both guard
+        maxes come back so the host can fall back exactly where the
+        two-stage path would (lb guard -> scalar bound; score guard ->
+        scalar/numpy scoring of the admitted subset).
+        """
+        lb_core = lb_builder(xp)
+        traffic_core = self._make_batch_core(xp)
+        scalarize = self._metric_scalarize(metric, xp)
+
+        def core(tt, st, perm, incumbent):
+            lb_cyc, lb_en, lb_mx = lb_core(tt, st, perm)
+            admit = scalarize(lb_cyc, lb_en) < incumbent
+            out = traffic_core(tt, st, perm)
+            bt = BatchTraffic(
+                compute_cycles=out[0],
+                total_trips=out[1],
+                par=out[2],
+                inst_at=out[3],
+                tt=out[4],
+                st=out[5],
+                fans=out[6],
+                rows=tuple(DsTrafficBatch(*r) for r in out[7]),
+            )
+            latency, energy, util, score_mx, extras = terms(bt, xp)
+            return admit, lb_mx, latency, energy, util, score_mx, extras
+
+        return core
+
+    def build_fused_runner(self, lb_builder, terms, metric: str, device,
+                           cache_key=None):
+        """Single-dispatch admit+score runner for one (model, metric) on
+        the torch backend: ``run(sb, incumbent) -> (admit[B] bool,
+        lb_guard float, latency[B], energy[B], util[B], score_guard float,
+        extras)`` as host numpy, or None (the backend is broken -- the
+        engine then keeps the two-stage flow). The stacked batch is
+        uploaded once and padded to a power of two (padding repeats row 0,
+        a real candidate, so neither guard can trip on padding); only
+        [B]-sized result arrays cross back to host.
+
+        ``cache_key`` (model store-key parts + metric + device, from the
+        engine) memoizes the runner on the context so repeated searches
+        over the same (problem, arch, model, metric) reuse the program.
+        """
+        if self._torch_failed:
+            return None
+        if cache_key is not None:
+            cached = self._fused_runners.get(cache_key)
+            if cached is not None:
+                return cached
+        try:
+            xp = self._ensure_torch(device)
+            core = self._make_fused_core(xp, lb_builder, terms, metric)
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            self._backend_failure("building the fused program")
+            return None
+        pkey = ("ctx-fused", id(self), cache_key, str(xp.device))
+
+        def run(sb: StackedBatch, incumbent: float):
+            if self._torch_failed:
+                return None
+            try:
+                self._ensure_torch(xp.device)  # the choke point, every dispatch
+                tt, st, perm, B = self._torch_device_padded(sb, xp)
+                self.device_dispatches += 1
+                _record_trace(pkey, int(tt.shape[0]))
+                out = core(tt, st, perm, float(incumbent))
+                return _fused_to_host(out, B)
+            except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+                self._backend_failure("the fused program")
+                return None
+
+        if cache_key is not None:
+            self._fused_runners[cache_key] = run
+        return run
+
+    def build_generic_fused_runner(self, generic, metric: str, device, cache_key=None):
+        """Shape-generic twin of :meth:`build_fused_runner`: the program
+        is built ONCE per (shape class, model structure, metric, device)
+        process-wide (``_GENERIC_PROGRAMS``) and this context's values
+        enter as a parameter pack of device tensors, so content-different
+        sweep points in one shape class share a single program.
+
+        ``generic`` is ``CostModel.batch_cost_terms_generic`` output:
+        ``(model_struct_key, model_params, terms)`` with
+        ``terms(bt, xp, p)``. Returns a :class:`GenericFusedRunner`
+        (same call protocol as the per-context runner) or None (the
+        backend is broken -- callers fall back exactly as for the
+        per-context builder). ``cache_key`` memoizes the runner on the
+        context as the lookup tier ABOVE the global program cache.
+        """
+        if self._torch_failed:
+            return None
+        if cache_key is not None:
+            cached = self._fused_runners.get(cache_key)
+            if cached is not None:
+                return cached
+        model_key, model_params, terms = generic
+        try:
+            xp = self._ensure_torch(device)
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            self._backend_failure("building the generic program")
+            return None
+        skey = self.shape_class_key()
+        pkey = ("generic-fused", skey, model_key, metric, str(xp.device))
+        core = _GENERIC_PROGRAMS.get(pkey)
+        if core is None:
+            core = _GENERIC_PROGRAMS[pkey] = _make_generic_fused_core(skey, terms, metric, xp)
+        params = dict(self.shape_params())
+        params.update(model_params)
+        runner = GenericFusedRunner(self, xp, core, params, pkey)
+        if cache_key is not None:
+            self._fused_runners[cache_key] = runner
+        return runner
 
     def chains_lower_bound(
         self, chain_list, orders, incumbent: float = math.inf, scalarize=None
@@ -1168,6 +1629,451 @@ class AnalysisContext:
 
 
 # ---------------------------------------------------------------------- #
+# Shape-generic array programs. These are the per-context closures
+# (``_make_lb_core`` / ``_make_batch_core`` / the fused admit+score core)
+# re-derived from a structural ShapeClassKey plus a parameter pack
+# ``p`` (see ``AnalysisContext.shape_class_key`` / ``shape_params``): the
+# loop/branch/reshape STRUCTURE comes from the key, every VALUE from
+# ``p``. Because the float operations run in the identical order with
+# identical values, the per-row results are bit-identical to the
+# per-context closures -- but one program now serves every
+# context in the shape class.
+# ---------------------------------------------------------------------- #
+def _axes_coeff_layout(axes_struct):
+    """Per ds/axis/term: ``(flat coeff index, dim index)`` -- the build
+    order of ``shape_params()['coeffs']``, so generic span math consumes
+    coefficients exactly where the closures baked them in."""
+    layout = []
+    fi = 0
+    for axes in axes_struct:
+        ds_list = []
+        for ax in axes:
+            ax_list = []
+            for j in ax:
+                ax_list.append((fi, j))
+                fi += 1
+            ds_list.append(ax_list)
+        layout.append(ds_list)
+    return layout
+
+
+def _generic_ds_foot(coeff_layout, k, ttf_lvl, xp, p):
+    """Generic :func:`batch_projection_footprint`: identical span math
+    over ``[..., D]`` tiles with coefficients from the parameter pack."""
+    shape = ttf_lvl.shape[:-1]
+    foot = xp.ones(shape, dtype=xp.float64)
+    for ax in coeff_layout[k]:
+        span = xp.ones(shape, dtype=xp.float64)
+        for ci, j in ax:
+            span = span + p["coeffs"][ci] * (ttf_lvl[..., j] - 1.0)
+        foot = foot * span
+    return foot
+
+
+def _make_generic_lb_core(skey, xp):
+    """Shape-generic ``_make_lb_core``: ``core(tt, st, perm, p) ->
+    (cycles[B], energy_pj[B], guard_max)``."""
+    n, D, K, _real_levels, _real_parent, ds_out, axes_struct, dc, bw_lvls = skey
+    if dc < 0:
+        dc = None
+    coeff_layout = _axes_coeff_layout(axes_struct)
+    pos_seq = xp.asarray(np.arange(n * D))
+
+    def core(tt, st, perm, p):
+        B = tt.shape[0]
+        rel_stack = p["rel"]
+        wb = p["wb"]
+        tt = xp.maximum(tt, 1)
+        st = xp.maximum(st, 1)
+        sizes_row = xp.reshape(p["sizes"], (1, 1, D))
+        outer = xp.concatenate(
+            [xp.broadcast_to(sizes_row, (B, 1, D)), st[:, :-1, :]], axis=1
+        )
+        trips = xp.maximum(outer // tt, 1)
+        tripsf = astype(xp, trips, xp.float64)
+        total_trips = xp.prod(tripsf.reshape(B, n * D), axis=1)
+        leaf_macs = xp.prod(astype(xp, tt[:, -1, :], xp.float64), axis=1)
+        cycles = total_trips * xp.ceil(leaf_macs / exact_divisor(xp, p["mpc"]))
+        e_pairs = []
+        mx = xp.maximum(xp.maximum(total_trips, leaf_macs), cycles)
+
+        dc_boundary = None
+        if dc is not None:
+            S = (dc + 1) * D
+            perm_pref = perm[:, : dc + 1, :]
+            tseqf = astype(
+                xp,
+                xp.take_along_axis(trips[:, : dc + 1, :], perm_pref, axis=2).reshape(B, S),
+                xp.float64,
+            )
+            rel_seq = rel_stack[:, perm_pref.reshape(B, S)]  # [K, B, S]
+            present = (tseqf > 1.0)[None, :, :]
+            relm = rel_seq & present
+            irrm = (~rel_seq) & present
+            tseq_b = xp.broadcast_to(tseqf[None, :, :], (K, B, S))
+            unique = xp.prod(xp.where(relm, tseq_b, 1.0), axis=2)  # [K, B]
+            irrprod = xp.cumprod(xp.where(irrm, tseq_b, 1.0), axis=2)
+            idx = xp.where(relm, pos_seq[None, None, :S], -1)
+            lastrel = xp.max(idx, axis=2)
+            gathered = xp.take_along_axis(
+                irrprod, xp.maximum(lastrel, 0)[:, :, None], axis=2
+            )[:, :, 0]
+            changes = unique * xp.where(lastrel >= 0, gathered, 1.0)
+            ttf_dc = astype(xp, tt[:, dc, :], xp.float64)
+            if dc > 0:
+                fans_pref = astype(
+                    xp, xp.maximum(tt[:, :dc, :] // st[:, :dc, :], 1), xp.float64
+                )
+            dc_boundary = xp.zeros(B, dtype=xp.float64)
+            for k in range(K):
+                foot = _generic_ds_foot(coeff_layout, k, ttf_dc, xp, p)
+                if dc > 0:
+                    rel_sp = xp.prod(
+                        xp.where(
+                            rel_stack[k][None, None, :], fans_pref, 1.0
+                        ).reshape(B, dc * D),
+                        axis=1,
+                    )
+                else:
+                    rel_sp = xp.ones(B, dtype=xp.float64)
+                cf = changes[k] * foot
+                mx = xp.maximum(mx, changes[k])
+                t1 = cf * rel_sp * wb[k]
+                mx = xp.maximum(mx, t1)
+                if ds_out[k]:
+                    rmw = xp.maximum(changes[k] - unique[k], 0.0) * foot
+                    t2 = rmw * rel_sp * wb[k]
+                    mx = xp.maximum(mx, t2)
+                    e_pairs.append((t1 * p["twe"], t2 * p["tre"]))
+                    dc_boundary = dc_boundary + (cf + rmw) * wb[k]
+                else:
+                    e_pairs.append((t1 * p["tre"], 0.0))
+                    dc_boundary = dc_boundary + cf * wb[k]
+            mx = xp.maximum(mx, dc_boundary)
+        energy = ordered_pair_sum(
+            xp, xp.full((B,), p["e_base"], dtype=xp.float64), e_pairs
+        )
+
+        for bw_pos, level in enumerate(bw_lvls):
+            cyc_per_byte = p["bw_cpb"][bw_pos]
+            if level == dc:
+                cycles = xp.maximum(cycles, dc_boundary * cyc_per_byte)
+                continue
+            ttf_lvl = astype(xp, tt[:, level, :], xp.float64)
+            relprod_lvl = xp.prod(
+                xp.where(
+                    rel_stack[:, None, None, :],
+                    tripsf[None, :, : level + 1, :],
+                    1.0,
+                ).reshape(K, B, (level + 1) * D),
+                axis=2,
+            )
+            b = xp.zeros(B, dtype=xp.float64)
+            for k in range(K):
+                term = (
+                    relprod_lvl[k]
+                    * _generic_ds_foot(coeff_layout, k, ttf_lvl, xp, p)
+                    * wb[k]
+                )
+                mx = xp.maximum(mx, term)
+                b = b + term
+            mx = xp.maximum(mx, b)
+            cycles = xp.maximum(cycles, b * cyc_per_byte)
+        return cycles, energy, xp.max(mx)
+
+    return core
+
+
+def _make_generic_batch_core(skey, xp):
+    """Shape-generic ``_make_batch_core``: ``core(tt, st, perm, p) ->``
+    the stacked-traffic 8-tuple."""
+    n, D, K, real_levels, real_parent, ds_out, axes_struct, _dc, _bw = skey
+    real_levels = list(real_levels)
+    L = len(real_levels)
+    coeff_layout = _axes_coeff_layout(axes_struct)
+    ends = xp.asarray(np.asarray([(i + 1) * D - 1 for i in real_levels]))
+    real_arr = xp.asarray(np.asarray(real_levels))
+    parent_arr = xp.asarray(np.asarray(
+        [real_parent[i] if real_parent[i] >= 0 else i for i in real_levels]
+    ))
+    pos_seq = xp.asarray(np.arange(n * D))
+
+    def core(tt, st, perm, p):
+        B = tt.shape[0]
+        rel_stack = p["rel"]
+        tt = xp.maximum(tt, 1)
+        st = xp.maximum(st, 1)
+        sizes_row = xp.reshape(p["sizes"], (1, 1, D))
+        outer = xp.concatenate(
+            [xp.broadcast_to(sizes_row, (B, 1, D)), st[:, :-1, :]], axis=1
+        )
+        trips = xp.maximum(outer // tt, 1)
+        fans = xp.maximum(tt // st, 1)
+        tripsf = astype(xp, trips, xp.float64)
+        fansf = astype(xp, fans, xp.float64)
+        total_trips = xp.prod(tripsf.reshape(B, n * D), axis=1)
+        leaf_macs = xp.prod(astype(xp, tt[:, -1, :], xp.float64), axis=1)
+        compute_cycles = total_trips * xp.ceil(
+            leaf_macs / exact_divisor(xp, p["mpc"])
+        )
+        par = xp.prod(fansf.reshape(B, n * D), axis=1)
+        lvl_all = xp.prod(fansf, axis=2)  # [B, n]
+        cp_all = xp.cumprod(lvl_all, axis=1)
+        inst_at = xp.concatenate(
+            [xp.ones((B, 1), dtype=xp.float64), cp_all[:, :-1]], axis=1
+        )
+        perm_flat = perm.reshape(B, n * D)
+        tseqf = astype(
+            xp, xp.take_along_axis(trips, perm, axis=2).reshape(B, n * D), xp.float64
+        )
+        rel_seq = rel_stack[:, perm_flat]  # [K, B, S]
+        present = (tseqf > 1.0)[None, :, :]
+        relm = rel_seq & present
+        irrm = (~rel_seq) & present
+        tseq_b = xp.broadcast_to(tseqf[None, :, :], (K, B, n * D))
+        relprod = xp.cumprod(xp.where(relm, tseq_b, 1.0), axis=2)
+        irrprod = xp.cumprod(xp.where(irrm, tseq_b, 1.0), axis=2)
+        idx = xp.where(relm, pos_seq[None, None, :], -1)
+        if xp is np:
+            lastrel = np.maximum.accumulate(idx, axis=2)
+        else:
+            lastrel = xp.cummax(idx, axis=2)
+        gathered = xp.take_along_axis(irrprod, xp.maximum(lastrel, 0), axis=2)
+        ip = xp.where(lastrel >= 0, gathered, 1.0)
+        unique = relprod[:, :, ends]  # [K, B, L]
+        changes = unique * ip[:, :, ends]
+        lvl_rel = xp.prod(
+            xp.where(rel_stack[:, None, None, :], fansf[None], 1.0),
+            axis=3,
+        )  # [K, B, n]
+        cp_rel = xp.cumprod(lvl_rel, axis=2)
+        srel_excl = xp.concatenate(
+            [xp.ones((K, B, 1), dtype=xp.float64), cp_rel[:, :, :-1]], axis=2
+        )
+        rel_sp = srel_excl[:, :, real_arr] / srel_excl[:, :, parent_arr]
+        ttf_real = astype(xp, tt[:, real_arr, :], xp.float64)  # [B, L, D]
+        rows = []
+        for k in range(K):
+            foot = _generic_ds_foot(coeff_layout, k, ttf_real, xp, p)
+            cf = changes[k] * foot
+            if ds_out[k]:
+                rmw = xp.maximum(changes[k] - unique[k], 0.0) * foot
+                rows.append((rmw, cf, rmw * rel_sp[k], cf * rel_sp[k], foot))
+            else:
+                z = xp.zeros_like(cf)
+                rows.append((cf, z, cf * rel_sp[k], z, foot))
+        return compute_cycles, total_trips, par, inst_at, tt, st, fans, tuple(rows)
+
+    return core
+
+
+def generic_hierarchical_energy(real_levels, real_parent, K, bt, xp, p, hop=False):
+    """Shape-generic :func:`batch_hierarchical_energy`: the identical
+    level-walk float-operation sequence with energies / word widths /
+    precomputed innermost+MAC terms read from the parameter pack
+    (``lvl_read_e`` / ``lvl_write_e`` / ``wb`` / ``l1_terms`` /
+    ``mac_term`` / ``hop``). ``real_parent`` uses -1 for parentless.
+    Returns ``(energy[B], noc_energy[B] or None, mx)``."""
+    inst_at = bt.inst_at
+    mx = xp.zeros(())
+    e_terms = []
+    noc_terms = [] if hop else None
+    for k in range(K):
+        wbk = p["wb"][k]
+        r = bt.rows[k]
+        for pos, i in enumerate(real_levels):
+            t = r.fills[:, pos] * inst_at[:, i] * wbk
+            mx = xp.maximum(mx, xp.max(t))
+            e_terms.append(t * p["lvl_write_e"][i])
+            t = r.drains[:, pos] * inst_at[:, i] * wbk
+            mx = xp.maximum(mx, xp.max(t))
+            e_terms.append(t * p["lvl_read_e"][i])
+            parent_idx = real_parent[i]
+            if parent_idx >= 0:
+                n_parent = inst_at[:, parent_idx]
+                t = r.parent_reads[:, pos] * n_parent * wbk
+                mx = xp.maximum(mx, xp.max(t))
+                e_terms.append(t * p["lvl_read_e"][parent_idx])
+                t = r.parent_writes[:, pos] * n_parent * wbk
+                mx = xp.maximum(mx, xp.max(t))
+                e_terms.append(t * p["lvl_write_e"][parent_idx])
+                if noc_terms is not None:
+                    t = (r.fills[:, pos] + r.drains[:, pos]) * inst_at[:, i] * wbk
+                    mx = xp.maximum(mx, xp.max(t))
+                    noc_terms.append(t * p["hop"])
+        e_terms.append(p["l1_terms"][k])
+    e_terms.append(p["mac_term"])
+    energy = ordered_sum(xp, xp.zeros_like(bt.compute_cycles), e_terms)
+    noc_energy = (
+        ordered_sum(xp, xp.zeros_like(energy), noc_terms)
+        if noc_terms is not None
+        else None
+    )
+    return energy, noc_energy, mx
+
+
+def _generic_scalarize(metric: str, xp):
+    """Shape-generic ``_metric_scalarize``: frequency comes from the
+    parameter pack (same exact-divisor barrier, so decisions stay
+    bit-identical to the host filter)."""
+    if metric == "latency":
+        return lambda cyc, en, p: cyc
+    if metric == "energy":
+        return lambda cyc, en, p: en
+    if metric == "edp":
+        return lambda cyc, en, p: (en * 1e-12) * (
+            cyc / exact_divisor(xp, p["freq"])
+        )
+    return lambda cyc, en, p: cyc * 0.0
+
+
+def _make_generic_fused_core(skey, terms, metric: str, xp):
+    """Shape-generic fused admit+score core: ``core(tt, st, perm,
+    incumbent, p) -> (admit, lb_guard, latency, energy, util,
+    score_guard, extras)``.
+
+    The calibration scale enters as the ``p['calib_scale']`` parameter
+    (1.0 when uncalibrated -- ``x * 1.0`` is bit-exact, so the
+    uncalibrated program matches the unscaled per-context path and ONE
+    program serves every calibration value). Extras additionally carry
+    the raw admission-bound arrays (``lb_cycles`` / ``lb_energy``, already
+    calibrated) and the scalarized ``metric_score`` so device-resident
+    loops can replay admission and selection host-side without a second
+    dispatch.
+    """
+    lb_core = _make_generic_lb_core(skey, xp)
+    traffic_core = _make_generic_batch_core(skey, xp)
+    scalarize = _generic_scalarize(metric, xp)
+
+    def core(tt, st, perm, incumbent, p):
+        lb_cyc, lb_en, lb_mx = lb_core(tt, st, perm, p)
+        lb_cyc = lb_cyc * p["calib_scale"]
+        admit = scalarize(lb_cyc, lb_en, p) < incumbent
+        out = traffic_core(tt, st, perm, p)
+        bt = BatchTraffic(
+            compute_cycles=out[0],
+            total_trips=out[1],
+            par=out[2],
+            inst_at=out[3],
+            tt=out[4],
+            st=out[5],
+            fans=out[6],
+            rows=tuple(DsTrafficBatch(*r) for r in out[7]),
+        )
+        latency, energy, util, score_mx, extras = terms(bt, xp, p)
+        latency = latency * p["calib_scale"]
+        extras = dict(extras)
+        extras["lb_cycles"] = lb_cyc
+        extras["lb_energy"] = lb_en
+        extras["metric_score"] = scalarize(latency, energy, p)
+        return admit, lb_mx, latency, energy, util, score_mx, extras
+
+    return core
+
+
+def to_host(arrays) -> List[np.ndarray]:
+    """Device tensors as numpy arrays, in one device-to-host copy per
+    dtype (each copy synchronises the host with the device once)."""
+    import torch
+
+    arrays = list(arrays)
+    out: List[Optional[np.ndarray]] = [None] * len(arrays)
+    groups: Dict[object, List[int]] = {}
+    for i, a in enumerate(arrays):
+        groups.setdefault(a.dtype, []).append(i)
+    for idx in groups.values():
+        flat = torch.cat([arrays[i].reshape(-1) for i in idx]).cpu().numpy()
+        off = 0
+        for i in idx:
+            n = arrays[i].numel()
+            out[i] = flat[off: off + n].reshape(tuple(arrays[i].shape))
+            off += n
+    return out
+
+
+def _fused_to_host(out, B: int):
+    """One fused dispatch's device outputs as the runner protocol's host
+    tuple ``(admit, lb_guard, latency, energy, util, score_guard,
+    extras)``, sliced to the unpadded batch ``B``."""
+    admit, lb_mx, latency, energy, util, score_mx, extras = out
+    keys = list(extras)
+    host = to_host([admit, lb_mx, latency, energy, util, score_mx]
+                   + [extras[k] for k in keys])
+    return (
+        host[0][:B],
+        float(host[1]),
+        host[2][:B],
+        host[3][:B],
+        host[4][:B],
+        float(host[5]),
+        {k: v[:B] for k, v in zip(keys, host[6:])},
+    )
+
+
+class GenericFusedRunner:
+    """Dispatch handle for one (context, model, metric) over a SHARED
+    shape-generic program: the program lives in the process-wide
+    ``_GENERIC_PROGRAMS`` cache keyed by (shape class, model structure,
+    metric, device); this object carries the context's parameter pack
+    (uploaded to the device once, lazily) and implements the same
+    ``(sb, incumbent) -> 7-tuple or None`` protocol as
+    ``build_fused_runner``'s closures, plus the device-resident extensions
+    the search loops use (:meth:`dispatch_device`, :meth:`is_traced`)."""
+
+    supports_precompute = True
+
+    def __init__(self, ctx, xp, core, params, pkey) -> None:
+        self._ctx = ctx
+        self._xp = xp
+        self._core = core
+        self._params = params
+        self._pkey = pkey
+        self._dev_params = None
+
+    def is_traced(self, padded_batch: int) -> bool:
+        """Whether the shared program has already run at this pow2 bucket
+        (by ANY context in the shape class) -- lets warmup skip
+        re-dispatching buckets the class already covers."""
+        return (self._pkey, int(padded_batch)) in _TRACE_COMBOS
+
+    def _dispatch(self, sb: StackedBatch, incumbent: float):
+        ctx = self._ctx
+        ctx._ensure_torch(self._xp.device)  # the choke point, every dispatch
+        tt, st, perm, B = ctx._torch_device_padded(sb, self._xp)
+        if self._dev_params is None:
+            self._dev_params = {k: self._xp.asarray(v) for k, v in self._params.items()}
+        ctx.device_dispatches += 1
+        _record_trace(self._pkey, int(tt.shape[0]))
+        return self._core(tt, st, perm, incumbent, self._dev_params), B
+
+    def dispatch_device(self, sb: StackedBatch):
+        """One fused dispatch, results left ON THE DEVICE: returns the raw
+        (padded -- callers slice to the batch size) output tuple, or None
+        on failure. Device-resident loops use this to fetch only small
+        scalars per generation and defer full materialization to the
+        K-generation sync."""
+        ctx = self._ctx
+        if ctx._torch_failed:
+            return None
+        try:
+            return self._dispatch(sb, math.inf)[0]
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            ctx._backend_failure("the generic fused program")
+            return None
+
+    def __call__(self, sb: StackedBatch, incumbent: float):
+        ctx = self._ctx
+        if ctx._torch_failed:
+            return None
+        try:
+            out, B = self._dispatch(sb, float(incumbent))
+            return _fused_to_host(out, B)
+        except BACKEND_ERRORS:  # the backend boundary: degrade, logged
+            ctx._backend_failure("the generic fused program")
+            return None
+
+
+# ---------------------------------------------------------------------- #
 # Two-tier context cache. The fast tier is identity-keyed: entries pin
 # strong references to the exact (problem, arch) objects they were looked
 # up with, so an id() key can never alias a dead object while resident.
@@ -1175,7 +2081,8 @@ class AnalysisContext:
 # equal cost-relevant content produce bit-identical analyses), so the many
 # content-equal instances a figure sweep builds -- dnn_layers() re-invoked
 # per benchmark, repeated accelerator constructors -- all alias ONE
-# context, sharing its numpy cores and footprint memos. Digests are memoized
+# context, sharing its numpy cores, device programs, fused runners and
+# footprint memos instead of re-tracing per instance. Digests are memoized
 # on the objects themselves (falling back to recomputation for immutable
 # types).
 # ---------------------------------------------------------------------- #
@@ -1267,7 +2174,9 @@ def batch_hierarchical_energy(
     identical sequence of float operations here; maestro additionally
     accumulates the NoC delivery term, enabled via ``hop_pj_byte``).
 
-    ``xp`` is the array stack (numpy).
+    ``xp`` selects the array stack: numpy for host-side scoring, the torch namespace
+    when the walk runs inside the fused single-dispatch device core (the
+    per-element float-operation order is identical either way).
 
     Returns ``(energy[B], noc_energy[B] or None, mac_term, mx)`` where
     ``energy`` already includes the innermost-operand and MAC terms (the
@@ -1286,8 +2195,9 @@ def batch_hierarchical_energy(
     # The access-count products (t) are integer-valued and exact, but the
     # per-byte energies are fractional: each ``t * energy`` product must be
     # ROUNDED before it joins the accumulator, exactly as numpy does.
-    # Addends are collected and summed through :func:`ordered_sum` in the
-    # scalar path's order.
+    # Addends are collected and summed through :func:`ordered_sum`, one
+    # eager add at a time, so no ``acc + t * e`` is ever contracted into an
+    # FMA (one rounding instead of two) on the device path.
     e_terms = []
     noc_terms = [] if hop_pj_byte is not None else None
     for k, ds in enumerate(problem.data_spaces):

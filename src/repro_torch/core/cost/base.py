@@ -62,14 +62,18 @@ class CostModel(abc.ABC):
     multiplies every latency prediction by that scale as the FINAL
     operation of EVERY path -- scalar (``evaluate``,
     ``evaluate_signature``, the ``lower_bound*`` family) and vectorized
-    (``lower_bound_batch_fn``, ``batch_cost_terms_fn``,
-    ``evaluate_signature_batch``) alike. A uniform positive final
+    (``lower_bound_batch_fn``, ``batch_admit_core_builder``,
+    ``batch_cost_terms_fn``, ``evaluate_signature_batch``,
+    ``batch_cost_terms_generic``) alike. A uniform positive final
     multiply keeps the admission invariant (bound <= evaluate, since
     IEEE multiply by the same positive factor is monotone) and never
     changes which mapping is argmin; and because the batch paths apply
     the IDENTICAL final ``latency * scale`` per element, the calibrated
     batch results stay bit-identical to the calibrated scalar path
-    (same two float64 operands, same single rounding). ``store_key_parts()`` includes
+    (same two float64 operands, same single rounding). The shape-generic
+    path takes the scale as a parameter (1.0 when uncalibrated --
+    ``x * 1.0`` is IEEE-exact), so one program serves every
+    calibration value. ``store_key_parts()`` includes
     ``calibration_key_parts()``, so calibrated and raw results never
     alias in a ResultStore.
     """
@@ -172,7 +176,7 @@ class CostModel(abc.ABC):
 
     def lower_bound_batch_fn(self, problem: Problem, arch: Architecture):
         """Optional vectorized admission bound: a closure
-        ``(sigs, stacked=...) -> Optional[(cycles[B],
+        ``(sigs, backend=..., stacked=..., device=...) -> Optional[(cycles[B],
         energy_pj[B]))`` producing, for every signature of a stacked batch,
         exactly the values ``lower_bound_fn`` produces per candidate (the
         engine admits a whole miss-batch with one masked array program).
@@ -196,15 +200,20 @@ class CostModel(abc.ABC):
         problem: Problem,
         arch: Architecture,
         sigs,
+        backend: str = "numpy",
         stacked=None,
         select=None,
+        device=None,
     ) -> Optional[List[Cost]]:
         """Vectorized fast path: the Costs ``evaluate_signature`` (or
         ``evaluate``) would produce for every signature in ``sigs``,
         computed as one array program over the stacked batch.
 
+        ``backend`` selects the array stack (``"numpy"`` or ``"torch"``,
+        the latter on ``device``).
         ``stacked``/``select`` let the evaluation engine share the
-        admission stage's already-stacked ``StackedBatch`` and score only the admitted row indices; ``sigs``
+        admission stage's already-stacked (device-resident, on torch)
+        ``StackedBatch`` and score only the admitted row indices; ``sigs``
         must then be the corresponding subset, in ``select`` order.
         Return None when unsupported OR when exactness cannot be
         guaranteed for this batch (values beyond the float64-exact integer
@@ -213,17 +222,51 @@ class CostModel(abc.ABC):
         they return a result."""
         return None
 
+    def batch_admit_core_builder(self, problem: Problem, arch: Architecture):
+        """Optional array-generic admission-bound core builder for the fused
+        single-dispatch pipeline: an ``xp -> core`` callable
+        where ``core(tt, st, perm) -> (cycles[B], energy_pj[B], guard)``
+        reproduces ``lower_bound_fn`` per row bit-identically (``guard``
+        is the running max of every guarded integer-valued quantity; the
+        host rejects the dispatch at BATCH_EXACT_LIMIT). The hierarchical
+        models return ``AnalysisContext._make_lb_core``; None disables the
+        fused path for this model."""
+        return None
+
     def batch_cost_terms_fn(self, problem: Problem, arch: Architecture):
-        """Optional array-program cost terms: a closure
+        """Optional array-program cost terms: an array-generic closure
         ``terms(bt: BatchTraffic, xp) -> (latency[B], energy_pj[B],
         util[B], guard, extras)`` accumulating this model's latency/energy
-        over the stacked traffic with ``xp`` ops only (the per-row
-        float-op order must equal ``evaluate_signature``'s). ``guard`` is an xp
+        over the stacked traffic with ``xp`` ops only (numpy host-side,
+        the torch namespace inside the fused device core -- the per-row
+        float-op order must equal ``evaluate_signature``'s; see
+        ``analysis.exact_divisor`` for host constants divided by). ``guard`` is an xp
         scalar (max of guarded integer-valued products, checked host-side
         against BATCH_EXACT_LIMIT); ``extras`` is a str->array[B] dict
         carrying whatever :meth:`costs_from_batch` needs to rebuild
-        breakdown dicts. None when unsupported (disables the shared numpy
-        scoring program)."""
+        breakdown dicts. None when unsupported (disables both the shared
+        numpy scoring program and the fused device path)."""
+        return None
+
+    def batch_cost_terms_generic(self, problem: Problem, arch: Architecture):
+        """Optional SHAPE-GENERIC cost terms for the process-wide program
+        cache: ``(model_struct_key, model_params, terms)`` or None.
+
+        ``model_struct_key`` is a hashable tuple of every STRUCTURAL
+        property the terms program branches on (it joins the
+        ``AnalysisContext.shape_class_key()`` in the program key);
+        ``model_params`` is a dict of numpy arrays/scalars merged into the
+        context's ``shape_params()`` pack and passed, as device tensors,
+        as an argument; ``terms(bt, xp, p)`` mirrors
+        :meth:`batch_cost_terms_fn`'s closure but reads every VALUE from
+        ``p`` instead of Python closure constants, so one program serves
+        every (problem, arch) pair with equal keys (the closure of the
+        FIRST such pair is the one kept; it must not capture values that
+        can differ within the key class). ``model_params`` must include
+        ``calib_scale`` (1.0 when uncalibrated) -- the generic fused core
+        applies it as the final latency multiply. None when unsupported;
+        the engine then falls back to the per-context
+        :meth:`batch_cost_terms_fn` pipeline."""
         return None
 
     def costs_from_batch(
@@ -238,7 +281,8 @@ class CostModel(abc.ABC):
     ) -> List[Cost]:
         """Materialize Cost objects (scalar-path breakdown layout
         included) from :meth:`batch_cost_terms_fn` output arrays --
-        ``indices`` restricts materialization to the given rows."""
+        ``indices`` restricts materialization to the given rows (the
+        engine's fused path builds Costs only for ADMITTED candidates)."""
         raise NotImplementedError
 
     def store_key_parts(self) -> "tuple":

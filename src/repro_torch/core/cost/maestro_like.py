@@ -31,6 +31,7 @@ from repro_torch.core.cost.analysis import (
     batch_hierarchical_energy,
     boundary_bytes_per_instance,
     exact_divisor,
+    generic_hierarchical_energy,
     get_context,
     hierarchical_lower_bound,
 )
@@ -90,13 +91,30 @@ class MaestroLikeModel(CostModel):
 
         return calibrated
 
+    def batch_admit_core_builder(self, problem: Problem, arch: Architecture):
+        builder = get_context(problem, arch)._make_lb_core
+        if self.calibration is None:
+            return builder
+        s = float(self.calibration.scale)
+
+        def calibrated_builder(xp):
+            core = builder(xp)
+
+            def calibrated_core(tt, st, perm):
+                cyc, en, mx = core(tt, st, perm)
+                return cyc * s, en, mx
+
+            return calibrated_core
+
+        return calibrated_builder
+
     def store_key_parts(self):
         return (self.name, self.etab) + self.calibration_key_parts()
 
     def batch_cost_terms_fn(self, problem: Problem, arch: Architecture):
         """Array-program twin of ``evaluate_signature``'s latency/energy
         accumulation (double-buffered schedule + startup + NoC delivery
-        term): same float-op order per row, in numpy. A
+        term): same float-op order per row with numpy or the torch namespace. A
         calibration scale is applied as the final latency multiply,
         exactly as ``apply_calibration`` does on the scalar path. See
         ``CostModel.batch_cost_terms_fn``."""
@@ -161,6 +179,91 @@ class MaestroLikeModel(CostModel):
             return latency, energy, util, mx, extras
 
         return terms
+
+    def batch_cost_terms_generic(self, problem: Problem, arch: Architecture):
+        """Shape-generic twin of :meth:`batch_cost_terms_fn` (see
+        ``CostModel.batch_cost_terms_generic``): structure = which real
+        levels carry a finite-bandwidth fill/startup term; bandwidths,
+        energies, the NoC hop cost and the calibration scale ride in the
+        parameter pack."""
+        if not self.conformable(problem):
+            return None
+        ctx = get_context(problem, arch)
+        clusters = arch.clusters
+        real_levels = list(ctx.real_levels)
+        real_parent = [-1 if p is None else p for p in ctx.real_parent]
+        K = len(problem.data_spaces)
+        fill_levels = tuple(
+            (pos, i)
+            for pos, i in enumerate(real_levels)
+            if not (i == 0 or math.isinf(clusters[i].fill_bandwidth))
+        )
+        leaf = clusters[-1]
+        cal = self.calibration
+        model_key = (self.name, fill_levels)
+        model_params = {
+            "ms_bw": np.asarray(
+                [clusters[i].fill_bandwidth for _pos, i in fill_levels],
+                dtype=np.float64,
+            ),
+            "num_pes": np.float64(ctx.num_pes),
+            "lvl_read_e": np.asarray(
+                [c.read_energy for c in clusters], dtype=np.float64
+            ),
+            "lvl_write_e": np.asarray(
+                [c.write_energy for c in clusters], dtype=np.float64
+            ),
+            "l1_terms": np.asarray(
+                [
+                    ctx.l1_reads[ds.name] * ds.word_bytes * leaf.read_energy
+                    for ds in problem.data_spaces
+                ],
+                dtype=np.float64,
+            ),
+            "mac_term": np.float64(problem.macs * leaf.mac_energy),
+            "hop": np.float64(self.etab.noc_hop_pj_byte),
+            "calib_scale": np.float64(cal.scale) if cal is not None else np.float64(1.0),
+        }
+
+        def terms(bt, xp, p):
+            cc = bt.compute_cycles
+            mx = xp.maximum(
+                xp.maximum(xp.max(cc), xp.max(bt.total_trips)), xp.max(bt.par)
+            )
+            latency = cc
+            startup = xp.zeros_like(cc)
+            extras = {"compute_cycles": cc}
+            for t, (pos, i) in enumerate(fill_levels):
+                total_fill = xp.zeros_like(cc)
+                tile_bytes = xp.zeros_like(cc)
+                for k in range(K):
+                    r = bt.rows[k]
+                    tk = (r.fills[:, pos] + r.drains[:, pos]) * p["wb"][k]
+                    mx = xp.maximum(mx, xp.max(tk))
+                    total_fill = total_fill + tk
+                    tile_bytes = tile_bytes + r.foot[:, pos] * p["wb"][k]
+                mx = xp.maximum(mx, xp.max(tile_bytes))
+                valid = total_fill > 0
+                bw = exact_divisor(xp, p["ms_bw"][t])
+                fill_cycles = total_fill * p["freq"] / bw
+                startup = startup + xp.where(
+                    valid, tile_bytes * p["freq"] / bw, 0.0
+                )
+                extras[f"fill_cycles::{i}"] = fill_cycles
+                extras[f"fill_valid::{i}"] = valid
+                latency = xp.where(valid, xp.maximum(latency, fill_cycles), latency)
+            latency = latency + startup
+            energy, noc_energy, e_mx = generic_hierarchical_energy(
+                real_levels, real_parent, K, bt, xp, p, hop=True
+            )
+            mx = xp.maximum(mx, e_mx)
+            energy = energy + noc_energy
+            extras["startup_cycles"] = startup
+            extras["noc_energy_pj"] = noc_energy
+            util = bt.par / exact_divisor(xp, p["num_pes"])
+            return latency, energy, util, mx, extras
+
+        return model_key, model_params, terms
 
     def costs_from_batch(
         self, problem, arch, latency, energy, util, extras, indices=None
@@ -286,14 +389,17 @@ class MaestroLikeModel(CostModel):
         problem: Problem,
         arch: Architecture,
         sigs,
+        backend: str = "numpy",
         stacked=None,
         select=None,
+        device=None,
     ):
         """Vectorized ``evaluate_signature`` over a whole miss-batch (same
         float-operation order per candidate; bit-identical results, with a
         BATCH_EXACT_LIMIT guard that falls back to the scalar path). The
-        latency/energy accumulation is ``batch_cost_terms_fn``, run with
-        numpy over the admitted subset. ``stacked``/``select``
+        latency/energy accumulation is the SAME array program the fused
+        single-dispatch device path runs (``batch_cost_terms_fn``), run
+        here with numpy over the admitted subset. ``stacked``/``select``
         reuse the engine's admission-stage StackedBatch (see
         ``CostModel.evaluate_signature_batch``)."""
         if not self.conformable(problem):
@@ -303,7 +409,7 @@ class MaestroLikeModel(CostModel):
             )
         ctx = get_context(problem, arch)
         bt = ctx.signature_traffic_batch(
-            sigs, stacked=stacked, select=select
+            sigs, backend=backend, stacked=stacked, select=select, device=device
         )
         if bt is None:
             return None

@@ -30,8 +30,10 @@ from repro_torch.core.architecture import Architecture, TPU_V5E
 from repro_torch.core.cost.analysis import (
     BATCH_EXACT_LIMIT,
     analyze,
+    astype,
     batch_projection_footprint,
     boundary_bytes_per_instance,
+    device_scalar,
     exact_divisor,
     get_context,
 )
@@ -160,10 +162,11 @@ class TPURooflineModel(CostModel):
         energy = problem.macs * arch.clusters[-1].mac_energy
         return self._calibrate_bound((cycles, energy))
 
-    def _admit_core(self, problem: Problem, arch: Architecture):
-        """Array form of the roofline admission bound (perfect chip
-        scaling + compulsory VMEM traffic): ``core(tt, st, perm)``
-        reproduces ``lower_bound`` per row bit-for-bit with numpy. A
+    def batch_admit_core_builder(self, problem: Problem, arch: Architecture):
+        """Array-generic form of the roofline admission bound (perfect chip
+        scaling + compulsory VMEM traffic): an ``xp -> core`` builder whose
+        ``core(tt, st, perm)`` reproduces ``lower_bound`` per row
+        bit-for-bit with numpy or inside the fused device program. A
         calibration scale is applied to the cycles as the same final
         multiply the scalar ``_calibrate_bound`` performs."""
         cal_s = (
@@ -183,35 +186,40 @@ class TPURooflineModel(CostModel):
         energy_const = problem.macs * arch.clusters[-1].mac_energy
         axes_info = ctx.ds_projection_axes
 
-        def core(tt, st, perm):
-            B = tt.shape[0]
-            mx = np.zeros(())
-            memory_s = np.zeros(B, dtype=np.float64)
-            if vmem_real:
-                ttf = np.maximum(tt[:, vmem_level, :], 1).astype(np.float64)
-                total = np.zeros(B, dtype=np.float64)
-                for wb, axes, _rel in axes_info:
-                    t = batch_projection_footprint(axes, ttf) * wb
-                    mx = np.maximum(mx, np.max(t))
-                    total = total + t
-                memory_s = total / exact_divisor(np, hbm_bw)
-            cycles = np.maximum(compute_s, memory_s) * freq
-            if cal_s is not None:
-                cycles = cycles * cal_s
-            return cycles, np.full(B, energy_const, dtype=np.float64), mx
+        def build(xp):
+            def core(tt, st, perm):
+                B = tt.shape[0]
+                mx = xp.zeros(())
+                memory_s = xp.zeros(B, dtype=xp.float64)
+                if vmem_real:
+                    ttf = astype(xp, xp.maximum(tt[:, vmem_level, :], 1), xp.float64)
+                    total = xp.zeros(B, dtype=xp.float64)
+                    for wb, axes, _rel in axes_info:
+                        t = batch_projection_footprint(axes, ttf, xp) * wb
+                        mx = xp.maximum(mx, xp.max(t))
+                        total = total + t
+                    memory_s = total / exact_divisor(xp, hbm_bw)
+                cycles = xp.maximum(compute_s, memory_s) * freq
+                if cal_s is not None:
+                    cycles = cycles * cal_s
+                return cycles, xp.full(B, energy_const, dtype=xp.float64), mx
 
-        return core
+            return core
+
+        return build
 
     def lower_bound_batch_fn(self, problem: Problem, arch: Architecture):
         """Vectorized ``lower_bound``: one array program reproduces the
         scalar bound (perfect chip scaling + compulsory VMEM traffic) for
         a whole stacked batch, bit-identically -- or returns None beyond
         the float64-exact range so the engine falls back per candidate.
-        (The admit core already carries the calibration multiply.)"""
+        Runs the same core the fused device path runs, with numpy (the
+        admit core already carries the calibration multiply), on either
+        engine backend, as the reference does."""
         ctx = get_context(problem, arch)
-        core = self._admit_core(problem, arch)
+        core = self.batch_admit_core_builder(problem, arch)(np)
 
-        def lb_batch(sigs=None, stacked=None):
+        def lb_batch(sigs=None, backend: str = "numpy", stacked=None, device=None):
             sb = stacked
             if sb is None:
                 if not sigs:
@@ -267,14 +275,16 @@ class TPURooflineModel(CostModel):
             # exact-int parallelism bit for bit
             mx = xp.maximum(xp.max(bt.total_trips), xp.max(bt.par))
 
-            fansf = bt.fans.astype(xp.float64)
+            fansf = astype(xp, bt.fans, xp.float64)
             lvl_par = xp.prod(fansf, axis=2)  # [B, n_levels]
             used_chips = xp.ones(B)
             for i in mesh_levels:
                 if i > 0:
                     used_chips = used_chips * lvl_par[:, i - 1]
             used_chips = xp.maximum(1.0, xp.minimum(float(chips), used_chips))
-            flops_per_chip = 2.0 * problem.macs / used_chips
+            # a device scalar over a tensor: torch's ``float / tensor`` is
+            # ``reciprocal(tensor) * float``, not IEEE division
+            flops_per_chip = device_scalar(xp, 2.0 * problem.macs) / used_chips
             compute_s = flops_per_chip / exact_divisor(xp, peak)
 
             hbm_bytes = xp.zeros(B)
@@ -295,11 +305,11 @@ class TPURooflineModel(CostModel):
                 n_arr = lvl_par[:, lvl]
                 has_split = n_arr > 1
                 split_red = (
-                    xp.any(f[:, red_idx] > 1, axis=1)
+                    xp.any(f[:, xp.asarray(red_idx)] > 1, axis=1)
                     if red_idx.size
                     else xp.zeros(B, dtype=bool)
                 )
-                stf = bt.st[:, lvl, :].astype(xp.float64)
+                stf = astype(xp, bt.st[:, lvl, :], xp.float64)
                 for k, (wb, axes, rel_idx) in enumerate(axes_info):
                     shard = xp.ones(B)
                     for ax in axes:
@@ -313,7 +323,8 @@ class TPURooflineModel(CostModel):
                         term = 2.0 * (n_arr - 1.0) / n_arr * shard * wb
                     else:
                         split_rel = (
-                            xp.any(f[:, np.asarray(rel_idx, dtype=np.int64)] > 1, axis=1)
+                            xp.any(f[:, xp.asarray(np.asarray(rel_idx, dtype=np.int64))] > 1,
+                                   axis=1)
                             if rel_idx
                             else xp.zeros(B, dtype=bool)
                         )
@@ -380,8 +391,10 @@ class TPURooflineModel(CostModel):
         problem: Problem,
         arch: Architecture,
         sigs,
+        backend: str = "numpy",
         stacked=None,
         select=None,
+        device=None,
     ):
         """Vectorized ``evaluate`` over a miss-batch of signatures:
         ``batch_cost_terms_fn``, run with numpy over the admitted
@@ -390,7 +403,9 @@ class TPURooflineModel(CostModel):
         path). ``stacked``/``select`` reuse the engine's admission-stage
         StackedBatch (see ``CostModel.evaluate_signature_batch``)."""
         ctx = get_context(problem, arch)
-        bt = ctx.signature_traffic_batch(sigs, stacked=stacked, select=select)
+        bt = ctx.signature_traffic_batch(
+            sigs, backend=backend, stacked=stacked, select=select, device=device
+        )
         if bt is None:
             return None
         terms = self.batch_cost_terms_fn(problem, arch)

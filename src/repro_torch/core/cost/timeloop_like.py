@@ -23,6 +23,7 @@ from repro_torch.core.cost.analysis import (
     batch_hierarchical_energy,
     boundary_bytes_per_instance,
     exact_divisor,
+    generic_hierarchical_energy,
     get_context,
     hierarchical_lower_bound,
 )
@@ -82,13 +83,31 @@ class TimeloopLikeModel(CostModel):
 
         return calibrated
 
+    def batch_admit_core_builder(self, problem: Problem, arch: Architecture):
+        builder = get_context(problem, arch)._make_lb_core
+        if self.calibration is None:
+            return builder
+        s = float(self.calibration.scale)
+
+        def calibrated_builder(xp):
+            core = builder(xp)
+
+            def calibrated_core(tt, st, perm):
+                cyc, en, mx = core(tt, st, perm)
+                return cyc * s, en, mx
+
+            return calibrated_core
+
+        return calibrated_builder
+
     def store_key_parts(self):
         return (self.name, self.unit_op) + self.calibration_key_parts()
 
     def batch_cost_terms_fn(self, problem: Problem, arch: Architecture):
         """Array-program twin of ``evaluate_signature``'s latency/energy
         accumulation: same float-operation order per row, runnable with
-        numpy. A calibration scale is applied as the final latency
+        numpy (host scoring) or the torch namespace (inside the fused device
+        core). A calibration scale is applied as the final latency
         multiply, exactly as ``apply_calibration`` does on the scalar
         path. See ``CostModel.batch_cost_terms_fn``."""
         if not self.conformable(problem):
@@ -142,6 +161,80 @@ class TimeloopLikeModel(CostModel):
             return latency, energy, util, mx, extras
 
         return terms
+
+    def batch_cost_terms_generic(self, problem: Problem, arch: Architecture):
+        """Shape-generic twin of :meth:`batch_cost_terms_fn` (see
+        ``CostModel.batch_cost_terms_generic``): structure = which real
+        levels carry a finite-bandwidth fill term; every value (bandwidths,
+        energies, word widths, calibration) rides in the parameter pack."""
+        if not self.conformable(problem):
+            return None
+        ctx = get_context(problem, arch)
+        clusters = arch.clusters
+        real_levels = list(ctx.real_levels)
+        real_parent = [-1 if p is None else p for p in ctx.real_parent]
+        K = len(problem.data_spaces)
+        bw_levels = tuple(
+            (pos, i)
+            for pos, i in enumerate(real_levels)
+            if not (i == 0 or math.isinf(clusters[i].fill_bandwidth))
+        )
+        leaf = clusters[-1]
+        cal = self.calibration
+        model_key = (self.name, self.unit_op, bw_levels)
+        model_params = {
+            "tl_bw": np.asarray(
+                [clusters[i].fill_bandwidth for _pos, i in bw_levels],
+                dtype=np.float64,
+            ),
+            "num_pes": np.float64(ctx.num_pes),
+            "lvl_read_e": np.asarray(
+                [c.read_energy for c in clusters], dtype=np.float64
+            ),
+            "lvl_write_e": np.asarray(
+                [c.write_energy for c in clusters], dtype=np.float64
+            ),
+            # innermost-operand terms precomputed host-side with Python
+            # semantics (int products are exact; one final float multiply)
+            "l1_terms": np.asarray(
+                [
+                    ctx.l1_reads[ds.name] * ds.word_bytes * leaf.read_energy
+                    for ds in problem.data_spaces
+                ],
+                dtype=np.float64,
+            ),
+            "mac_term": np.float64(problem.macs * leaf.mac_energy),
+            "calib_scale": np.float64(cal.scale) if cal is not None else np.float64(1.0),
+        }
+
+        def terms(bt, xp, p):
+            cc = bt.compute_cycles
+            mx = xp.maximum(
+                xp.maximum(xp.max(cc), xp.max(bt.total_trips)), xp.max(bt.par)
+            )
+            worst = xp.zeros_like(cc)
+            extras = {"compute_cycles": cc}
+            for t, (pos, i) in enumerate(bw_levels):
+                bts = xp.zeros_like(cc)
+                for k in range(K):
+                    tk = (
+                        bt.rows[k].fills[:, pos] + bt.rows[k].drains[:, pos]
+                    ) * p["wb"][k]
+                    mx = xp.maximum(mx, xp.max(tk))
+                    bts = bts + tk
+                cyc = bts * p["freq"] / exact_divisor(xp, p["tl_bw"][t])
+                extras[f"bw_cycles::{i}"] = cyc
+                extras[f"bw_bytes::{i}"] = bts
+                worst = xp.maximum(worst, xp.where(bts > 0, cyc, 0.0))
+            latency = xp.maximum(cc, worst)
+            energy, _noc, e_mx = generic_hierarchical_energy(
+                real_levels, real_parent, K, bt, xp, p
+            )
+            mx = xp.maximum(mx, e_mx)
+            util = bt.par / exact_divisor(xp, p["num_pes"])
+            return latency, energy, util, mx, extras
+
+        return model_key, model_params, terms
 
     def costs_from_batch(
         self, problem, arch, latency, energy, util, extras, indices=None
@@ -251,15 +344,18 @@ class TimeloopLikeModel(CostModel):
         problem: Problem,
         arch: Architecture,
         sigs,
+        backend: str = "numpy",
         stacked=None,
         select=None,
+        device=None,
     ):
         """Vectorized ``evaluate_signature`` over a whole miss-batch: same
         float-operation order per candidate, so results are bit-identical
         whenever every integer-valued product stays float64-exact (checked
         against BATCH_EXACT_LIMIT; returns None otherwise). The latency/
-        energy accumulation is ``batch_cost_terms_fn``, run with numpy over
-        the admitted subset. ``stacked``/``select`` reuse
+        energy accumulation is the SAME array program the fused
+        single-dispatch device path runs (``batch_cost_terms_fn``), run here
+        with numpy over the admitted subset. ``stacked``/``select`` reuse
         the engine's admission-stage StackedBatch (see
         ``CostModel.evaluate_signature_batch``)."""
         if not self.conformable(problem):
@@ -269,7 +365,7 @@ class TimeloopLikeModel(CostModel):
             )
         ctx = get_context(problem, arch)
         bt = ctx.signature_traffic_batch(
-            sigs, stacked=stacked, select=select
+            sigs, backend=backend, stacked=stacked, select=select, device=device
         )
         if bt is None:
             return None

@@ -44,6 +44,17 @@ class SearchResult:
     # between warm and cold runs -- but the submitted stream is identical,
     # so this total is warm/cold INVARIANT.
     considered: int = 0
+    fused_dispatches: int = 0  # miss-batches served by one device dispatch
+    # engine degraded torch -> numpy mid-search (counted warning; results
+    # unchanged by the backend bit-identity contract)
+    backend_fallbacks: int = 0
+    # (program, pow2 bucket) combinations first dispatched by this search
+    # (0 when the shape-generic process cache already held every program
+    # -- the one-program-per-shape-class property this counter observes)
+    n_traces: int = 0
+    # host<->device sync points of the device-resident search loops (one
+    # per mega-batch precompute / K-generation flush; 0 on host loops)
+    device_syncs: int = 0
     admit_s: float = 0.0  # engine wall-clock in the admission (bound) stage
     score_s: float = 0.0  # engine wall-clock scoring admitted misses
 
@@ -93,6 +104,7 @@ class SearchResult:
             # mapping/cost cannot.
             return {
                 "considered": self.considered,
+                "backend_fallbacks": self.backend_fallbacks,
                 "elapsed_s": 0.0,
                 "evals_per_s": 0.0,
             }
@@ -104,6 +116,10 @@ class SearchResult:
             "pruned": self.pruned,
             "candidates": self.candidates,
             "considered": self.considered,
+            "fused_dispatches": self.fused_dispatches,
+            "backend_fallbacks": self.backend_fallbacks,
+            "n_traces": self.n_traces,
+            "device_syncs": self.device_syncs,
             "elapsed_s": round(self.elapsed_s, 4),
             "evals_per_s": round(self.evals_per_s, 1),
             "admit_s": round(self.admit_s, 4),
@@ -124,14 +140,6 @@ class Mapper(abc.ABC):
     ) -> SearchResult:
         ...
 
-    def batch_hints(self) -> List[int]:
-        """Miss-batch sizes this mapper's searches are likely to dispatch
-        (the reference package pre-traces its jitted engine program at
-        them before a sweep). Purely advisory: an empty list means none.
-        Nothing in the port calls it yet; it is kept for parity with the
-        reference's mappers until the sweep executor is ported."""
-        return []
-
     def _mk_engine(
         self,
         space: MapSpace,
@@ -148,13 +156,21 @@ class Mapper(abc.ABC):
     ) -> "_Tracker":
         return _Tracker(metric, engine)
 
+    def batch_hints(self) -> List[int]:
+        """Miss-batch sizes this mapper's searches are likely to dispatch
+        -- consumed by ``EvaluationEngine.warmup`` (bucketed pre-tracing
+        of the fused torch program) before a sweep's timed searches. Purely
+        advisory: an empty list just skips warmup."""
+        return []
+
 
 class _Tracker:
     """Shared incumbent tracking for all mappers.
 
     The engine's counters are snapshotted at construction and reported as
-    DIFFS, so an engine shared across searches over the same space still
-    yields correct per-search stats. For the classic
+    DIFFS, so a shared engine (``union_opt_sweep`` reuses one engine --
+    memo cache, compiled runners and all -- across every search over the
+    same space) still yields correct per-search stats. For the classic
     one-engine-per-search flow the snapshot is all zeros and nothing
     changes."""
 
@@ -222,6 +238,10 @@ class _Tracker:
             analyzed=delta("evaluated"),
             store_hits=delta("store_hits"),
             considered=delta("considered"),
+            fused_dispatches=delta("fused_dispatches"),
+            backend_fallbacks=delta("backend_fallbacks"),
+            n_traces=delta("n_traces"),
+            device_syncs=delta("device_syncs"),
             admit_s=delta("admit_s", 0.0),
             score_s=delta("score_s", 0.0),
         )

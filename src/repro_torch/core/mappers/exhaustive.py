@@ -22,6 +22,11 @@ from typing import List, Optional
 
 from repro_torch.core.cost.base import CostModel
 from repro_torch.core.cost.engine import EvaluationEngine
+from repro_torch.core.device_loop import (
+    device_loop_enabled,
+    device_precompute,
+    sync_cadence,
+)
 from repro_torch.core.mappers.base import Mapper, SearchResult
 from repro_torch.core.mapspace import MapSpace
 
@@ -63,15 +68,33 @@ class ExhaustiveMapper(Mapper):
         engine = self._mk_engine(space, cost_model, metric, engine)
         tr = self._mk_result(metric, engine)
         if self.vectorized and self.orders == "canonical" and space.constraints is None:
-            for gb in space.enumerate_genome_batches(
+            # device-resident window: buffer up to K enumerated chunks and
+            # score them as ONE fused dispatch; each chunk replays through
+            # the engine with its precomputed rows (admission against the
+            # then-current incumbent), so the argmin and every counter
+            # equal the chunk-at-a-time host loop. The enumeration stream
+            # and chunk boundaries are untouched.
+            window = sync_cadence() if device_loop_enabled(engine) else 1
+            stream = space.enumerate_genome_batches(
                 max_mappings=self.max_mappings, batch_size=self.batch_size
-            ):
-                costs = engine.evaluate_batch(
-                    gb, incumbent=tr.best_metric_value, probe=self.probe
-                )
-                for i, c in enumerate(costs):
-                    if c is not None:
-                        tr.offer_lazy(lambda b=i, g=gb: g.genome(b), c)
+            )
+            while True:
+                batches = list(itertools.islice(stream, window))
+                if not batches:
+                    break
+                pres = device_precompute(engine, batches) if window > 1 else None
+                if pres is None:
+                    pres = [None] * len(batches)
+                for gb, pre in zip(batches, pres):
+                    costs = engine.evaluate_batch(
+                        gb,
+                        incumbent=tr.best_metric_value,
+                        probe=self.probe,
+                        precomputed=pre,
+                    )
+                    for i, c in enumerate(costs):
+                        if c is not None:
+                            tr.offer_lazy(lambda b=i, g=gb: g.genome(b), c)
             return tr.result()
         stream = space.enumerate_genomes(max_mappings=self.max_mappings, orders=self.orders)
         while True:

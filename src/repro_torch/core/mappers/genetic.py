@@ -13,7 +13,7 @@ re-sample) and legality checks run as masked array programs over the
 whole population with a counter-based (Philox) RNG -- one draw sequence
 per generation instead of thousands of per-candidate ``random.Random``
 calls. Generation is all-numpy, so for a fixed seed the search is
-bit-identical across the scalar and numpy engines.
+bit-identical across the scalar, numpy and torch engine backends.
 ``seed_version=1`` preserves the historical per-candidate stream exactly.
 
 Fitness is computed through the evaluation engine: each generation's
@@ -36,6 +36,7 @@ import numpy as np
 from repro_torch.core import genome_batch as gbm
 from repro_torch.core.cost.base import CostModel
 from repro_torch.core.cost.engine import EvaluationEngine
+from repro_torch.core.device_loop import DeviceGAScorer, device_loop_enabled
 from repro_torch.core.mappers.base import Mapper, SearchResult
 from repro_torch.core.mapspace import MapSpace, fast_sample
 
@@ -89,8 +90,28 @@ class GeneticMapper(Mapper):
         P = self.population
         n, D = space.n_levels, len(space.dims)
 
+        # Device-resident scoring: each generation's fitness comes off one
+        # fused dispatch with results left ON DEVICE; the buffered results
+        # replay through the engine (and the tracker, in generation order)
+        # every sync_cadence() generations. Selection reads only the
+        # fitness vector and the GA never consults the tracker mid-loop,
+        # so deferring the offers is observationally equivalent -- best,
+        # trajectory, memo and store contents equal the host loop's.
+        def on_costs(g, cs):
+            for i, c in enumerate(cs):
+                tr.offer_lazy(
+                    lambda b=i, gg=g: gg.genome(b), c, score=c.metric(metric)
+                )
+
+        scorer = DeviceGAScorer(engine, on_costs) if device_loop_enabled(engine) else None
+
         def score_batch(g):
-            """Per-row fitness; every row is offered to the tracker."""
+            """Per-row fitness; offers immediate (host) or deferred
+            (device, replayed in order at the K-generation sync)."""
+            if scorer is not None and scorer.active:
+                f = scorer.score(g)
+                if f is not None:
+                    return f
             cs = engine.evaluate_batch(g)
             out = np.empty(len(g), dtype=np.float64)
             for i, c in enumerate(cs):
@@ -200,6 +221,8 @@ class GeneticMapper(Mapper):
             st = np.concatenate([st[:elite], cst])
             perm = np.concatenate([perm[:elite], cperm])
             fitness = np.concatenate([fitness[:elite], cfit2])
+        if scorer is not None:
+            scorer.flush()  # replay any still-buffered generations
         return tr.result()
 
     # ------------------------------------------------------------------ #

@@ -13,7 +13,7 @@ are batch-evaluated (pool fan-out when the engine has workers).
     chunk, and the engine consumes the dense rows directly (row-hash
     dedup, sliced StackedBatch). Candidates depend only on
     ``(seed, chunk sequence)``; generation never touches the engine
-    backend, so results are bit-identical across the scalar and numpy engines.
+    backend, so results are bit-identical across scalar/numpy/torch.
   * ``1`` -- the historical per-candidate ``random.Random`` stream
     (bit-exact with every pre-batch release for fixed seeds).
 
@@ -29,6 +29,11 @@ from typing import List, Optional
 
 from repro_torch.core.cost.base import CostModel
 from repro_torch.core.cost.engine import EvaluationEngine
+from repro_torch.core.device_loop import (
+    device_loop_enabled,
+    device_precompute,
+    sync_cadence,
+)
 from repro_torch.core.genome_batch import philox_rng, random_genome_batch
 from repro_torch.core.mappers.base import Mapper, SearchResult
 from repro_torch.core.mapspace import MapSpace
@@ -79,30 +84,54 @@ class RandomMapper(Mapper):
         tr = self._mk_result(metric, engine)
         v2 = self.seed_version >= 2
         rng = philox_rng(self.seed) if v2 else random.Random(self.seed)
+        # device-resident window: pre-draw up to K chunks (the sample
+        # stream is generation-independent, so the draws are the exact
+        # chunks the host loop would draw) and score them as ONE fused
+        # device dispatch; each chunk then replays through the engine with
+        # its precomputed rows -- admission against the then-current
+        # incumbent, memo/store and counters identical to the host loop.
+        # A patience stop mid-window discards the unconsumed chunks.
+        window = sync_cadence() if (v2 and device_loop_enabled(engine)) else 1
         stale = 0
         remaining = self.samples
         stop = False
         while remaining > 0 and not stop:
-            k = min(self.batch_size, remaining)
-            remaining -= k
+            sizes = []
+            rem2 = remaining
+            while rem2 > 0 and len(sizes) < window:
+                k = min(self.batch_size, rem2)
+                rem2 -= k
+                sizes.append(k)
+            remaining = rem2
             if v2:
-                batch = random_genome_batch(space, rng, k)
+                batches = [random_genome_batch(space, rng, k) for k in sizes]
             else:
-                batch = [space.random_genome(rng) for _ in range(k)]
-            costs = engine.evaluate_batch(
-                batch, incumbent=tr.best_metric_value, probe=self.probe
-            )
-            for i, c in enumerate(costs):
-                if c is not None and (
-                    tr.offer_lazy(lambda b=i, g=batch: g.genome(b), c)
-                    if v2
-                    else tr.offer(batch[i], c)
-                ):
-                    stale = 0
-                else:
-                    # pruned candidates are provably non-improving
-                    stale += 1
-                    if self.patience and stale >= self.patience:
-                        stop = True
-                        break
+                batches = [
+                    [space.random_genome(rng) for _ in range(k)] for k in sizes
+                ]
+            pres = device_precompute(engine, batches) if window > 1 else None
+            if pres is None:
+                pres = [None] * len(batches)
+            for batch, pre in zip(batches, pres):
+                costs = engine.evaluate_batch(
+                    batch,
+                    incumbent=tr.best_metric_value,
+                    probe=self.probe,
+                    precomputed=pre,
+                )
+                for i, c in enumerate(costs):
+                    if c is not None and (
+                        tr.offer_lazy(lambda b=i, g=batch: g.genome(b), c)
+                        if v2
+                        else tr.offer(batch[i], c)
+                    ):
+                        stale = 0
+                    else:
+                        # pruned candidates are provably non-improving
+                        stale += 1
+                        if self.patience and stale >= self.patience:
+                            stop = True
+                            break
+                if stop:
+                    break
         return tr.result()

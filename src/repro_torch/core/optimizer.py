@@ -17,9 +17,11 @@ maps every kernel's problem through: any of the five mappers of
 :func:`union_opt_sweep` is the MULTI-SEARCH form whole-model and figure
 runs go through: a list of :class:`SweepTask` points shares one
 :class:`~repro_torch.core.cost.engine.EvaluationEngine` per distinct
-(cost model, problem, arch, metric) space -- memo cache and array programs
-included -- plus one optional :class:`ResultStore`, so repeated scoring
-amortizes across the whole sweep instead of per call.
+(cost model, problem, arch, metric) space -- memo cache, array programs
+and fused device runners included -- plus one optional
+:class:`ResultStore` and a bucketed warmup pass on the torch backend, so
+first dispatches and repeated scoring amortize across the whole sweep
+instead of per call.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def union_opt(
     engine_prune: bool = True,
     engine_backend: Optional[str] = "numpy",
     result_store: Optional[ResultStore] = None,
+    engine_device: str = "cuda",
     **mapper_kw,
 ) -> UnionSolution:
     """Run one end-to-end mapping search.
@@ -84,7 +87,18 @@ def union_opt(
     mappers score candidates through (process-pool fan-out, memo-cache
     capacity, lower-bound admission, and the vectorized miss-batch
     backend: "numpy" default, None for the per-candidate scalar path; any
-    other name raises ValueError). ``result_store`` is an optional
+    other name raises ValueError). ``engine_backend="torch"`` runs the
+    SINGLE-DISPATCH fused pipeline on ``engine_device`` ("cuda" by
+    default; "cpu" runs it on the host): one program of float64 tensors
+    per miss-batch covers lower-bound -> admit mask -> traffic -> energy
+    on the device, returning only per-candidate ``(cycles, energy_pj,
+    util)`` scalars (plus small breakdown arrays) to host, with Cost
+    objects materialized for admitted rows only -- costs, decisions, and
+    counters bit-identical to the numpy and scalar paths; the random,
+    exhaustive and genetic mappers then also run their device-resident
+    loops (``repro_torch.core.device_loop``). The program is cached on the
+    (problem, arch) analysis context, so repeated ``union_opt`` calls
+    over the same space reuse it. ``result_store`` is an optional
     persistent cross-search cache shared between calls (see
     ``repro_torch.core.cost.store.ResultStore``; construct it with
     ``max_entries_per_space=`` for LRU-capped tiers): benchmark sweeps
@@ -116,6 +130,7 @@ def union_opt(
         workers=engine_workers,
         backend=engine_backend,
         store=result_store,
+        device=engine_device,
     )
     try:
         res = mp.search(space, cm, metric, engine=engine)
@@ -179,6 +194,8 @@ def union_opt_sweep(
     engine_cache: int = 1 << 16,
     engine_prune: bool = True,
     result_store: Optional[ResultStore] = None,
+    engine_device: str = "cuda",
+    warmup: bool = True,
     workers: int = 0,
     pool: str = "auto",
     group_timeout_s: Optional[float] = None,
@@ -194,8 +211,18 @@ def union_opt_sweep(
     (cost model config, problem content, arch content) -- plus metric and
     backend, and each group shares ONE :class:`EvaluationEngine`: its memo
     cache carries results between that group's searches, so a second
-    search over the same space starts warm. Per-task ``SearchResult``
-    counters stay per-search (the tracker diffs engine snapshots).
+    search over the same space starts warm, and its array programs /
+    fused device runners are built once. Content-equal problems and archs
+    from different constructor calls alias the same analysis context (see
+    ``get_context``), so even cross-group tasks reuse programs where
+    shapes and constants agree. Per-task ``SearchResult`` counters stay
+    per-search (the tracker diffs engine snapshots).
+
+    ``engine_backend="torch"`` runs every group's engine on
+    ``engine_device`` (see :func:`union_opt`). ``warmup=True`` then
+    dispatches each group's fused runner once at the pow2 buckets its
+    mappers' ``batch_hints`` pad to (no-op on numpy/scalar backends), so
+    first-dispatch costs leave the timed searches' ``admit_s``/``score_s``.
 
     ``result_store`` is shared by every task and flushed ONCE at the end
     (one atomic multi-space write pass; see ``ResultStore.flush``) --
@@ -209,9 +236,9 @@ def union_opt_sweep(
     ``workers``/``pool``
         ``workers > 1`` dispatches independent groups concurrently --
         ``pool="process"`` (the ``"auto"`` default; spawned interpreters
-        that import numpy and ``repro_torch.core``, never torch, the
-        load-bearing path since the numpy engine is GIL-bound) or
-        ``pool="thread"``.
+        that import numpy and ``repro_torch.core`` -- torch only for the
+        torch backend -- the load-bearing path since the numpy engine is
+        GIL-bound) or ``pool="thread"``.
     ``group_timeout_s``/``max_group_retries``/``group_backoff_s``
         per-group watchdog deadline and bounded retries with exponential
         backoff + deterministic jitter; a hung or failed group attempt is
@@ -226,9 +253,6 @@ def union_opt_sweep(
     ``fault_spec``
         deterministic fault injection (defaults to ``UNION_FAULT_SPEC``
         from the environment), e.g. ``"fail:1@0;hang:2@0:3"``.
-
-    The reference's ``warmup`` (pre-tracing its jitted engine program)
-    has no counterpart: the port's engine runs numpy only.
     """
     from repro_torch.core.sweep_exec import SweepExecutor
 
@@ -270,6 +294,8 @@ def union_opt_sweep(
         engine_cache=engine_cache,
         engine_prune=engine_prune,
         result_store=result_store,
+        engine_device=engine_device,
+        warmup=warmup,
         workers=workers,
         pool=pool,
         group_timeout_s=group_timeout_s,

@@ -1,5 +1,5 @@
 """Fault-tolerant concurrent executor for ``union_opt_sweep`` (the port's
-copy of ``repro/core/sweep_exec.py``, on the numpy engine).
+copy of ``repro/core/sweep_exec.py``, on the numpy and torch engines).
 
 ``union_opt_sweep`` groups its tasks by persistent-store space key; since
 the array-native engine rework the groups are INDEPENDENT by construction
@@ -11,7 +11,8 @@ independence into a service-grade execution tier:
   keeps every engine in-process (shared memo/ctx, but GIL-bound on the
   numpy path); ``pool="process"`` (the default for ``workers > 1``) spawns
   fresh interpreters per group dispatch -- a child imports numpy and
-  ``repro_torch.core``/``repro_torch.runtime``, never torch or jax; each
+  ``repro_torch.core``/``repro_torch.runtime``, never jax, and torch only
+  for an engine on the torch backend; each
   child opens its own ResultStore handle on the shared directory, and the
   store's union-on-flush merges results losslessly.
 
@@ -23,6 +24,12 @@ independence into a service-grade execution tier:
   A failed attempt may already have flushed fresh Costs to the store;
   re-running is safe because scoring is deterministic and the store is
   idempotent.
+
+* **Graceful backend degradation** -- a torch failure inside a group
+  (import, device or dispatch) does NOT consume a retry: the engine
+  itself degrades to the numpy batch path mid-search
+  (:meth:`EvaluationEngine._check_backend_degraded`), bit-identical by
+  the backend contract, counted in ``backend_fallbacks``.
 
 * **Counted pool degradation** -- a process pool that cannot take a
   group (a broken pool, a payload that does not pickle, an engine pool
@@ -52,9 +59,9 @@ independence into a service-grade execution tier:
                         partial-result paths (the mapping service's
                         ``budget_exhausted`` answers) are testable
                         deterministically
-      jaxfail:G         the reference's jax-failure injection; the port
-                        has no jax backend, so parsing it raises
-                        ValueError
+      jaxfail:G         the reference's grammar for "group G's array
+                        backend fails": its analysis context reports a
+                        torch failure -> the engine degrades to numpy
       kill-after:N      SIGKILL this process right after the Nth
                         completed group's Costs are flushed to the store
                         but BEFORE its journal record -- the worst crash
@@ -113,6 +120,7 @@ class FaultSpec:
     fails: Dict[Tuple[int, int], bool] = field(default_factory=dict)
     hangs: Dict[Tuple[int, int], float] = field(default_factory=dict)
     slows: Dict[Tuple[int, int], float] = field(default_factory=dict)
+    jaxfail: frozenset = frozenset()
     kill_after: Optional[int] = None
 
     @classmethod
@@ -120,6 +128,7 @@ class FaultSpec:
         fs = cls()
         if not spec:
             return fs
+        jax_groups = set()
         for clause in spec.split(";"):
             clause = clause.strip()
             if not clause:
@@ -138,10 +147,7 @@ class FaultSpec:
                     k, _, secs = tail.partition(":")
                     fs.slows[(int(g), int(k))] = float(secs) if secs else 1.0
                 elif kind == "jaxfail":
-                    raise ValueError(
-                        "the port's engine has no jax backend to fail "
-                        "(engine backends: numpy, or None for the scalar path)"
-                    )
+                    jax_groups.add(int(rest))
                 elif kind == "kill-after":
                     fs.kill_after = int(rest)
                 else:
@@ -150,6 +156,7 @@ class FaultSpec:
                 raise ValueError(
                     f"bad UNION_FAULT_SPEC clause {clause!r}: {e}"
                 ) from None
+        fs.jaxfail = frozenset(jax_groups)
         return fs
 
     def check_fail(self, group: int, attempt: int) -> None:
@@ -234,6 +241,10 @@ def result_to_record(res: SearchResult) -> dict:
             "analyzed": res.analyzed,
             "store_hits": res.store_hits,
             "considered": res.considered,
+            "fused_dispatches": res.fused_dispatches,
+            "backend_fallbacks": res.backend_fallbacks,
+            "n_traces": res.n_traces,
+            "device_syncs": res.device_syncs,
             "admit_s": res.admit_s,
             "score_s": res.score_s,
         },
@@ -255,6 +266,10 @@ def result_from_record(rec: dict) -> SearchResult:
         analyzed=int(c["analyzed"]),
         store_hits=int(c["store_hits"]),
         considered=int(c["considered"]),
+        fused_dispatches=int(c["fused_dispatches"]),
+        backend_fallbacks=int(c.get("backend_fallbacks", 0)),
+        n_traces=int(c.get("n_traces", 0)),
+        device_syncs=int(c.get("device_syncs", 0)),
         admit_s=float(c["admit_s"]),
         score_s=float(c["score_s"]),
     )
@@ -313,13 +328,24 @@ def run_group(payload: dict) -> dict:
         workers=payload["engine_workers"],
         backend=payload["engine_backend"],
         store=store,
+        device=payload.get("engine_device", "cuda"),
     )
+    ctx = engine._ctx
+    prior_flag = ctx._torch_failed
+    if payload.get("inject_jax_fail"):
+        # simulate a backend failure at the shared choke point every torch
+        # path funnels through; restored below so the process-global
+        # context cache is not poisoned for later (non-injected) sweeps
+        ctx._torch_failed = True
+    warmed = 0
     records: Dict[str, dict] = {}
     try:
         for tsk in payload["tasks"]:
             if slow_per_task > 0:
                 time.sleep(slow_per_task)
             mp = _resolve_mapper(tsk["mapper"])
+            if payload.get("warmup", True):
+                warmed += engine.warmup(mp.batch_hints())
             space = MapSpace(problem, arch, tsk["constraints"])
             res = mp.search(space, engine.cost_model, payload["metric"], engine=engine)
             if res.best_mapping is None:
@@ -329,10 +355,14 @@ def run_group(payload: dict) -> dict:
             records[tsk["fingerprint"]] = result_to_record(res)
     finally:
         engine.close()
+        if payload.get("inject_jax_fail"):
+            ctx._torch_failed = prior_flag
         if own_store and store is not None:
             store.flush()
     return {
         "records": records,
+        "warmed": warmed,
+        "backend_fallbacks": engine.stats.backend_fallbacks,
         "pool_failed": engine.stats.pool_failed,
         "engine_backend": engine.backend,
         # a child's store traffic would vanish with its handle; ship the
@@ -377,6 +407,8 @@ class SweepExecutor:
         engine_cache: int = 1 << 16,
         engine_prune: bool = True,
         result_store: Optional[ResultStore] = None,
+        engine_device: str = "cuda",
+        warmup: bool = True,
         workers: int = 0,
         pool: str = "auto",
         group_timeout_s: Optional[float] = None,
@@ -391,6 +423,8 @@ class SweepExecutor:
         self.engine_cache = engine_cache
         self.engine_prune = engine_prune
         self.store = result_store
+        self.engine_device = engine_device
+        self.warmup = warmup
         self.workers = max(0, int(workers))
         if pool not in ("auto", "thread", "process", "serial"):
             raise ValueError(f"unknown pool kind {pool!r}")
@@ -468,9 +502,12 @@ class SweepExecutor:
             "engine_workers": self.engine_workers,
             "engine_cache": self.engine_cache,
             "engine_prune": self.engine_prune,
+            "engine_device": self.engine_device,
+            "warmup": self.warmup,
             "tasks": g.tasks,
             "hang_s": self.fault.hang_s(g.index, attempt),
             "slow_s": self.fault.slow_s(g.index, attempt),
+            "inject_jax_fail": g.index in self.fault.jaxfail,
         }
         if for_process:
             if self.store is not None and self.store.path is not None:
@@ -682,6 +719,8 @@ class SweepExecutor:
         n_tasks = sum(len(g.tasks) for g in groups)
         results: List[Optional[SearchResult]] = [None] * n_tasks
         pool_failed = self.pool_failed
+        warmed = 0
+        backend_fallbacks = 0
         for g in groups:
             if g in replayed:
                 with self._lock:
@@ -696,16 +735,19 @@ class SweepExecutor:
             else:
                 out = outputs[g.index]
                 pool_failed += out["pool_failed"]
+                warmed += out["warmed"]
+                backend_fallbacks += out["backend_fallbacks"]
                 recs = out["records"]
             for slot, t in zip(g.task_slots, g.tasks):
                 results[slot] = result_from_record(recs[t["fingerprint"]])
 
-        agg = self._aggregate(results, groups, replayed, pool_failed, mode)
+        agg = self._aggregate(results, groups, replayed, warmed,
+                              backend_fallbacks, pool_failed, mode)
         return results, agg  # type: ignore[return-value]
 
     # -------------------------------------------------------------- #
-    def _aggregate(self, results, groups, replayed, pool_failed,
-                   mode) -> dict:
+    def _aggregate(self, results, groups, replayed, warmed,
+                   backend_fallbacks, pool_failed, mode) -> dict:
         self.group_wall.sort(key=lambda r: r["group"])
         if os.environ.get("UNION_DETERMINISTIC_STATS"):
             # warm/cold-invariant subset only (see SearchResult.stats_dict)
@@ -714,6 +756,7 @@ class SweepExecutor:
                 "engines": len(groups),
                 "engine_backend": self.engine_backend,
                 "considered": sum(r.considered for r in results),
+                "backend_fallbacks": backend_fallbacks,
                 "pool_failed": pool_failed,
                 "elapsed_s": 0.0,
                 "evals_per_s": 0.0,
@@ -722,11 +765,15 @@ class SweepExecutor:
             "tasks": len(results),
             "engines": len(groups),
             "engine_backend": self.engine_backend,
+            "warmed_buckets": warmed,
             "considered": sum(r.considered for r in results),
             "analyzed": sum(r.analyzed for r in results),
             "cache_hits": sum(r.cache_hits for r in results),
             "store_hits": sum(r.store_hits for r in results),
             "pruned": sum(r.pruned for r in results),
+            "fused_dispatches": sum(r.fused_dispatches for r in results),
+            "n_traces": sum(r.n_traces for r in results),
+            "device_syncs": sum(r.device_syncs for r in results),
             "elapsed_s": round(sum(r.elapsed_s for r in results), 4),
             # robustness ledger
             "workers": self.workers,
@@ -734,6 +781,7 @@ class SweepExecutor:
             "attempts": self.retry_stats.attempts,
             "retries": self.retry_stats.retries,
             "timeouts": self.retry_stats.timeouts,
+            "backend_fallbacks": backend_fallbacks,
             "pool_failed": pool_failed,
             "stragglers": self.meter.flagged,
             "replayed_groups": len(replayed),

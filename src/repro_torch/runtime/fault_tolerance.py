@@ -11,14 +11,17 @@ dispatch and runs it again:
     exponential backoff and DETERMINISTIC jitter (hashed from the call
     label + attempt, so concurrent retry storms de-synchronize without
     randomness that would break reproducible tests);
-  * :class:`StragglerMeter` -- moving-average straggler detection.
+  * :class:`StragglerMeter` -- moving-average straggler detection;
+  * :class:`CircuitBreaker` -- closed/open/half-open breaker with a
+    count-based probe schedule, around the engine's torch backend in the
+    long-lived mapping service.
 
 ``repro_torch.core.sweep_exec`` wraps every group dispatch of
 ``union_opt_sweep`` in ``retry_call`` with a per-group deadline. The
 deadlines time host work: nothing here synchronises a device. The module
 imports neither torch nor jax, so spawned sweep workers import it cheaply.
-The reference's ``CircuitBreaker`` (for the mapping service) and
-``FaultTolerantRunner`` (the training-loop runner) are not ported yet.
+The reference's ``FaultTolerantRunner`` (the training-loop runner) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -167,6 +170,157 @@ def retry_call(
             if d > 0:
                 st.backoff_total_s += d
                 sleep(d)
+
+
+class CircuitBreaker:
+    """Closed/open/half-open circuit breaker with a DETERMINISTIC probe
+    schedule.
+
+    The sweep executor's backend degradation is one-way: a torch-backend
+    failure flips the engine to numpy for the rest of its life. A
+    long-lived process (the mapping-service daemon) needs the stateful,
+    recoverable version: ``failure_threshold`` consecutive failures OPEN
+    the circuit (callers take the fallback path without touching the
+    protected backend), every ``probe_interval``-th denied call
+    transitions to HALF-OPEN and admits exactly one probe, and the
+    probe's outcome either CLOSES the circuit (recovery) or re-opens it
+    (the probe counter restarts).
+
+    The probe schedule counts *denied calls*, not wall-clock: tests (and
+    the deterministic fault-injection drills) step the breaker through
+    open -> half-open -> closed without sleeping, and two runs of the
+    same request stream always probe at the same points. An optional
+    ``cooldown_s`` adds a wall-clock floor between probes for production
+    use (``clock`` is injectable for tests); by default it is 0 and the
+    schedule is purely count-based.
+
+    Thread-safe: the daemon's worker threads share one breaker. State
+    transitions are recorded in ``transitions`` (capped) so services can
+    export them as metrics.
+    """
+
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half_open"
+
+    def __init__(
+        self,
+        failure_threshold: int = 3,
+        probe_interval: int = 4,
+        cooldown_s: float = 0.0,
+        clock: Callable[[], float] = time.monotonic,
+        label: str = "breaker",
+    ) -> None:
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        if probe_interval < 1:
+            raise ValueError("probe_interval must be >= 1")
+        self.failure_threshold = failure_threshold
+        self.probe_interval = probe_interval
+        self.cooldown_s = cooldown_s
+        self.clock = clock
+        self.label = label
+        self.state = self.CLOSED
+        self._lock = threading.Lock()
+        self._consecutive_failures = 0
+        self._denied_since_probe = 0
+        self._opened_at = 0.0
+        # counters / transition log (metrics surface)
+        self.failures = 0
+        self.successes = 0
+        self.denied = 0
+        self.probes = 0
+        self.opened = 0
+        self.recovered = 0
+        self.transitions: List[str] = []
+
+    # -------------------------------------------------------------- #
+    def _transition(self, new_state: str) -> None:
+        if new_state != self.state:
+            self.transitions.append(f"{self.state}->{new_state}")
+            del self.transitions[:-64]  # cap the log, keep the newest
+            self.state = new_state
+
+    def allow(self) -> bool:
+        """May the protected backend be tried right now?
+
+        CLOSED: always. OPEN: deny, but every ``probe_interval``-th
+        denied call (past any ``cooldown_s``) flips to HALF-OPEN and
+        admits that call as the single probe. HALF-OPEN: deny (one probe
+        is already in flight; its record_success/record_failure decides).
+        """
+        with self._lock:
+            if self.state == self.CLOSED:
+                return True
+            if self.state == self.HALF_OPEN:
+                self.denied += 1
+                return False
+            # OPEN
+            if self.cooldown_s and (
+                self.clock() - self._opened_at < self.cooldown_s
+            ):
+                self.denied += 1
+                return False
+            self._denied_since_probe += 1
+            if self._denied_since_probe >= self.probe_interval:
+                self._denied_since_probe = 0
+                self.probes += 1
+                self._transition(self.HALF_OPEN)
+                log.warning("%s: half-open probe admitted", self.label)
+                return True
+            self.denied += 1
+            return False
+
+    def record_success(self) -> None:
+        """A protected call completed: close from half-open (recovery),
+        reset the consecutive-failure count when already closed."""
+        with self._lock:
+            self.successes += 1
+            self._consecutive_failures = 0
+            if self.state == self.HALF_OPEN:
+                self.recovered += 1
+                self._transition(self.CLOSED)
+                log.warning("%s: probe succeeded -- circuit CLOSED", self.label)
+
+    def record_failure(self) -> None:
+        """A protected call failed: re-open from half-open (the probe
+        lost), or open once ``failure_threshold`` consecutive closed-state
+        failures accumulate."""
+        with self._lock:
+            self.failures += 1
+            if self.state == self.HALF_OPEN:
+                self.opened += 1
+                self._opened_at = self.clock()
+                self._denied_since_probe = 0
+                self._transition(self.OPEN)
+                log.warning("%s: probe failed -- circuit re-OPENED", self.label)
+                return
+            self._consecutive_failures += 1
+            if (
+                self.state == self.CLOSED
+                and self._consecutive_failures >= self.failure_threshold
+            ):
+                self.opened += 1
+                self._opened_at = self.clock()
+                self._denied_since_probe = 0
+                self._transition(self.OPEN)
+                log.warning(
+                    "%s: %d consecutive failures -- circuit OPEN",
+                    self.label, self._consecutive_failures,
+                )
+
+    def stats_dict(self) -> dict:
+        with self._lock:
+            return {
+                "state": self.state,
+                "failures": self.failures,
+                "successes": self.successes,
+                "denied": self.denied,
+                "probes": self.probes,
+                "opened": self.opened,
+                "recovered": self.recovered,
+                "transitions": list(self.transitions),
+            }
 
 
 class StragglerMeter:

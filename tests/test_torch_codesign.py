@@ -93,14 +93,17 @@ def test_union_opt_matches_jax_package(kind, model, arch):
 def test_engine_backends_agree_and_jax_raises():
     problem, arch = Problem.gemm(128, 256, 64), cloud_accelerator()
     costs = {}
-    for backend in ("numpy", None):
+    for backend in ("numpy", None, "torch"):
         sol = union_opt(problem, arch, mapper="heuristic", cost_model="timeloop",
-                        metric="edp", engine_backend=backend, climb_steps=60)
+                        metric="edp", engine_backend=backend, engine_device="cpu",
+                        climb_steps=60)
         costs[backend] = (sol.cost.latency_cycles, sol.cost.energy_pj)
-    assert costs["numpy"] == costs[None]
-    for bad in ("jax", "torch", "bogus"):
+    assert costs["numpy"] == costs[None] == costs["torch"]
+    for bad in ("jax", "bogus"):
         with pytest.raises(ValueError, match="engine backend"):
             EvaluationEngine(TimeloopLikeModel(), problem, arch, backend=bad)
+    with pytest.raises(ValueError, match='"torch" in the port'):
+        EvaluationEngine(TimeloopLikeModel(), problem, arch, backend="jax")
 
 
 def test_registries_match_reference():

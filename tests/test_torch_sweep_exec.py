@@ -9,11 +9,11 @@ serially and on the thread and process pools; every injected fault
 resume a sweep byte-identically, SIGKILL included; and the retry core
 (``repro_torch.runtime``) must behave as the reference's.
 
-Not ported, because the port's engine has no jax backend:
-``test_jax_failure_degrades_to_numpy_bit_identical`` and
-``test_jaxfail_spec_hits_only_named_group``. A ``jaxfail:G`` clause raises
-``ValueError`` when the spec is parsed (tested below). The circuit-breaker
-tests stay with the reference until the mapping service is ported.
+The reference's ``jaxfail:G`` clause reads here as "group G's array
+backend (torch) fails": the engine degrades to numpy, bit-identical,
+counted in ``backend_fallbacks`` (the two twins below). The circuit
+breaker and the mapping service are held in
+``tests/test_torch_mapping_service.py``.
 """
 
 import concurrent.futures as cf
@@ -40,6 +40,7 @@ from repro.runtime import fault_tolerance as jax_ft
 
 from repro_torch import codesign
 from repro_torch.core import sweep_exec
+from repro_torch.core.cost import analysis
 from repro_torch.core.architecture import edge_accelerator
 from repro_torch.core.cost import ResultStore
 from repro_torch.core.cost.store import SweepJournal, _cost_to_record
@@ -121,17 +122,29 @@ def test_sweep_matches_reference(reference, mode):
         assert sweep.stats[key] == reference.stats[key], key
 
 
+@pytest.mark.parametrize("mode", [dict(), dict(workers=2, pool="thread"),
+                                  dict(workers=2, pool="process")],
+                         ids=["serial", "thread", "process"])
+def test_torch_sweep_matches_reference(reference, mode):
+    """The same sweep with every group's engine on the torch backend (on
+    the CPU here; a spawned worker imports torch for it): the reference's
+    numpy results bit for bit, with no fallback."""
+    sweep = union_opt_sweep(_tasks(), engine_backend="torch", engine_device="cpu", **mode)
+    assert _full(sweep, _cost_to_record) == _full(reference, jax_cost_record)
+    st = sweep.stats
+    assert st["engine_backend"] == "torch" and st["pool_failed"] == 0
+    assert st["backend_fallbacks"] == 0 and st["fused_dispatches"] > 0
+    for key in ("tasks", "engines", "considered", "analyzed", "cache_hits", "pruned"):
+        assert st[key] == reference.stats[key], key
+
+
 def test_deterministic_stats_match_reference(monkeypatch):
     monkeypatch.setenv("UNION_DETERMINISTIC_STATS", "1")
     ref = jax_union_opt_sweep(_tasks(JaxProblem, JaxSweepTask, jax_edge)[:2])
     got = union_opt_sweep(_tasks()[:2])
-    # the port has no jax backend to fall back from: pool_failed takes
-    # backend_fallbacks' place in the run-invariant subset
-    want = {k: v for k, v in ref.stats.items() if k != "backend_fallbacks"}
-    assert got.stats == {**want, "pool_failed": 0}
-    assert [s.search.stats_dict() for s in got] == [
-        {k: v for k, v in s.search.stats_dict().items() if k != "backend_fallbacks"}
-        for s in ref]
+    # the port adds pool_failed to the run-invariant subset
+    assert got.stats == {**ref.stats, "pool_failed": 0}
+    assert [s.search.stats_dict() for s in got] == [s.search.stats_dict() for s in ref]
     assert "group_wall" not in got.stats and got.stats["elapsed_s"] == 0.0
 
 
@@ -142,7 +155,7 @@ def test_deterministic_stats_subset(monkeypatch):
     assert "elapsed_s" in full and "evaluated" in full
     monkeypatch.setenv("UNION_DETERMINISTIC_STATS", "1")
     det = sweep[0].search.stats_dict()  # stats_dict reads the env per call
-    assert set(det) == {"considered", "elapsed_s", "evals_per_s"}
+    assert set(det) == {"considered", "backend_fallbacks", "elapsed_s", "evals_per_s"}
     assert det["considered"] == full["considered"]
 
 
@@ -230,11 +243,11 @@ def test_engine_pool_that_cannot_be_built_is_counted(monkeypatch):
 # ------------------------------------------------------------------ #
 @pytest.mark.parametrize("spec", [
     None, "", "fail:1@0; hang:2@1:0.25; kill-after:3", "hang:0@0", "slow:1@0:0.25; slow:2@1",
-    "fail:0@0;fail:0@1;hang:3@2:7;slow:4@0;kill-after:1"])
+    "fail:0@0;fail:0@1;hang:3@2:7;slow:4@0;kill-after:1", "jaxfail:0", "fail:1@0;jaxfail:2;jaxfail:4"])
 def test_fault_spec_parse_matches_reference(spec):
     got, want = FaultSpec.parse(spec), JaxFaultSpec.parse(spec)
-    assert (got.fails, got.hangs, got.slows, got.kill_after) == (
-        want.fails, want.hangs, want.slows, want.kill_after)
+    assert (got.fails, got.hangs, got.slows, got.kill_after, got.jaxfail) == (
+        want.fails, want.hangs, want.slows, want.kill_after, want.jaxfail)
     for g in range(5):
         for k in range(3):
             assert got.hang_s(g, k) == want.hang_s(g, k)
@@ -256,16 +269,49 @@ def test_fault_spec_checks():
     assert empty.kill_after is None
 
 
-@pytest.mark.parametrize("spec", ["explode:1@0", "fail:one@0", "jaxfail:0",
-                                  "fail:1@0;jaxfail:2"])
+@pytest.mark.parametrize("spec", ["explode:1@0", "fail:one@0", "jaxfail:zero",
+                                  "fail:1@0;jaxfail:2@1"])
 def test_fault_spec_rejects_bad_clause(spec):
-    with pytest.raises(ValueError, match="jax backend" if "jaxfail" in spec else "clause"):
+    with pytest.raises(ValueError, match="clause"):
         FaultSpec.parse(spec)
+    with pytest.raises(ValueError, match="clause"):
+        JaxFaultSpec.parse(spec)
 
 
-def test_jaxfail_spec_raises_before_any_search():
-    with pytest.raises(ValueError, match="no jax backend"):
-        union_opt_sweep(_tasks(), fault_spec="jaxfail:0")
+def _clear_backend_flags():
+    """Re-arm the torch backend of every cached analysis context (a failure
+    injected through the environment leaves its contexts flagged)."""
+    for ctx in analysis._CTX_BY_CONTENT.values():
+        ctx._torch_failed = False
+
+
+def test_jax_failure_degrades_to_numpy_bit_identical(baseline, monkeypatch):
+    """``UNION_FAULT_JAX`` breaks the torch backend at its choke point:
+    every group's engine degrades to numpy, with the numpy sweep's
+    mappings, costs and search counters bit for bit, one counted fallback
+    per group."""
+    monkeypatch.setenv("UNION_FAULT_JAX", "1")
+    try:
+        degraded = union_opt_sweep(_tasks(), engine_backend="torch", engine_device="cpu")
+    finally:
+        _clear_backend_flags()
+    assert _full(degraded, _cost_to_record) == _full(baseline, _cost_to_record)
+    assert degraded.stats["backend_fallbacks"] == len(degraded.stats["group_wall"]) == 3
+    assert degraded.stats["engine_backend"] == "torch"  # what was REQUESTED
+    assert degraded.stats["fused_dispatches"] == 0
+
+
+def test_jaxfail_spec_hits_only_named_group(baseline):
+    """``jaxfail:0`` flips group 0's context only: that group degrades to
+    numpy (one fallback), the others run the torch programs; every result
+    equals the numpy sweep's."""
+    degraded = union_opt_sweep(_tasks(), engine_backend="torch", engine_device="cpu",
+                               fault_spec="jaxfail:0")
+    assert _full(degraded, _cost_to_record) == _full(baseline, _cost_to_record)
+    assert degraded.stats["backend_fallbacks"] == 1
+    fused = [s.search.fused_dispatches for s in degraded]
+    assert fused[:2] == [0, 0] and all(f > 0 for f in fused[2:]), fused
+    assert not any(ctx._torch_failed for ctx in analysis._CTX_BY_CONTENT.values())
 
 
 # ------------------------------------------------------------------ #
@@ -438,8 +484,7 @@ def test_task_fingerprint_stable_and_matches_reference():
 
 def test_journal_records_match_reference(tmp_path):
     """The journal holds the same group keys and task fingerprints as the
-    reference's for the same sweep (the port's records carry no jax-only
-    counters)."""
+    reference's for the same sweep, and records of the same form."""
     union_opt_sweep(_tasks(), journal=str(tmp_path / "port.json"))
     jax_union_opt_sweep(_tasks(JaxProblem, JaxSweepTask, jax_edge),
                         journal=str(tmp_path / "ref.json"))
@@ -451,6 +496,7 @@ def test_journal_records_match_reference(tmp_path):
         assert rec["mapping"] == ref["tasks"][fp]["mapping"]
         assert rec["cost"] == ref["tasks"][fp]["cost"]
         assert rec["trajectory"] == ref["tasks"][fp]["trajectory"]
+        assert sorted(rec["counters"]) == sorted(ref["tasks"][fp]["counters"])
 
 
 # ------------------------------------------------------------------ #
