@@ -90,6 +90,25 @@ Phases (any failure raises and the exit code is non-zero):
      kernels on; the kernel launch counts must match the steps run, and one
      wave's first decode-step logits are checked against the kernels-off
      (chunked attention) decode and against the full forward pass;
+  serve_moe: deepseek-v2-lite-16b (15.7 B parameters; MLA at d = 192,
+     dv = 128 on the flash kernel's D = 192 instance; one dense prefix
+     layer, 26 MoE layers of 64 experts top-6 + 2 shared) with 16 requests
+     of 32 new tokens, then qwen2-moe-a2.7b (14.3 B; GQA, 24 MoE layers of
+     60 top-4 + 4 shared) with 8 of 16, at full width and depth with random
+     weights, 8 slots, max_len 512, kernels on, each freed before the next.
+     Each must serve every request with flash-attention launches equal to
+     n_layers x steps, all on one compiled D (192 for deepseek). After a
+     prefill of the first wave, the first decode step's logits with the
+     kernels on are held against kernels off and against the full forward
+     (kernels off, capacity raised to E so nothing is dropped), at full
+     depth in bf16 and on the first 4 layers in float32; the kernels-on
+     decode and the forward follow the kernels-off decode's routes (a
+     near-tie of two experts flips with any rounding; the share each would
+     move is printed), and each tolerance must fail the kernels-off step
+     with its first KV tile dropped or with one expert's output zeroed.
+     Then tokens/s, the decode step on and off, the busy share at KV ~512
+     and peak memory; last, Union's predicted deepseek decode step (8 x
+     512, h100_sm()) by role beside the measured one;
   6. train: zamba2-2.7b at full width (2.90 B parameters, random weights
      from a seeded generator) through ``repro_torch.launch.train.main``:
      batch 2 x 2048 tokens of ``SyntheticLM``, 8 AdamW steps, remat on,
@@ -103,7 +122,8 @@ Phases (any failure raises and the exit code is non-zero):
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
      at decode (eager calls, as serving pays them, and device time by
-     CUDA-graph replay; GB/s, n_split) and at the training shape (TFLOP/s; the
+     CUDA-graph replay; GB/s, n_split), at the MLA decode shape (b = 8,
+     16/16 heads, d 192, dv 128, kv_len 512) and at the training shape (TFLOP/s; the
      planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
      four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
      the plain version without its last 64 of K must fail the tolerance);
@@ -125,6 +145,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -172,6 +193,9 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     n_split,
     smem_bytes,
 )
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    reset_launches as reset_fa_launches,
+)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     BACKWARD_RANGE,
     FLASH_ATTENTION_H100,
@@ -218,6 +242,9 @@ from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.serve import Request, WaveServer  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.ssm import _heads  # noqa: E402
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
 from repro_torch.serve.mapping_service import MappingService  # noqa: E402
@@ -267,6 +294,9 @@ TRAIN_BF16_LOSS_TOL = 2e-2
 TRAIN_BF16_ERR_RATIO = 1.5
 # Serving decode shape of qwen3-0.6b: 8 slots, 16 q-heads over 8 KV heads of 128, cache 512.
 DECODE = dict(b=8, hq=16, hkv=8, d=128, cache=512)
+# deepseek-v2-lite-16b's MLA decode shape at the same slots and cache: 16/16
+# heads, q and k of d = 192 (nope 128 + rope 64), v of dv = 128
+MLA_DECODE = dict(b=8, hq=16, hkv=16, dn=128, dr=64, dv=128, cache=512)
 ARCH, SLOTS, MAX_LEN, N_REQ, MAX_NEW = "qwen3-0.6b", 8, 512, 16, 32
 # Kernels-on decode logits of the full model after a ~200-token prefill, vs
 # the kernels-off decode and the full forward pass: the paths round P and the
@@ -301,6 +331,7 @@ FA_D192 = [
     ("MLA prefill d=192 dv=128", (2, 1024, 1024, 16, 16, 192, 128), True, 0, None),
     ("D=192 many rows, GQA 2:1", (2, 300, 300, 8, 4, 192, 192), True, 0, None),
     ("MLA decode d=192 dv=128", (8, 1, 512, 16, 16, 192, 128), False, 399, 400),
+    ("MLA decode d=192 dv=128 full cache", (8, 1, 512, 16, 16, 192, 128), False, 511, 512),
     ("D=192 decode, GQA 2:1", (8, 1, 512, 16, 8, 192, 192), False, 511, 512),
 ]
 
@@ -578,6 +609,8 @@ def phase_kernels() -> dict:
                   f"flash_attention {name}: slots past kv_len changed the output")
             if name.startswith("decode") and dtype == torch.bfloat16:
                 errs["fa_decode"] = max(errs["fa_decode"], err)
+            if name.startswith("MLA decode") and dtype == torch.bfloat16:
+                errs["fa_mla_decode"] = max(errs.get("fa_mla_decode", 0.0), err)
             parts = n_split(b_, hkv_, live_keys(1, kv_len, q_offset, causal), bk_case)
             line += f"; n_split {parts}; slots past kv_len unread"
         if name.startswith("train"):
@@ -898,6 +931,373 @@ def phase_serve(stamp):
     print(f"time [{stamp}] decode step (b={SLOTS}, pos 200-219): kernels on "
           f"{min(step_ms[True]):.3f} ms, kernels off {min(step_ms[False]):.3f} ms")
     return launches, {"wall_ms": min(step_ms[True]), "device_ms": busy}
+
+
+# serve_moe: the two MoE configs at full width and depth through WaveServer,
+# at the serve phase's slots and max_len: (arch, requests, new tokens)
+SERVE_MOE = [("deepseek-v2-lite-16b", N_REQ, MAX_NEW), ("qwen2-moe-a2.7b", SLOTS, 16)]
+MOE_TIMED_STEPS = 10  # decode steps in each timed turn, kernels on and off in turns
+MOE_TIMED_POS = 200  # the first timed step's position, as the serve phase times
+# Kernels-on first-step logits against kernels off and the full forward,
+# every path routed to the kernels-off decode's experts (_moe_logit_checks).
+# Full depth in bf16: the kernels' rounding moved them by 0.10-0.13 (logits
+# up to ~4.8; 27 and 24 layers), while a KV tile dropped moved them by
+# 3.4-4.3 and one expert's output zeroed in every MoE layer by 0.30-0.58
+# (this phase on an H100, PERF.md): 0.2 lies between. The first
+# MOE_CUT_LAYERS layers in float32 weights and cache: test_arch_smoke.py's
+# decode-vs-forward bound.
+MOE_LOGIT_TOL = 0.2
+MOE_CUT_LAYERS, MOE_CUT_TOL = 4, 2e-3
+# the decode stream Union predicts beside the measured deepseek step
+MOE_STREAM = ("deepseek-v2-lite-16b", ShapeConfig("h100_decode", MAX_LEN, SLOTS, "decode"))
+
+
+@contextlib.contextmanager
+def _moe_routes(model):
+    """Records each MoE layer's expert indices (T, k), in call order."""
+    routes = []
+
+    def hook(m, args, out):
+        routes.append(m.route(args[0].reshape(-1, args[0].shape[-1]))[1])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, MoE)]
+    try:
+        yield routes
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def _moe_capacity(model, factor: float):
+    """Every MoE layer's capacity factor set to ``factor`` inside the block."""
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    saved = [m.cfg for m in moes]
+    for m in moes:
+        m.cfg = dataclasses.replace(m.cfg, capacity_factor=factor)
+    try:
+        yield
+    finally:
+        for m, c in zip(moes, saved):
+            m.cfg = c
+
+
+@contextlib.contextmanager
+def _kv_tile_dropped(bk: int):
+    """Every attention call of the model without its first ``bk`` cached
+    keys: what a kernel that lost a KV tile would compute."""
+    orig = model_layers.mha
+
+    def dropped(q, k, v, *, causal, q_offset=0, kv_len=None, **kw):
+        return orig(q, k[:, bk:], v[:, bk:], causal=causal, q_offset=max(q_offset - bk, 0),
+                    kv_len=kv_len - bk, **kw)
+
+    model_layers.mha = dropped
+    try:
+        yield
+    finally:
+        model_layers.mha = orig
+
+
+@contextlib.contextmanager
+def _expert_zeroed(moe, e: int):
+    """Expert ``e`` of one MoE layer outputs zeros inside the block."""
+    saved = moe.w_down[e].clone()
+    with torch.no_grad():
+        moe.w_down[e].zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            moe.w_down[e].copy_(saved)
+
+
+@contextlib.contextmanager
+def _routes_forced(model, routes):
+    """Each MoE call routes to the next entry of ``routes`` (its expert
+    indices, (T, k), in call order), with gates renormalised from its own
+    router probabilities at those experts; the expert indices it would
+    have chosen are appended to the list yielded."""
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    it, own = iter(routes), []
+
+    def forced(orig):
+        def route(xt):
+            _, eidx, probs = orig(xt)
+            own.append(eidx)
+            want = next(it)
+            g = torch.gather(probs, 1, want)
+            return g / g.sum(dim=-1, keepdim=True), want, probs
+        return route
+
+    for m in moes:
+        m.route = forced(m.route)
+    try:
+        yield own
+    finally:
+        for m in moes:
+            del m.route
+
+
+def _moe_decode_wave(cfg, model, prompts, first, kernels_on, routes=None):
+    """Prefill one wave token by token, then the first decode step fed the
+    served first tokens, with a cache of the model's dtype. Returns that
+    step's logits, every MoE call's expert indices (prefill steps
+    included; with ``routes`` forced to them, the ones it would have
+    chosen), the cache and the step's position."""
+    kernels.enable_kernels(kernels_on)
+    toks = torch.cat([_wave_tokens(prompts), first[:, None]], 1)
+    dtype = model.embed.dtype
+    cache = [{k: t.to(dtype) for k, t in c.items()}
+             for c in init_cache(cfg, len(prompts), MAX_LEN, "cuda")]
+    with (_routes_forced(model, routes) if routes is not None else _moe_routes(model)) as chosen:
+        for t in range(toks.shape[1]):
+            logits, _ = decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+    return logits.float(), chosen, cache, toks.shape[1] - 1
+
+
+def _planted_faults(cfg, model, cache, first, pos, routes_last):
+    """The first decode step from ``cache`` (kernels off) with a fault
+    planted: the first KV tile dropped in every attention layer, and the
+    output of one expert (the last MoE layer's top-1 of token 0) zeroed in
+    every MoE layer. Returns {fault: logits}."""
+    kernels.enable_kernels(False)
+    D = (compiled_dim(cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim) if cfg.use_mla
+         else compiled_dim(cfg.head_dim, cfg.head_dim))
+    bk = plan_blocks(1, MAX_LEN, D)[1]
+    e = int(routes_last[0, 0])
+
+    def step():
+        c = [{k: t.clone() for k, t in layer.items()} for layer in cache]
+        return decode_step(cfg, model, c, first[:, None], pos)[0].float()
+
+    out = {}
+    with _kv_tile_dropped(bk):
+        out[f"first KV tile ({bk} keys) dropped in every layer"] = step()
+    with contextlib.ExitStack() as stack:
+        for m in model.modules():
+            if isinstance(m, MoE):
+                stack.enter_context(_expert_zeroed(m, e))
+        out[f"output of expert {e} zeroed in every MoE layer"] = step()
+    return out
+
+
+def _check_logits(cfg, label, got, ref, tol, faults):
+    diff = (got - ref).abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    print(f"serve_moe {cfg.name}: {label}: max abs diff {diff:.4g} (tol {tol}), |logit| max "
+          f"{ref.abs().max().item():.3g}, argmax agreement {agree:.3f}")
+    check(bool(torch.isfinite(got).all()) and diff <= tol, f"{cfg.name} {label}: {diff} > {tol}")
+    for name, planted in faults.items():
+        d = (planted - ref).abs().max().item()
+        print(f"  teeth: the kernels-off step with the {name}: {d:.4g} from the reference "
+              f"(must exceed {tol})")
+        check(d > tol, f"{cfg.name} {label}: the tolerance {tol} passes the {name} ({d})")
+
+
+def _cut_f32(cfg, model, n_layers):
+    """The first ``n_layers`` of ``model`` (its prefix first), with its
+    embedding and head, as a float32 model of its own."""
+    cut = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
+    small = Model(cut, generator=None, device="meta")
+    names = {n for n, _ in small.named_parameters()}
+    small.load_state_dict({n: p.detach().float() for n, p in model.named_parameters()
+                           if n in names}, strict=True, assign=True)
+    return cut, small
+
+
+def _flip_share(own, ref) -> torch.Tensor:
+    """Per (call, token): whether a top-k expert set differs from ``ref``'s."""
+    return (torch.stack(own).sort(-1).values != torch.stack(ref).sort(-1).values).any(-1)
+
+
+def _moe_logit_checks(cfg, model, waves, wave0):
+    """The first decode step's logits after a prefill of wave 0, kernels on
+    against kernels off (the same cache path) and against the full forward
+    pass (kernels off, capacity raised to E: nothing dropped, as decode
+    drops nothing), at full depth in bf16 as served and on the first
+    MOE_CUT_LAYERS layers in float32 (full width).
+
+    Routing is discontinuous: a near-tie between the k-th and (k+1)-th
+    expert flips with any rounding (bf16 router logits tie outright), and a
+    flipped route moves that token's later layers and everything that
+    attends to its cache. So the kernels-on decode and the forward route
+    every MoE call of the wave, prefill included, to the kernels-off
+    decode's experts (gates from their own router), and the share of
+    (step, layer, token) top-k sets they would have chosen otherwise is
+    printed. What is left is the paths' rounding. Each tolerance must fail
+    the kernels-off step with its first KV tile dropped in every layer,
+    and with one expert's output zeroed in every MoE layer. Returns the
+    full-depth share of top-k sets the kernels move."""
+    first = torch.tensor([r.out[0] for r in wave0], device="cuda")
+    toks = torch.cat([_wave_tokens(waves[0]), first[:, None]], 1)
+    S, k = toks.shape[1], cfg.top_k
+    moved = None
+    cut, small = _cut_f32(cfg, model, MOE_CUT_LAYERS)
+    for label, c, m, tol in (("full depth, bf16", cfg, model, MOE_LOGIT_TOL),
+                             (f"first {cut.n_layers} layers, float32", cut, small, MOE_CUT_TOL)):
+        n_moe = sum(isinstance(x, MoE) for x in m.modules())
+        off, routes, cache, pos = _moe_decode_wave(c, m, waves[0], first, False)
+        on, own_on, _, _ = _moe_decode_wave(c, m, waves[0], first, True, routes)
+        # the decode's routes, per MoE layer, in the forward's (b, S) row order
+        per_layer = torch.stack(routes).reshape(S, n_moe, SLOTS, k).permute(1, 2, 0, 3)
+        fwd_routes = list(per_layer.reshape(n_moe, SLOTS * S, k))
+        kernels.enable_kernels(False)
+        with torch.no_grad(), _moe_capacity(m, float(cfg.n_routed_experts)), \
+                _routes_forced(m, fwd_routes) as own_fwd:
+            full = forward(c, m, {"tokens": toks})[0][:, -1].float()
+        flips = _flip_share(own_on, routes)
+        by_layer = flips.reshape(S, n_moe, SLOTS).float().mean(dim=(0, 2))
+        fwd_flips = _flip_share(own_fwd, fwd_routes).float().mean().item()
+        print(f"serve_moe {cfg.name} ({label}): of the wave's {flips.numel()} (step, MoE layer, "
+              f"token) top-{k} sets, kernels on would route {flips.float().mean().item():.4f} "
+              f"to another set than kernels off (by layer "
+              f"{[round(x, 3) for x in by_layer.tolist()]}), the full forward {fwd_flips:.4f}; "
+              f"both follow the kernels-off routes")
+        if moved is None:
+            moved = flips.float().mean().item()
+        faults = _planted_faults(c, m, cache, first, pos, routes[-1])
+        del cache
+        for what, got, ref in (("kernels on vs off", on, off),
+                               ("kernels on vs the full forward (capacity E)", on, full)):
+            _check_logits(cfg, f"{label}, first decode step, {what}", got, ref, tol, faults)
+    del small
+    kernels.enable_kernels(True)
+    return moved
+
+
+def _serve_moe_model(stamp, arch, n_req, max_new) -> dict:
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(model.prefix) + len(model.blocks) == cfg.n_layers,
+          f"{arch}: {len(model.prefix)} prefix + {len(model.blocks)} unit layers, "
+          f"want {cfg.n_layers}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(32, 193))).tolist()
+               for _ in range(n_req)]
+    waves = [prompts[i:i + SLOTS] for i in range(0, n_req, SLOTS)]
+    steps = sum(max(len(p) for p in w) + max_new - 1 for w in waves)
+    D = (compiled_dim(cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim) if cfg.use_mla
+         else compiled_dim(cfg.head_dim, cfg.head_dim))
+
+    kernels.enable_kernels(True)
+    server = WaveServer(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN)
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid, p, max_new))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa_launches()
+    t1 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    launches, by_dim = flash_attention_cuda.launches, dict(flash_attention_cuda.launches_by_dim)
+    peak = torch.cuda.max_memory_allocated()
+
+    check(sorted(r.rid for r in done) == list(range(n_req)), f"{arch}: not every request served")
+    for r in done:
+        check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
+              f"{arch} request {r.rid}: {len(r.out)} tokens, want {max_new} in [0, {cfg.vocab})")
+    check(launches == cfg.n_layers * steps == by_dim[D],
+          f"{arch}: flash_attention launches {launches} (by compiled D {by_dim}) != n_layers "
+          f"{cfg.n_layers} x steps {steps}, all at D = {D}")
+    new_tokens = sum(len(r.out) for r in done)
+    attn = (f"MLA d={cfg.nope_head_dim + cfg.rope_head_dim} dv={cfg.v_head_dim}" if cfg.use_mla
+            else f"GQA {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}")
+    print(f"serve_moe {arch}: {n_params / 1e9:.3f} B params bf16 (random init {init_s:.1f} s), "
+          f"{cfg.n_layers} layers ({cfg.first_k_dense} dense prefix), {cfg.n_routed_experts} "
+          f"experts top-{cfg.top_k} + {cfg.n_shared_experts} shared, {attn}; {n_req} requests, "
+          f"slots {SLOTS}, max_len {MAX_LEN}, prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {steps} steps, flash_attention launches {launches} = "
+          f"{cfg.n_layers} x {steps}, all on the D = {D} instance")
+
+    wave0 = sorted(done, key=lambda r: r.rid)[:SLOTS]
+    flipped = _moe_logit_checks(cfg, model, waves, wave0)
+
+    step_ms = {}
+    toks = torch.tensor([[r.out[-1]] for r in wave0], device="cuda")
+    for on_ in (True, False, True, False):
+        kernels.enable_kernels(on_)
+        cache = init_cache(cfg, SLOTS, MAX_LEN, "cuda")
+        for _ in range(3):
+            decode_step(cfg, model, cache, toks, MOE_TIMED_POS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(MOE_TIMED_STEPS):
+            decode_step(cfg, model, cache, toks, MOE_TIMED_POS + i)
+        torch.cuda.synchronize()
+        step_ms.setdefault(on_, []).append((time.perf_counter() - t1) / MOE_TIMED_STEPS * 1e3)
+        del cache
+    kernels.enable_kernels(True)
+    busy = _profile_decode(stamp, cfg, model, toks, MAX_LEN - PROFILE_STEPS - 1)
+    wall = min(step_ms[True])
+    print(f"time [{stamp}] serve_moe {arch}: {new_tokens} new tokens in {dt:.3f} s = "
+          f"{new_tokens / dt:.1f} tok/s ({steps * SLOTS / dt:.1f} tok/s incl. prefill); peak "
+          f"memory {peak / 2**30:.3f} GiB (weights {n_params * 2 / 2**30:.3f} GiB)")
+    print(f"time [{stamp}] serve_moe {arch} decode step (b={SLOTS}, pos {MOE_TIMED_POS}-"
+          f"{MOE_TIMED_POS + MOE_TIMED_STEPS - 1}): kernels on {wall:.3f} ms, kernels off "
+          f"{min(step_ms[False]):.3f} ms; device busy at KV {MAX_LEN - PROFILE_STEPS + 1}-"
+          f"{MAX_LEN} (profiled) "
+          + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} of the "
+                                                  f"eager step)"))
+    del server, done, model
+    return {"launches": launches, "steps": steps, "wall_ms": wall, "device_ms": busy,
+            "tok_s": new_tokens / dt, "peak_gib": peak / 2**30, "flipped": flipped}
+
+
+def _union_moe_decode(stamp, measured) -> None:
+    """Union's prediction of deepseek-v2-lite's decode step (8 slots x
+    max_len 512) on ``h100_sm()``, by role, beside the measured step: one
+    ``union_opt_sweep`` of the stream's mappable entries (heuristic mapper,
+    timeloop model, numpy engine), as the whole_model phase sweeps. A
+    prediction, printed only."""
+    arch = h100_sm()
+    model, shape = MOE_STREAM
+    s = build_opstream(model, shape)
+    r = reconcile_model_flops(s)
+    lo, hi = RECONCILE_BAND
+    check(lo <= r["ratio"] <= hi, f"{model} {shape.name}: stream / MODEL_FLOPS {r['ratio']} "
+                                  f"outside {RECONCILE_BAND}")
+    tasks, index = stream_sweep_tasks([s], arch)
+    t0 = time.perf_counter()
+    sweep = union_opt_sweep(tasks)
+    sweep_s = time.perf_counter() - t0
+    c = aggregate_stream_costs([s], index, sweep.solutions, arch)[0]
+    pred = c.latency_s * 1e3
+    roles = ", ".join(f"{k} {v['latency_s'] * 1e3:.4f}" for k, v in c.roles.items())
+    dev = ("device busy not measured (the profiler saw no kernel)" if measured["device_ms"] is None
+           else f"device busy {measured['device_ms']:.3f} ms (profiled at KV "
+                f"{MAX_LEN - PROFILE_STEPS + 1}-{MAX_LEN}), {measured['device_ms'] / pred:.2f}x "
+                f"the prediction")
+    print(f"serve_moe [{stamp}] Union: {model} {shape.name} ({len(s)} unique entries, stream / "
+          f"MODEL_FLOPS {r['ratio']:.4f}; sweep of {len(tasks)} entries {sweep_s:.2f} s host) "
+          f"predicts {pred:.4f} ms a step (ms by role: {roles}); measured step: {dev}; wall "
+          f"{measured['wall_ms']:.3f} ms (eager, positions {MOE_TIMED_POS}-"
+          f"{MOE_TIMED_POS + MOE_TIMED_STEPS - 1}), "
+          f"{measured['wall_ms'] / pred:.2f}x")
+
+
+def phase_serve_moe(stamp) -> dict:
+    """deepseek-v2-lite-16b (MLA on the D = 192 flash instance, a dense
+    prefix layer, 26 MoE layers) and qwen2-moe-a2.7b (GQA, 24 MoE layers) at
+    full width and depth, one after the other, each freed before the next;
+    returns each model's measurements by arch."""
+    t0 = time.perf_counter()
+    out = {}
+    for arch, n_req, max_new in SERVE_MOE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = _serve_moe_model(stamp, arch, n_req, max_new)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _union_moe_decode(stamp, out[MOE_STREAM[0]])
+    print(f"time [{stamp}] serve_moe phase: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 PROFILE_STEPS = 5  # decode steps under the profiler
@@ -2106,7 +2506,55 @@ def _matmul_launches_by_shape(res, rows) -> dict:
     return out
 
 
-def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> list:
+def _time_mla_decode(stamp, gen, fa, errs, moe_launches) -> dict:
+    """Flash attention at deepseek-v2-lite's MLA decode shape: q and k of
+    d = 192 (nope 128 + rope 64), v of dv = 128 as the model passes it (a
+    strided view of the up-projection), zero-padded to the D = 192
+    instance; eager and by CUDA-graph replay, beside its bound, its plain
+    version and SDPA. Returns the kernels-line record (serve_moe's launches)."""
+    b, hq, hkv, dn, dr, dv, cache = MLA_DECODE.values()
+    d, kv_len = dn + dr, cache
+
+    def mla_inputs():
+        q = torch.randn((b, 1, hq, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((b, cache, hkv, d), generator=gen, device="cuda").bfloat16()
+        kv = torch.randn((b, cache, hkv, dn + dv), generator=gen, device="cuda").bfloat16()
+        return q, k, kv[..., dn:]
+
+    pick = _rotating([mla_inputs() for _ in range(6)])
+    kw = dict(causal=False, q_offset=kv_len - 1, kv_len=kv_len, sm_scale=1.0 / math.sqrt(d))
+    fns = {
+        "plain": lambda: _plain(*pick(), causal=False, q_offset=kv_len - 1, kv_len=kv_len,
+                                scale=1.0 / math.sqrt(d)),
+        "kernel": lambda: flash_attention(*pick(), **kw),
+        "library": lambda: (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=1.0 / math.sqrt(d)))(*pick()),
+    }
+    ms = _interleaved_ms(fns, n=100)
+    dev = _graph_interleaved_ms(fns, n=100)
+    bytes_ = 2 * (b * hq * d + b * kv_len * hkv * (d + dv) + b * hq * dv)
+    bound, bound_by = _bound(bytes_, 2 * b * hq * kv_len * (d + dv), BF16_FLOP_PER_S)
+    parts = n_split(b, hkv, kv_len, plan_blocks(1, cache, compiled_dim(d, dv))[1])
+    print(f"time [{stamp}] flash_attention MLA decode b={b} hq={hq} hkv={hkv} d={d} dv={dv} "
+          f"kv_len={kv_len} bf16 (the D = {compiled_dim(d, dv)} instance, v padded to it), "
+          f"n_split {parts}: eager calls: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} "
+          f"ms, sdpa {ms['library']:.4f} ms; CUDA-graph replay (device time): kernel "
+          f"{dev['kernel']:.4f} ms ({bytes_ / dev['kernel'] / 1e6:.1f} GB/s), plain "
+          f"{dev['plain']:.4f} ms, sdpa {dev['library']:.4f} ms, kernel / sdpa "
+          f"{dev['kernel'] / dev['library']:.3f}, bound {bound:.4f} ms ({bound_by}: "
+          f"{bytes_ / 1e6:.2f} MB at 3.35 TB/s; {bound / dev['kernel']:.1%} of it); "
+          f"{moe_launches} launches on the serve_moe path (deepseek-v2-lite-16b)")
+    return {**fa, "path": "serve_moe",
+            "shape": f"MLA decode b={b} hq={hq} hkv={hkv} d={d} dv={dv} kv_len={kv_len} bf16",
+            "launches": moe_launches, "max_abs_err": errs["fa_mla_decode"],
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": ms["library"],
+            "device_ms": dev["kernel"], "device_plain_ms": dev["plain"],
+            "device_library_ms": dev["library"], "n_split": parts}
+
+
+def phase_times(stamp, plans, serve_launches, moe_launches, train_launches, errs, loop) -> list:
     """Each kernel at its main-path shape beside its bound, its plain version
     and, where one exists, the PyTorch call computing the same function. A
     matmul whose plan is not the searched tile (the model rated the default
@@ -2159,6 +2607,8 @@ def phase_times(stamp, plans, serve_launches, train_launches, errs, loop) -> lis
                     "bound_by": bound_by, "library_ms": ms["library"],
                     "device_ms": dev["kernel"], "device_plain_ms": dev["plain"],
                     "device_library_ms": dev["library"], "n_split": parts})
+
+    records.append(_time_mla_decode(stamp, gen, fa, errs, moe_launches))
 
     # flash attention at zamba2's training shape: causal over 2 x 2048, 32 heads of 80
     t = FA_TRAIN
@@ -2344,8 +2794,10 @@ def main() -> int:
     wm = phase_whole_model(stamp, gen)
     phase_search_engine(stamp, wm)
     serve_launches, decode_step = phase_serve(stamp)
+    moe = phase_serve_moe(stamp)
     train_launches, train_step = phase_train(stamp)
-    records = phase_times(stamp, plans, serve_launches, train_launches, errs, loop)
+    records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
+                          train_launches, errs, loop)
     report_whole_model(stamp, wm, decode_step, train_step, records)
     print(json.dumps({"kernels": records + mapper_records + wm["records"]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The kernel reads q/k/v in the model layout (b, S, h, d) through their
 strides, so a KV cache is attended in place. This module checks what the
 kernel takes and raises on anything else, allocates the output (and, for
 a split decode, the f32 scratch of the per-split partials), launches on
-the current stream and counts each call in ``flash_attention_cuda.launches``.
+the current stream and counts each call in ``flash_attention_cuda.launches``
+and, by the compiled head dim it ran, in ``launches_by_dim``.
 
 The checks that depend only on the layout (shapes, strides, dtypes,
 devices and tile) run once per layout: :func:`_layout` caches them with
@@ -162,6 +163,7 @@ def flash_attention_cuda(
     if err:
         raise RuntimeError(f"flash attention launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_dim[lay.D] += 1
     return out
 
 
@@ -201,4 +203,10 @@ def _layout(q_shape, k_shape, v_shape, q_stride, k_stride, v_stride, q_dtype, k_
                                               *out_stride))
 
 
-flash_attention_cuda.launches = 0
+def reset_launches() -> None:
+    """Set the total and per-compiled-D launch counts to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_dim = dict.fromkeys(HEAD_DIMS, 0)
+
+
+reset_launches()

@@ -1,4 +1,5 @@
-"""Model substrate of the port: decoders of attention and Mamba-2 blocks."""
+"""Model substrate of the port: decoders of attention (GQA or MLA, with a
+dense or Mixture-of-Experts FFN) and Mamba-2 blocks."""
 
 from repro_torch.models.model import (  # noqa: F401
     Model,

@@ -1,4 +1,4 @@
-"""Core layers: norms, RoPE, dense, chunked attention (GQA), MLP.
+"""Core layers: norms, RoPE, dense, chunked attention (GQA), MLA, MLP.
 
 Port of ``repro/models/layers.py``. The plain functions keep the JAX names
 and rounding order (f32 where JAX computes in f32, bf16 where it rounds to
@@ -7,7 +7,8 @@ mirror the JAX params pytree, so ``models.convert`` maps one onto the other
 by name. Weights keep JAX's (d_in, d_out) layout: ``dense`` is ``x @ w``.
 Attention uses a q-chunked full-softmax reference; with kernels switched on
 it goes to the flash-attention op instead (the kernel on a CUDA tensor).
-MLA waits for its slice.
+MLA (DeepSeek-V2's latent-compressed KV cache) attends through the same
+``mha`` at d = nope + rope and dv = v_head_dim.
 """
 
 from __future__ import annotations
@@ -213,6 +214,68 @@ class Attention(nn.Module):
         else:
             out = mha(q, k, v, causal=not cfg.encoder_only, q_offset=0)
         return self.wo(out.reshape(b, S, hq * hd))
+
+
+# --------------------------------------------------------------------- #
+# MLA attention (DeepSeek-V2): latent-compressed KV cache
+# --------------------------------------------------------------------- #
+class MLA(nn.Module):
+    """Multi-head latent attention. The cache holds the normalised latent
+    ``ckv`` (b, Smax, r) and the one rope key shared by all heads ``krope``
+    (b, Smax, dr); every call up-projects the whole latent to per-head keys
+    and values, as the reference does."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        r, dr, dn, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+        self.cfg = cfg
+        kw = dict(generator=generator, device=device)
+        self.wq = Dense(d, h * (dn + dr), **kw)
+        self.kv_down = Dense(d, r + dr, **kw)  # latent + shared rope key
+        self.kv_up = Dense(r, h * (dn + dv), **kw)
+        self.wo = Dense(h * dv, d, **kw)
+        self.latent_norm = _ones(r, device)
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (b, S, d)
+        positions: torch.Tensor,  # (S,) global positions of x
+        cache: Optional[Dict[str, torch.Tensor]] = None,  # {"ckv", "krope"}: (b, Smax, r | dr)
+        cache_len: Optional[int] = None,  # filled length of the cache before this call
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        b, S, _ = x.shape
+        h = cfg.n_heads
+        r, dr, dn, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
+        q = self.wq(x).reshape(b, S, h, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        down = self.kv_down(x)
+        ckv = rms_norm(down[..., :r], self.latent_norm, cfg.rms_eps)
+        cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(down[..., r:].reshape(b, S, 1, dr), cos, sin)
+        if cache is not None:
+            if cache_len + S > cache["ckv"].shape[1]:
+                raise ValueError(f"cache of {cache['ckv'].shape[1]} slots cannot take "
+                                 f"{S} token(s) at position {cache_len}")
+            # decode: write the latent and the rope key at cache_len IN PLACE,
+            # then up-project the whole cache
+            cache["ckv"][:, cache_len:cache_len + S] = ckv
+            cache["krope"][:, cache_len:cache_len + S] = k_rope.reshape(b, S, dr)
+            ckv, k_rope = cache["ckv"], cache["krope"].reshape(b, -1, 1, dr)
+            causal, q_offset, kv_len = False, cache_len, cache_len + S
+        else:
+            causal, q_offset, kv_len = True, 0, None
+        Skv = ckv.shape[1]
+        kv = self.kv_up(ckv).reshape(b, Skv, h, dn + dv)
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        # the rope key is shared by the heads: a stride-0 view, copied once by cat
+        k_full = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(b, Skv, h, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = mha(q_full, k_full, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                  sm_scale=1.0 / math.sqrt(dn + dr))
+        return self.wo(out.reshape(b, S, h * dv))
 
 
 # --------------------------------------------------------------------- #

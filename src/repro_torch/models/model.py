@@ -1,13 +1,19 @@
-"""Model assembly: token embedding + repeating-unit block stack + head.
+"""Model assembly: token embedding + prefix layers + repeating-unit block
+stack + head.
 
-Port of ``repro/models/model.py`` for attention and Mamba-2 blocks. JAX
-stacks the per-unit params and runs the units under ``jax.lax.scan``; here
-each layer is its own module in one flat ``model.blocks`` list, in layer
-order (unit i, pattern slot j is ``blocks[i * len(pattern) + j]``), and the
-stack is a Python loop over units. ``remat`` checkpoints each unit, as
-``jax.checkpoint(unit_fn)`` does. The decode cache is a list of per-layer
-dicts (``{"k", "v"}`` for attention, the conv windows and SSM state for
-Mamba-2), updated in place by ``decode_step``.
+Port of ``repro/models/model.py`` for attention (GQA or MLA) blocks with a
+dense MLP or a Mixture-of-Experts FFN, Mamba-2 blocks, and DeepSeek's
+``first_k_dense`` prefix of dense MLA layers (``model.prefix``, outside the
+units). JAX stacks the per-unit params and runs the units under
+``jax.lax.scan``; here each layer is its own module in one flat
+``model.blocks`` list, in layer order (unit i, pattern slot j is
+``blocks[i * len(pattern) + j]``), and the stack is a Python loop over
+units. ``remat`` checkpoints each unit, as ``jax.checkpoint(unit_fn)``
+does. Every block returns its router aux loss (zero without MoE), summed
+over the layers. The decode cache is a list of per-layer dicts, prefix
+layers first (``{"k", "v"}`` for attention, ``{"ckv", "krope"}`` for MLA,
+the conv windows and SSM state for Mamba-2), updated in place by
+``decode_step``; MoE decodes droplessly, ``forward`` drops past capacity.
 
 Public API (the JAX names):
   init_params(cfg, generator, device)           -> Model
@@ -19,17 +25,21 @@ Public API (the JAX names):
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import DTYPE, MLP, Attention, Dense, _ones, _randn, rms_norm
+from repro_torch.models.layers import DTYPE, MLA, MLP, Attention, Dense, _ones, _randn, rms_norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2, init_mamba2_cache
 
 Cache = List[Dict[str, torch.Tensor]]
+# (x, the block's router aux loss: a 0-d f32 tensor from a MoE FFN, else 0.0,
+# which costs the decode step no device work)
+BlockOut = Tuple[torch.Tensor, Union[torch.Tensor, float]]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -38,37 +48,52 @@ def _check_ported(cfg: ModelConfig) -> None:
     missing = []
     if any(kind not in ("attn", "mamba2") for kind in cfg.block_pattern):
         missing.append(f"blocks {cfg.block_pattern} (mlstm/slstm: ROADMAP A8)")
-    if cfg.n_routed_experts:
-        missing.append("MoE (ROADMAP A9)")
-    if cfg.first_k_dense:
-        missing.append("first_k_dense prefix layers (ROADMAP A9)")
-    if cfg.use_mla:
-        missing.append("MLA attention (ROADMAP A5)")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend (ROADMAP A10)")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
 
 
-class Block(nn.Module):
-    """Pre-norm attention block: x + attn(ln1(x)), then x + ffn(ln2(x))."""
+def n_units(cfg: ModelConfig) -> int:
+    """Units of ``block_pattern`` after the ``first_k_dense`` prefix layers
+    (``cfg.n_units`` counts the prefix too)."""
+    n_scanned = cfg.n_layers - cfg.first_k_dense
+    if n_scanned % len(cfg.block_pattern):
+        raise ValueError(f"{cfg.name}: {n_scanned} layers after the prefix do not divide "
+                         f"into units of {cfg.block_pattern}")
+    return n_scanned // len(cfg.block_pattern)
 
-    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+
+class Block(nn.Module):
+    """Pre-norm attention block (GQA or MLA): x + attn(ln1(x)), then
+    x + ffn(ln2(x)) with a MoE FFN where the config has routed experts and
+    ``moe`` is set (the units), else a dense MLP where it has ``d_ff``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device,
+                 moe: bool = True) -> None:
         super().__init__()
+        kw = dict(generator=generator, device=device)
         self.rms_eps = cfg.rms_eps
         self.ln1 = _ones(cfg.d_model, device)
-        self.attn = Attention(cfg, generator=generator, device=device)
-        if cfg.d_ff:
+        self.attn = MLA(cfg, **kw) if cfg.use_mla else Attention(cfg, **kw)
+        self.ffn = self.moe = None
+        if moe and cfg.n_routed_experts:
             self.ln2 = _ones(cfg.d_model, device)
-            self.ffn = MLP(cfg, generator=generator, device=device)
-        else:
-            self.ffn = None
+            self.moe = MoE(cfg, **kw)
+        elif cfg.d_ff:
+            self.ln2 = _ones(cfg.d_model, device)
+            self.ffn = MLP(cfg, **kw)
 
-    def forward(self, x, positions, cache=None, cache_len=None) -> torch.Tensor:
+    def forward(self, x, positions, cache=None, cache_len=None) -> BlockOut:
         x = x + self.attn(rms_norm(x, self.ln1, self.rms_eps), positions, cache, cache_len)
-        if self.ffn is not None:
+        aux = 0.0
+        if self.moe is not None:
+            # decode (cache present) routes droplessly, as the reference does
+            y, aux = self.moe(rms_norm(x, self.ln2, self.rms_eps), dropless=cache is not None)
+            x = x + y
+        elif self.ffn is not None:
             x = x + self.ffn(rms_norm(x, self.ln2, self.rms_eps))
-        return x
+        return x, aux
 
 
 class Mamba2Block(nn.Module):
@@ -80,9 +105,9 @@ class Mamba2Block(nn.Module):
         self.ln = _ones(cfg.d_model, device)
         self.core = Mamba2(cfg, generator=generator, device=device)
 
-    def forward(self, x, positions, cache=None, cache_len=None) -> torch.Tensor:
+    def forward(self, x, positions, cache=None, cache_len=None) -> BlockOut:
         y, _ = self.core(rms_norm(x, self.ln, self.cfg.rms_eps), cache)
-        return x + y
+        return x + y, 0.0
 
 
 _BLOCKS = {"attn": Block, "mamba2": Mamba2Block}
@@ -94,9 +119,14 @@ class Model(nn.Module):
         _check_ported(cfg)
         self.cfg = cfg
         self.embed = _randn((cfg.vocab, cfg.d_model), 0.02, generator, device)
+        # the dense prefix layers: attention blocks with an MLP, no MoE
+        self.prefix = nn.ModuleList(
+            Block(cfg, generator=generator, device=device, moe=False)
+            for _ in range(cfg.first_k_dense)
+        )
         self.blocks = nn.ModuleList(
             _BLOCKS[kind](cfg, generator=generator, device=device)
-            for _ in range(cfg.n_units) for kind in cfg.block_pattern
+            for _ in range(n_units(cfg)) for kind in cfg.block_pattern
         )
         self.final_norm = _ones(cfg.d_model, device)
         if not cfg.tie_embeddings:
@@ -137,19 +167,23 @@ def forward(
     x, _ = embed_inputs(cfg, model, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     P = len(cfg.block_pattern)
+    aux = 0.0  # a float until a MoE block adds its tensor: no device work without MoE
+    for blk in model.prefix:  # outside the units, as in the reference: no remat
+        x, a = blk(x, positions)
+        aux = aux + a
 
-    def unit_fn(x: torch.Tensor, i: int) -> torch.Tensor:
+    def unit_fn(x: torch.Tensor, aux, i: int) -> BlockOut:
         for blk in model.blocks[i * P:(i + 1) * P]:
-            x = blk(x, positions)
-        return x
+            x, a = blk(x, positions)
+            aux = aux + a
+        return x, aux
 
-    for i in range(cfg.n_units):
+    for i in range(n_units(cfg)):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(unit_fn, x, i, use_reentrant=False)
+            x, aux = checkpoint(unit_fn, x, aux, i, use_reentrant=False)
         else:
-            x = unit_fn(x, i)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # no MoE: no router loss
-    return lm_logits(cfg, model, x), aux
+            x, aux = unit_fn(x, aux, i)
+    return lm_logits(cfg, model, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
 def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
@@ -165,6 +199,10 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
+    if kind == "attn" and cfg.use_mla:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=DTYPE, device=device),
+                "krope": torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=DTYPE,
+                                     device=device)}
     if kind == "attn":
         shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
@@ -173,8 +211,11 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Cache:
-    return [_init_block_cache(cfg, kind, batch, max_len, device)
-            for _ in range(cfg.n_units) for kind in cfg.block_pattern]
+    """Per-layer caches in layer order: the prefix layers', then the units'."""
+    prefix = [_init_block_cache(cfg, "attn", batch, max_len, device)
+              for _ in range(cfg.first_k_dense)]
+    return prefix + [_init_block_cache(cfg, kind, batch, max_len, device)
+                     for _ in range(n_units(cfg)) for kind in cfg.block_pattern]
 
 
 @torch.no_grad()
@@ -186,11 +227,11 @@ def decode_step(
     pos: int,  # number of tokens already in the cache
 ) -> Tuple[torch.Tensor, Cache]:
     """One token for every sequence; updates ``cache`` in place (attention
-    K/V at ``pos``, Mamba-2 conv windows and state) and returns
-    (logits (b, vocab), cache)."""
+    K/V or MLA latents at ``pos``, Mamba-2 conv windows and state) and
+    returns (logits (b, vocab), cache). MoE routes droplessly."""
     assert cfg.supports_decode, f"{cfg.name} is encoder-only"
     x = model.embed[tokens]
     positions = torch.arange(pos, pos + 1, device=x.device)
-    for blk, c in zip(model.blocks, cache):
-        x = blk(x, positions, c, pos)
+    for blk, c in zip([*model.prefix, *model.blocks], cache, strict=True):
+        x, _ = blk(x, positions, c, pos)
     return lm_logits(cfg, model, x)[:, 0], cache

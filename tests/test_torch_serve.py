@@ -63,7 +63,18 @@ def _jax_margins(jcfg, jp, wave):
 
 @pytest.mark.parametrize("kernels_on", [False, True])
 def test_wave_server_tokens_match_jax(kernels_on, kernels_reset):
-    jcfg, cfg = jax_get_config(ARCH), get_config(ARCH)
+    _check_wave_server(ARCH, kernels_on)
+
+
+@pytest.mark.parametrize("kernels_on", [False, True])
+def test_moe_wave_server_tokens_match_jax(kernels_on, kernels_reset):
+    """deepseek-v2-lite's smoke config: a dense MLA prefix layer, then MLA
+    with a dropless MoE; the same rule."""
+    _check_wave_server("deepseek-v2-lite-16b_smoke", kernels_on)
+
+
+def _check_wave_server(arch, kernels_on):
+    jcfg, cfg = jax_get_config(arch), get_config(arch)
     jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
     model = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu").float()
     jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
