@@ -21,7 +21,10 @@ Phases (any failure raises and the exit code is non-zero):
      f32 (FMA) and bf16 (tensor-core) sweeps at D = 128-and-less and D = 80,
      the D = 192 instances (MLA's d = 192, dv = 128 zero-padded to them;
      prefill, GQA rows, decode), bf16 with many keys also within a
-     row-scaled limit that fails with a KV tile dropped; its autograd
+     row-scaled limit that fails with a KV tile dropped; the families
+     phase's shapes (hubert's ragged non-causal 8 x 1499 at D = 80,
+     llava's causal 3008 at GQA group 7, group 7 in the split decode); its
+     autograd
      wrapper's grads; the SSD kernel at the test_ssd_sweep shapes, the
      zamba2 training shape and hp = n = 128 with B/C materialised and
      expanded over heads with stride 0, and ``ssd_chunked`` against the
@@ -109,6 +112,29 @@ Phases (any failure raises and the exit code is non-zero):
      Then tokens/s, the decode step on and off, the busy share at KV ~512
      and peak memory; last, Union's predicted deepseek decode step (8 x
      512, h100_sm()) by role beside the measured one;
+  families: the configs whose blocks and frontends were ported last, at
+     full width, each freed before the next. xlstm-1.3b (3.49 B; 8 units of
+     5 mLSTM + 1 sLSTM; no attention, so no kernel) serves the serve
+     phase's load through ``WaveServer``; its decode is held against the
+     chunked forward on one unit cut from it in float32 over 512 positions
+     (two mLSTM chunks; 2e-3) and on the full model in bf16 after a
+     prefill of one wave, each tolerance failing with the first mLSTM
+     layer's stabiliser m reset to 0; tokens/s, the decode step on and off,
+     the busy share, the step's byte bound (weights + twice the recurrent
+     state), peak memory and Union's predicted step. hubert-xlarge
+     (0.95 B, encoder-only) encodes 8 x 1499 frames (forward and loss):
+     48 flash-attention launches a forward, all non-causal and many-row at
+     D = 80; logits kernels on vs off (the plain attention in one
+     1499-row chunk), failing with the partial last KV tile dropped; the
+     last frame must move the first position, which a mask forced causal
+     cannot; frames/s, busy share, peak memory, the loss. llava-next-34b
+     (34.45 B) prefills 2880 patch embeddings and 128 text tokens at full
+     depth (cut, and said so, only if the card cannot hold it): 60 causal
+     many-row launches at GQA group 7; time to the first token; the text
+     logits kernels on vs off at full depth in bf16 and on the first 4
+     layers in float32 (2e-3), each failing with the last KV tile dropped;
+     zeroed patch embeddings must move them; busy share, peak memory and
+     Union's predicted prefill and encode;
   6. train: zamba2-2.7b at full width (2.90 B parameters, random weights
      from a seeded generator) through ``repro_torch.launch.train.main``:
      batch 2 x 2048 tokens of ``SyntheticLM``, 8 AdamW steps, remat on,
@@ -123,7 +149,9 @@ Phases (any failure raises and the exit code is non-zero):
      function (a yardstick only: the port never calls it): flash attention
      at decode (eager calls, as serving pays them, and device time by
      CUDA-graph replay; GB/s, n_split), at the MLA decode shape (b = 8,
-     16/16 heads, d 192, dv 128, kv_len 512) and at the training shape (TFLOP/s; the
+     16/16 heads, d 192, dv 128, kv_len 512), at hubert's encode and
+     llava's prefill shapes (the families path's launches) and at the
+     training shape (TFLOP/s; the
      planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
      four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
      the plain version without its last 64 of K must fail the tolerance);
@@ -186,6 +214,7 @@ from repro_torch.core.opstream import (  # noqa: E402
 from repro_torch.core.optimizer import union_opt, union_opt_sweep  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     MAX_BK,
     flash_attention_cuda,
@@ -241,7 +270,7 @@ from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.serve import Request, WaveServer  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
-from repro_torch.models import decode_step, forward, init_cache, init_params  # noqa: E402
+from repro_torch.models import decode_step, forward, init_cache, init_params, loss_fn  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.moe import MoE  # noqa: E402
@@ -334,6 +363,22 @@ FA_D192 = [
     ("MLA decode d=192 dv=128 full cache", (8, 1, 512, 16, 16, 192, 128), False, 511, 512),
     ("D=192 decode, GQA 2:1", (8, 1, 512, 16, 8, 192, 192), False, 511, 512),
 ]
+
+# the families phase's attention: hubert-xlarge's non-causal encode (8 x
+# 1499 frames, 16/16 heads of 80: the last 64-row tile holds 27 rows and the
+# last KV tile is partial) and llava-next-34b's causal prefill (2880 + 128
+# positions, 56/8 heads of 128: GQA group 7), then group 7 in the split
+# decode (bq = 1). (name, (b, sq, skv, hq, hkv, d), causal, q_offset,
+# kv_len, dtypes)
+FA_FAMILIES = [
+    ("hubert encode", (8, 1499, 1499, 16, 16, 80), False, 0, None, (torch.bfloat16,)),
+    ("llava prefill", (1, 3008, 3008, 56, 8, 128), True, 0, None, (torch.bfloat16,)),
+    ("group 7 decode kv_len=3009", (1, 1, 3072, 56, 8, 128), False, 3008, 3009,
+     (torch.bfloat16, torch.float32)),
+    ("group 7 decode kv_len=1", (2, 1, 512, 56, 8, 128), False, 0, 1,
+     (torch.bfloat16, torch.float32)),
+]
+FAMILY_ERRS = {"hubert encode": "fa_hubert", "llava prefill": "fa_llava"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -576,8 +621,13 @@ def phase_kernels() -> dict:
     cases += [(name, shape, causal, q_offset, kv_len, dtype)
               for dtype in (torch.bfloat16, torch.float32)
               for name, shape, causal, q_offset, kv_len in FA_D192]
+    # the families phase's shapes: hubert's ragged non-causal encode, llava's
+    # group-7 prefill, and group 7 in the split decode
+    cases += [(name, shape, causal, q_offset, kv_len, dtype)
+              for name, shape, causal, q_offset, kv_len, dtypes in FA_FAMILIES for dtype in dtypes]
     # bf16 with many keys: also held to the row-scaled limit, whose teeth are shown
-    rows_checked = {"causal prefill", "train (zamba2)"} | {c[0] for c in FA_D192 if c[4] is None}
+    rows_checked = ({"causal prefill", "train (zamba2)"} | {c[0] for c in FA_D192 if c[4] is None}
+                    | {c[0] for c in FA_FAMILIES if c[4] is None})
     errs = {"fa_decode": 0.0}
     for name, shape, causal, q_offset, kv_len, dtype in cases:
         b_, sq, skv, _, hkv_, d_ = shape[:6]
@@ -615,6 +665,8 @@ def phase_kernels() -> dict:
             line += f"; n_split {parts}; slots past kv_len unread"
         if name.startswith("train"):
             errs["fa_train"] = err
+        if name in FAMILY_ERRS and dtype == torch.bfloat16:
+            errs[FAMILY_ERRS[name]] = err
         print(line)
 
     # the autograd wrapper: kernel forward, backward by recompute through the plain version
@@ -850,36 +902,69 @@ def _first_decode_logits(cfg, model, prompts, first_tokens, kernels_on):
     return logits.float()
 
 
+def _served(cfg, model, n_req, max_new) -> dict:
+    """n_req seeded prompts of 32-192 tokens served through ``WaveServer``
+    (SLOTS slots, MAX_LEN, kernels on; the flash-attention counts and the
+    peak memory reset first), each request checked for max_new tokens in
+    the vocab. Returns the prompts, waves, steps run, finished requests
+    (by rid), seconds and peak bytes."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(32, 193))).tolist()
+               for _ in range(n_req)]
+    waves = [prompts[i:i + SLOTS] for i in range(0, n_req, SLOTS)]
+    kernels.enable_kernels(True)
+    server = WaveServer(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN)
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid, p, max_new))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa_launches()
+    t0 = time.perf_counter()
+    done = server.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(sorted(r.rid for r in done) == list(range(n_req)), f"{cfg.name}: not every request served")
+    for r in done:
+        check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
+              f"{cfg.name} request {r.rid}: {len(r.out)} tokens, want {max_new} in "
+              f"[0, {cfg.vocab})")
+    return {"prompts": prompts, "waves": waves,
+            # each wave: one step per prefill token, then max_new - 1 decode steps
+            "steps": sum(max(len(p) for p in w) + max_new - 1 for w in waves),
+            "done": sorted(done, key=lambda r: r.rid), "dt": dt,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _decode_ms(cfg, model, toks, pos, n) -> dict:
+    """The eager decode step's ms with the kernels on and off in turns (on,
+    off, on, off): each turn 3 warm-up steps at ``pos``, then n timed from
+    ``pos`` on a fresh cache. Returns {on: [ms of each turn]}."""
+    step_ms = {}
+    for on in (True, False, True, False):
+        kernels.enable_kernels(on)
+        cache = init_cache(cfg, SLOTS, MAX_LEN, "cuda")
+        for _ in range(3):
+            decode_step(cfg, model, cache, toks, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            decode_step(cfg, model, cache, toks, pos + i)
+        torch.cuda.synchronize()
+        step_ms.setdefault(on, []).append((time.perf_counter() - t0) / n * 1e3)
+        del cache
+    kernels.enable_kernels(True)
+    return step_ms
+
+
 def phase_serve(stamp):
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = init_params(cfg, gen, "cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(32, 193))).tolist()
-               for _ in range(N_REQ)]
-    waves = [prompts[i:i + SLOTS] for i in range(0, N_REQ, SLOTS)]
-    # each wave: one step per prefill token, then MAX_NEW - 1 decode steps
-    steps = sum(max(len(p) for p in w) + MAX_NEW - 1 for w in waves)
-
-    kernels.enable_kernels(True)
-    server = WaveServer(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN)
-    for rid, p in enumerate(prompts):
-        server.submit(Request(rid, p, MAX_NEW))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention_cuda.launches = 0
-    t0 = time.perf_counter()
-    done = server.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    run = _served(cfg, model, N_REQ, MAX_NEW)
+    prompts, waves, steps, done, dt, peak = (run[k] for k in ("prompts", "waves", "steps", "done",
+                                                               "dt", "peak"))
     launches = flash_attention_cuda.launches
-    peak = torch.cuda.max_memory_allocated()
-
-    check(sorted(r.rid for r in done) == list(range(N_REQ)), "not every request was served")
-    for r in done:
-        check(len(r.out) == MAX_NEW and all(0 <= t < cfg.vocab for t in r.out),
-              f"request {r.rid}: {len(r.out)} tokens, want {MAX_NEW} in [0, {cfg.vocab})")
     check(launches == cfg.n_layers * steps,
           f"flash_attention launches {launches} != n_layers {cfg.n_layers} x steps {steps}")
     new_tokens = sum(len(r.out) for r in done)
@@ -887,7 +972,7 @@ def phase_serve(stamp):
           f"max_len {MAX_LEN}, prompts {min(map(len, prompts))}-{max(map(len, prompts))} tokens, "
           f"{steps} steps, flash_attention launches {launches} = {cfg.n_layers} x {steps}")
 
-    wave0 = sorted(done, key=lambda r: r.rid)[:SLOTS]
+    wave0 = done[:SLOTS]
     first = torch.tensor([r.out[0] for r in wave0], device="cuda")
     on = _first_decode_logits(cfg, model, waves[0], first, True)
     off = _first_decode_logits(cfg, model, waves[0], first, False)
@@ -907,20 +992,8 @@ def phase_serve(stamp):
               f"argmax agreement {agree:.3f}")
         check(diff <= MODEL_LOGIT_TOL, f"model logits vs {name}: {diff} > {MODEL_LOGIT_TOL}")
 
-    step_ms = {}
     toks = torch.tensor([[r.out[-1]] for r in wave0], device="cuda")
-    for on_ in (True, False, True, False):
-        kernels.enable_kernels(on_)
-        cache = init_cache(cfg, SLOTS, MAX_LEN, "cuda")
-        for _ in range(3):
-            decode_step(cfg, model, cache, toks, 200)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(20):
-            decode_step(cfg, model, cache, toks, 200 + i)
-        torch.cuda.synchronize()
-        step_ms.setdefault(on_, []).append((time.perf_counter() - t0) / 20 * 1e3)
-    kernels.enable_kernels(True)
+    step_ms = _decode_ms(cfg, model, toks, 200, 20)
     _profile_decode(stamp, cfg, model, toks, 200)
     # at the last positions too, where the whole_model phase's decode stream
     # (KV = MAX_LEN) sits
@@ -1048,7 +1121,8 @@ def _moe_decode_wave(cfg, model, prompts, first, kernels_on, routes=None):
     kernels.enable_kernels(kernels_on)
     toks = torch.cat([_wave_tokens(prompts), first[:, None]], 1)
     dtype = model.embed.dtype
-    cache = [{k: t.to(dtype) for k, t in c.items()}
+    dtype = next(model.parameters()).dtype
+    cache = [{k: t.to(dtype) if t.dtype == torch.bfloat16 else t for k, t in c.items()}
              for c in init_cache(cfg, len(prompts), MAX_LEN, "cuda")]
     with (_routes_forced(model, routes) if routes is not None else _moe_routes(model)) as chosen:
         for t in range(toks.shape[1]):
@@ -1095,13 +1169,14 @@ def _check_logits(cfg, label, got, ref, tol, faults):
         check(d > tol, f"{cfg.name} {label}: the tolerance {tol} passes the {name} ({d})")
 
 
-def _cut_f32(cfg, model, n_layers):
-    """The first ``n_layers`` of ``model`` (its prefix first), with its
-    embedding and head, as a float32 model of its own."""
+def _cut_f32(cfg, named, n_layers):
+    """The first ``n_layers`` of a model given by its ``named_parameters()``
+    (its prefix first), with its embedding, frontend and head, as a float32
+    model of its own on the card."""
     cut = dataclasses.replace(cfg, n_layers=min(n_layers, cfg.n_layers))
     small = Model(cut, generator=None, device="meta")
     names = {n for n, _ in small.named_parameters()}
-    small.load_state_dict({n: p.detach().float() for n, p in model.named_parameters()
+    small.load_state_dict({n: p.detach().to("cuda", torch.float32) for n, p in named
                            if n in names}, strict=True, assign=True)
     return cut, small
 
@@ -1133,7 +1208,7 @@ def _moe_logit_checks(cfg, model, waves, wave0):
     toks = torch.cat([_wave_tokens(waves[0]), first[:, None]], 1)
     S, k = toks.shape[1], cfg.top_k
     moved = None
-    cut, small = _cut_f32(cfg, model, MOE_CUT_LAYERS)
+    cut, small = _cut_f32(cfg, model.named_parameters(), MOE_CUT_LAYERS)
     for label, c, m, tol in (("full depth, bf16", cfg, model, MOE_LOGIT_TOL),
                              (f"first {cut.n_layers} layers, float32", cut, small, MOE_CUT_TOL)):
         n_moe = sum(isinstance(x, MoE) for x in m.modules())
@@ -1177,32 +1252,12 @@ def _serve_moe_model(stamp, arch, n_req, max_new) -> dict:
     check(len(model.prefix) + len(model.blocks) == cfg.n_layers,
           f"{arch}: {len(model.prefix)} prefix + {len(model.blocks)} unit layers, "
           f"want {cfg.n_layers}")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(32, 193))).tolist()
-               for _ in range(n_req)]
-    waves = [prompts[i:i + SLOTS] for i in range(0, n_req, SLOTS)]
-    steps = sum(max(len(p) for p in w) + max_new - 1 for w in waves)
     D = (compiled_dim(cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim) if cfg.use_mla
          else compiled_dim(cfg.head_dim, cfg.head_dim))
-
-    kernels.enable_kernels(True)
-    server = WaveServer(cfg, model, batch_slots=SLOTS, max_len=MAX_LEN)
-    for rid, p in enumerate(prompts):
-        server.submit(Request(rid, p, max_new))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_fa_launches()
-    t1 = time.perf_counter()
-    done = server.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
+    run = _served(cfg, model, n_req, max_new)
+    prompts, waves, steps, done, dt, peak = (run[k] for k in ("prompts", "waves", "steps", "done",
+                                                               "dt", "peak"))
     launches, by_dim = flash_attention_cuda.launches, dict(flash_attention_cuda.launches_by_dim)
-    peak = torch.cuda.max_memory_allocated()
-
-    check(sorted(r.rid for r in done) == list(range(n_req)), f"{arch}: not every request served")
-    for r in done:
-        check(len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out),
-              f"{arch} request {r.rid}: {len(r.out)} tokens, want {max_new} in [0, {cfg.vocab})")
     check(launches == cfg.n_layers * steps == by_dim[D],
           f"{arch}: flash_attention launches {launches} (by compiled D {by_dim}) != n_layers "
           f"{cfg.n_layers} x steps {steps}, all at D = {D}")
@@ -1216,24 +1271,11 @@ def _serve_moe_model(stamp, arch, n_req, max_new) -> dict:
           f"{max(map(len, prompts))} tokens, {steps} steps, flash_attention launches {launches} = "
           f"{cfg.n_layers} x {steps}, all on the D = {D} instance")
 
-    wave0 = sorted(done, key=lambda r: r.rid)[:SLOTS]
+    wave0 = done[:SLOTS]
     flipped = _moe_logit_checks(cfg, model, waves, wave0)
 
-    step_ms = {}
     toks = torch.tensor([[r.out[-1]] for r in wave0], device="cuda")
-    for on_ in (True, False, True, False):
-        kernels.enable_kernels(on_)
-        cache = init_cache(cfg, SLOTS, MAX_LEN, "cuda")
-        for _ in range(3):
-            decode_step(cfg, model, cache, toks, MOE_TIMED_POS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for i in range(MOE_TIMED_STEPS):
-            decode_step(cfg, model, cache, toks, MOE_TIMED_POS + i)
-        torch.cuda.synchronize()
-        step_ms.setdefault(on_, []).append((time.perf_counter() - t1) / MOE_TIMED_STEPS * 1e3)
-        del cache
-    kernels.enable_kernels(True)
+    step_ms = _decode_ms(cfg, model, toks, MOE_TIMED_POS, MOE_TIMED_STEPS)
     busy = _profile_decode(stamp, cfg, model, toks, MAX_LEN - PROFILE_STEPS - 1)
     wall = min(step_ms[True])
     print(f"time [{stamp}] serve_moe {arch}: {new_tokens} new tokens in {dt:.3f} s = "
@@ -1245,19 +1287,18 @@ def _serve_moe_model(stamp, arch, n_req, max_new) -> dict:
           f"{MAX_LEN} (profiled) "
           + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} of the "
                                                   f"eager step)"))
-    del server, done, model
+    del run, done, model
     return {"launches": launches, "steps": steps, "wall_ms": wall, "device_ms": busy,
             "tok_s": new_tokens / dt, "peak_gib": peak / 2**30, "flipped": flipped}
 
 
-def _union_moe_decode(stamp, measured) -> None:
-    """Union's prediction of deepseek-v2-lite's decode step (8 slots x
-    max_len 512) on ``h100_sm()``, by role, beside the measured step: one
-    ``union_opt_sweep`` of the stream's mappable entries (heuristic mapper,
-    timeloop model, numpy engine), as the whole_model phase sweeps. A
+def _union_step(model, shape) -> tuple:
+    """Union's prediction of one step of ``model`` at ``shape`` on
+    ``h100_sm()``: one ``union_opt_sweep`` of the stream's mappable entries
+    (heuristic mapper, timeloop model, numpy engine), as the whole_model
+    phase sweeps. Returns (predicted ms, a line describing it). A
     prediction, printed only."""
     arch = h100_sm()
-    model, shape = MOE_STREAM
     s = build_opstream(model, shape)
     r = reconcile_model_flops(s)
     lo, hi = RECONCILE_BAND
@@ -1270,13 +1311,21 @@ def _union_moe_decode(stamp, measured) -> None:
     c = aggregate_stream_costs([s], index, sweep.solutions, arch)[0]
     pred = c.latency_s * 1e3
     roles = ", ".join(f"{k} {v['latency_s'] * 1e3:.4f}" for k, v in c.roles.items())
+    return pred, (f"{getattr(model, 'name', model)} {shape.name} ({len(s)} unique entries, "
+                  f"stream / MODEL_FLOPS "
+                  f"{r['ratio']:.4f}; sweep of {len(tasks)} entries {sweep_s:.2f} s host) predicts "
+                  f"{pred:.4f} ms a step (ms by role: {roles})")
+
+
+def _union_moe_decode(stamp, measured) -> None:
+    """Union's prediction of deepseek-v2-lite's decode step (8 slots x
+    max_len 512) on ``h100_sm()``, by role, beside the measured step."""
+    pred, line = _union_step(*MOE_STREAM)
     dev = ("device busy not measured (the profiler saw no kernel)" if measured["device_ms"] is None
            else f"device busy {measured['device_ms']:.3f} ms (profiled at KV "
                 f"{MAX_LEN - PROFILE_STEPS + 1}-{MAX_LEN}), {measured['device_ms'] / pred:.2f}x "
                 f"the prediction")
-    print(f"serve_moe [{stamp}] Union: {model} {shape.name} ({len(s)} unique entries, stream / "
-          f"MODEL_FLOPS {r['ratio']:.4f}; sweep of {len(tasks)} entries {sweep_s:.2f} s host) "
-          f"predicts {pred:.4f} ms a step (ms by role: {roles}); measured step: {dev}; wall "
+    print(f"serve_moe [{stamp}] Union: {line}; measured step: {dev}; wall "
           f"{measured['wall_ms']:.3f} ms (eager, positions {MOE_TIMED_POS}-"
           f"{MOE_TIMED_POS + MOE_TIMED_STEPS - 1}), "
           f"{measured['wall_ms'] / pred:.2f}x")
@@ -1297,6 +1346,485 @@ def phase_serve_moe(stamp) -> dict:
     torch.cuda.empty_cache()
     _union_moe_decode(stamp, out[MOE_STREAM[0]])
     print(f"time [{stamp}] serve_moe phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# families: the three configs whose block kinds and frontends were ported
+# last, at full width and depth, each freed before the next. xlstm-1.3b
+# (mLSTM + sLSTM, no attention) serves the serve phase's load; the f32 check
+# runs one unit (5 mLSTM + 1 sLSTM) cut from it at XLSTM_CUT_L = 512
+# positions, two mLSTM chunks of 256 (the chunk carry), against
+# test_arch_smoke.py's decode bound
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_CUT_L, XLSTM_CUT_TOL = 512, 2e-3
+# xlstm's first decode step after a prefill of wave 0 against the chunked
+# forward at full depth. In bf16 the two forms of the recurrence round
+# differently (q, k, v and the conv in bf16 feed exponential gates) and the
+# difference grows ~2x a unit until the logits decorrelate: on the H100,
+# 5.39 of |logit| 5.19 at 48 layers, argmax agreement 0, as far from the
+# forward as a reset stabiliser (5.58). The reference grows the same way:
+# full width, bf16, on the CPU, 0.242 of 3.6 at 6 layers and 0.524 of 3.25
+# at 12 (the port 0.249 and 0.543). So bf16 is printed and float32 held:
+# on the H100 0.00508 of |logit| 4.61 at 48 layers, against 5.36 with a
+# reset stabiliser
+XLSTM_BF16_GROWTH = ("the reference's own bf16 decode and forward drift apart the same way, "
+                     "~2x a unit")
+XLSTM_F32_TOL = 2e-2
+XLSTM_STREAM = (XLSTM_ARCH, ShapeConfig("h100_decode", MAX_LEN, SLOTS, "decode"))
+# hubert-xlarge: 8 clips of 30 s of 16 kHz audio, 1499 frames each after
+# HuBERT's conv stack (stubbed: random frame embeddings of d_frontend 512)
+HUBERT = dict(arch="hubert-xlarge", b=8, frames=1499)
+# llava-next-34b: one anyres image (2880 patch embeddings) and a 128-token prompt
+LLAVA = dict(arch="llava-next-34b", b=1, text=128)
+LLAVA_CUT_LAYERS, LLAVA_CUT_TOL = 4, 2e-3
+LLAVA_ACT_RESERVE = 12 * 2**30  # bytes the prefill and its kernels-off check need beside the weights
+# kernels on vs off at full depth in bf16: the kernel and the plain version
+# round P and the attention output to bf16 at other points. On the H100
+# (PERF.md): 0.0732 (hubert, 48 layers) and 0.1017 (llava's text
+# logits, 60 layers), against 0.1211 and 0.1406 with the last KV tile
+# dropped in every layer of the plain version
+FAMILY_TOL = {"hubert-xlarge": 0.1, "llava-next-34b": 0.12}
+FAMILY_TIMED = 3  # timed forwards after the first
+
+
+@contextlib.contextmanager
+def _fa_launch_log():
+    """Records (q shape, k shape, causal, bq) of every flash-attention
+    kernel launch inside the block; the launch counts stay the kernel's."""
+    calls, orig = [], fa_ops.flash_attention_cuda
+
+    def logged(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw["causal"], kw["bq"]))
+        return orig(q, k, v, **kw)
+
+    fa_ops.flash_attention_cuda = logged
+    try:
+        yield calls
+    finally:
+        fa_ops.flash_attention_cuda = orig
+
+
+@contextlib.contextmanager
+def _attention_patched(q_chunk=None, causal=None, drop_tail=0):
+    """Every attention call of the model with its arguments replaced: the
+    plain version's row chunk ``q_chunk`` (which must divide the sequence;
+    the model passes 1024), ``causal``, or the last ``drop_tail`` keys
+    masked out through ``kv_len``, as a kernel that lost its last KV tile."""
+    orig = model_layers.mha
+
+    forced = causal
+
+    def patched(q, k, v, *, causal: bool, q_offset=0, kv_len=None, **kw):
+        if drop_tail:
+            kv_len = (k.shape[1] if kv_len is None else kv_len) - drop_tail
+        if q_chunk is not None:
+            kw["q_chunk"] = q_chunk
+        return orig(q, k, v, causal=causal if forced is None else forced, q_offset=q_offset,
+                    kv_len=kv_len, **kw)
+
+    model_layers.mha = patched
+    try:
+        yield
+    finally:
+        model_layers.mha = orig
+
+
+def _max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _timed_forwards(cfg, model, batch, n=FAMILY_TIMED) -> list:
+    """Seconds of each of n synchronised forwards, kernels on."""
+    out = []
+    with torch.no_grad():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(cfg, model, batch)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def _xlstm_unit_f32(cfg, model) -> None:
+    """Decode against the chunked forward on one unit cut from the model
+    (5 mLSTM + 1 sLSTM at full width, with its embedding and head), float32
+    weights and caches, over XLSTM_CUT_L positions: two mLSTM chunks. The
+    tolerance must fail the decode with the first mLSTM layer's stabiliser
+    m reset to 0 at the chunk boundary."""
+    cut, small = _cut_f32(cfg, model.named_parameters(), len(cfg.block_pattern))
+    L, half = XLSTM_CUT_L, XLSTM_CUT_L // 2
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab, (2, L))).cuda()
+    with torch.no_grad():
+        full, _ = forward(cut, small, {"tokens": toks})
+    cache = [{k: t.float() for k, t in c.items()} for c in init_cache(cut, 2, L, "cuda")]
+    steps = [decode_step(cut, small, cache, toks[:, t:t + 1], t)[0] for t in range(half)]
+    faulted = [{k: t.clone() for k, t in c.items()} for c in cache]
+    faulted[0]["m"].zero_()
+    steps += [decode_step(cut, small, cache, toks[:, t:t + 1], t)[0] for t in range(half, L)]
+    bad = [decode_step(cut, small, faulted, toks[:, t:t + 1], t)[0] for t in range(half, L)]
+    err, ok = _allclose([torch.stack(steps, 1)], [full], XLSTM_CUT_TOL)
+    planted, planted_ok = _allclose([torch.stack(bad, 1)], [full[:, half:]], XLSTM_CUT_TOL)
+    print(f"families {cfg.name}: one unit ({', '.join(cfg.block_pattern)}) cut at full width, "
+          f"float32, {L} decode steps from the -1e30 caches vs the chunked forward (two mLSTM "
+          f"chunks of {half}): max abs diff {err:.4g} (rtol = atol = {XLSTM_CUT_TOL}), |logit| "
+          f"max {full.abs().max().item():.3g}; teeth: the first mLSTM layer's m reset to 0 at "
+          f"position {half}: {planted:.4g}, " + ("outside" if not planted_ok else "INSIDE")
+          + " the tolerance")
+    check(ok, f"{cfg.name} one unit f32: decode vs forward {err} not within {XLSTM_CUT_TOL}")
+    check(not planted_ok, f"{cfg.name} one unit f32: the tolerance passes a reset stabiliser")
+    del small, cache, faulted
+
+
+def _xlstm_first_step(cfg, model, prompts, first):
+    """The first decode step after a prefill of one wave (token by token
+    through the recurrent steps; the caches in the model's dtype where the
+    served caches are bf16: the conv windows) and the chunked
+    forward's last position over the same tokens; also the step with the
+    first mLSTM layer's m reset to 0 in the prefilled cache. Returns
+    (step, forward, faulted step) logits in f32."""
+    toks = torch.cat([_wave_tokens(prompts), first[:, None]], 1)
+    pos = toks.shape[1] - 1
+    dtype = next(model.parameters()).dtype
+    cache = [{k: t.to(dtype) if t.dtype == torch.bfloat16 else t for k, t in c.items()}
+             for c in init_cache(cfg, len(prompts), MAX_LEN, "cuda")]
+    for t in range(pos):
+        decode_step(cfg, model, cache, toks[:, t:t + 1], t)
+    faulted = [{k: t.clone() for k, t in c.items()} for c in cache]
+    faulted[0]["m"].zero_()
+    step = decode_step(cfg, model, cache, toks[:, pos:], pos)[0].float()
+    bad = decode_step(cfg, model, faulted, toks[:, pos:], pos)[0].float()
+    with torch.no_grad():
+        full = forward(cfg, model, {"tokens": toks})[0][:, -1].float()
+    return step, full, bad
+
+
+def _xlstm_full_depth(cfg, model, prompts, first) -> None:
+    """The first decode step after a prefill of one wave against the
+    chunked forward at full depth. In bf16, as served, the two forms of
+    the recurrence round differently and the difference grows with depth
+    until they decorrelate (the reference's own do: XLSTM_BF16_GROWTH), so
+    it is printed, not held; the full model cast to float32 is held to
+    XLSTM_F32_TOL, which must fail the step with the first mLSTM layer's
+    stabiliser m reset to 0 in the prefilled cache."""
+    pos = max(map(len, prompts))
+    step, full, bad = _xlstm_first_step(cfg, model, prompts, first)
+    agree = (step.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"families {cfg.name}: full depth bf16 (as served), the first decode step after a "
+          f"{pos}-token prefill vs the chunked forward's last position: max abs diff "
+          f"{_max_diff(step, full):.4g}, |logit| max {full.abs().max().item():.3g}, argmax "
+          f"agreement {agree:.3f}; the m-reset step {_max_diff(bad, full):.4g} from the forward "
+          f"(printed, not held: {XLSTM_BF16_GROWTH})")
+    cut, f32 = _cut_f32(cfg, model.named_parameters(), cfg.n_layers)
+    step, full, bad = _xlstm_first_step(cut, f32, prompts, first)
+    diff, planted = _max_diff(step, full), _max_diff(bad, full)
+    agree = (step.argmax(-1) == full.argmax(-1)).float().mean().item()
+    print(f"families {cfg.name}: full depth float32 (the served weights cast), the same step: "
+          f"max abs diff {diff:.4g} (tol {XLSTM_F32_TOL}), |logit| max "
+          f"{full.abs().max().item():.3g}, argmax agreement {agree:.3f}; teeth: the first mLSTM "
+          f"layer's m reset to 0 after the prefill: {planted:.4g} (must exceed {XLSTM_F32_TOL})")
+    check(bool(torch.isfinite(step).all()) and diff <= XLSTM_F32_TOL,
+          f"{cfg.name} f32 decode vs forward at full depth: {diff} > {XLSTM_F32_TOL}")
+    check(planted > XLSTM_F32_TOL,
+          f"{cfg.name} f32: the tolerance {XLSTM_F32_TOL} passes a reset stabiliser ({planted})")
+    del f32
+
+
+def _families_xlstm(stamp) -> dict:
+    """xlstm-1.3b served through WaveServer at the serve phase's load, its
+    decode checked against the chunked forward (one unit in f32, full depth
+    in bf16), timed and profiled, beside its byte bound and Union's
+    predicted step."""
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    run = _served(cfg, model, N_REQ, MAX_NEW)
+    prompts, waves, steps, done, dt, peak = (run[k] for k in ("prompts", "waves", "steps", "done",
+                                                               "dt", "peak"))
+    check(flash_attention_cuda.launches == 0, f"{cfg.name} has no attention layer, yet flash "
+                                              f"attention launched {flash_attention_cuda.launches}")
+    new_tokens = sum(len(r.out) for r in done)
+    dh = cfg.d_inner // cfg.n_heads
+    print(f"families {cfg.name}: {n_params / 1e9:.3f} B params bf16 (random init {init_s:.1f} s), "
+          f"{cfg.n_layers} layers ({cfg.n_layers // len(cfg.block_pattern)} units of "
+          f"{'+'.join(cfg.block_pattern)}), d {cfg.d_model}, {cfg.n_heads} heads, d_inner "
+          f"{cfg.d_inner} (mLSTM heads of {dh}, sLSTM heads of {cfg.d_model // cfg.n_heads}); "
+          f"{N_REQ} requests, slots {SLOTS}, max_len {MAX_LEN}, prompts {min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens, {steps} steps; no attention layer and no TPU kernel "
+          f"on this path: flash attention launched 0 times")
+
+    _xlstm_unit_f32(cfg, model)
+    wave0 = done[:SLOTS]
+    _xlstm_full_depth(cfg, model, waves[0], torch.tensor([r.out[0] for r in wave0], device="cuda"))
+
+    toks = torch.tensor([[r.out[-1]] for r in wave0], device="cuda")
+    step_ms = _decode_ms(cfg, model, toks, MOE_TIMED_POS, MOE_TIMED_STEPS)
+    busy = _profile_decode(stamp, cfg, model, toks, MAX_LEN - PROFILE_STEPS - 1)
+    wall = min(step_ms[True])
+    state = init_cache(cfg, SLOTS, MAX_LEN, "meta")
+    state_bytes = sum(t.numel() * t.element_size() for c in state for t in c.values())
+    mlstm_bytes = sum(t.numel() * t.element_size() for c in state if "C" in c for t in c.values())
+    bound = (2 * n_params + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"time [{stamp}] families {cfg.name}: {new_tokens} new tokens in {dt:.3f} s = "
+          f"{new_tokens / dt:.1f} tok/s ({steps * SLOTS / dt:.1f} tok/s incl. prefill); peak memory "
+          f"{peak / 2**30:.3f} GiB (weights {n_params * 2 / 2**30:.3f} GiB)")
+    print(f"time [{stamp}] families {cfg.name} decode step (b={SLOTS}, pos {MOE_TIMED_POS}-"
+          f"{MOE_TIMED_POS + MOE_TIMED_STEPS - 1}): kernels on {wall:.3f} ms, kernels off "
+          f"{min(step_ms[False]):.3f} ms (no kernel on this path); device busy (profiled) "
+          + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / wall:.1%} of the eager "
+                                                  f"step)")
+          + f"; byte bound {bound:.3f} ms (weights {n_params * 2 / 1e9:.2f} GB read once, the "
+            f"recurrent state {state_bytes / 1e9:.2f} GB, of which mLSTM {mlstm_bytes / 1e9:.2f} "
+            f"GB, read and written once, at 3.35 TB/s)")
+    pred, line = _union_step(*XLSTM_STREAM)
+    print(f"families [{stamp}] Union: {line}; measured step: device busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / pred:.2f}x)")
+          + f", wall {wall:.3f} ms ({wall / pred:.2f}x)")
+    del run, done, model
+    return {"tok_s": new_tokens / dt, "wall_ms": wall, "device_ms": busy, "bound_ms": bound,
+            "peak_gib": peak / 2**30, "union_ms": pred}
+
+
+def _prefill_checks(cfg, label, model, batch, S, tol, rows, q_chunk) -> dict:
+    """Kernels on vs off (the plain attention in chunks of ``q_chunk``
+    rows) on the logits at ``rows`` of an S-position forward; the
+    tolerance must fail the kernels-off forward with its last KV tile
+    dropped (the partial one where S is ragged). Returns the kernels-on
+    logits at ``rows`` and the two differences."""
+    bk = plan_blocks(S, S, compiled_dim(cfg.head_dim, cfg.head_dim))[1]
+    with torch.no_grad():
+        kernels.enable_kernels(True)
+        on = forward(cfg, model, batch)[0][:, rows].float()
+        kernels.enable_kernels(False)
+        with _attention_patched(q_chunk=q_chunk):
+            off = forward(cfg, model, batch)[0][:, rows].float()
+        with _attention_patched(q_chunk=q_chunk, drop_tail=S % bk or bk):
+            dropped = forward(cfg, model, batch)[0][:, rows].float()
+    kernels.enable_kernels(True)
+    diff, planted = _max_diff(on, off), _max_diff(dropped, off)
+    agree = (on.argmax(-1) == off.argmax(-1)).float().mean().item()
+    print(f"families {cfg.name} ({label}): logits kernels on vs off (plain attention, {q_chunk}-row "
+          f"chunks): max abs diff {diff:.4g} (tol {tol}), |logit| max {off.abs().max().item():.3g},"
+          f" argmax agreement {agree:.3f}; teeth: kernels off with the last KV tile "
+          f"({S % bk or bk} keys of {S}; bk {bk}) dropped: {planted:.4g} (must exceed {tol})")
+    check(bool(torch.isfinite(on).all()) and diff <= tol,
+          f"{cfg.name} kernels on vs off: {diff} > {tol}")
+    check(planted > tol, f"{cfg.name}: the tolerance {tol} passes a dropped KV tile ({planted})")
+    return {"on": on, "diff": diff, "planted": planted}
+
+
+def _check_launches(cfg, calls, launches, want, b, S, causal) -> None:
+    """``want`` launches, each many-row on the compiled D over (b, S) with
+    the model's heads and mask, as ``_fa_launch_log`` recorded them."""
+    D = compiled_dim(cfg.head_dim, cfg.head_dim)
+    bq = plan_blocks(S, S, D)[0]
+    shapes = set(calls)
+    check(launches == want == flash_attention_cuda.launches_by_dim[D] == len(calls) and bq > 1
+          and shapes == {((b, S, cfg.n_heads, D), (b, S, cfg.n_kv_heads, D), causal, bq)},
+          f"{cfg.name}: flash attention launches {launches} (by D "
+          f"{flash_attention_cuda.launches_by_dim}), want {want} many-row launches at D = {D}, "
+          f"causal {causal}; launched {shapes}")
+
+
+def _families_hubert(stamp) -> dict:
+    """hubert-xlarge encodes 8 clips of 1499 frames (forward and loss), its
+    attention non-causal on the flash kernel's D = 80 many-row instance;
+    kernels on vs off, bidirectionality, frames/s and a profile."""
+    cfg = get_config(HUBERT["arch"])
+    b, S = HUBERT["b"], HUBERT["frames"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_params(cfg, gen, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = torch.randn((b, S, cfg.d_frontend), generator=gen, device="cuda").bfloat16()
+    labels = torch.randint(0, cfg.vocab, (b, S), generator=gen, device="cuda")
+    batch = {"frames": frames, "labels": labels}
+
+    kernels.enable_kernels(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa_launches()
+    with torch.no_grad(), _fa_launch_log() as calls:
+        t0 = time.perf_counter()
+        logits, _ = forward(cfg, model, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        per_forward = flash_attention_cuda.launches
+        loss = loss_fn(cfg, model, batch).item()
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(per_forward == cfg.n_layers, f"{cfg.name}: {per_forward} flash attention launches in a "
+                                       f"forward, want {cfg.n_layers}")
+    _check_launches(cfg, calls, launches, 2 * cfg.n_layers, b, S, False)
+    check(math.isfinite(loss) and logits.shape == (b, S, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), f"{cfg.name}: loss {loss}, logits not finite")
+    D = compiled_dim(cfg.head_dim, cfg.head_dim)
+    print(f"families {cfg.name}: {n_params / 1e9:.3f} B params bf16, {cfg.n_layers} encoder "
+          f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}; "
+          f"{b} clips x {S} frames (d_frontend {cfg.d_frontend}); flash attention launches "
+          f"{launches} = {per_forward} a forward x (forward + loss), all non-causal on the D = {D} "
+          f"many-row instance (bq {calls[0][3]}), S = {S} ({S % 64} rows in the last 64-row "
+          f"tile); loss {loss:.4f} (ln {cfg.vocab} = {math.log(cfg.vocab):.4f})")
+
+    checks = _prefill_checks(cfg, "full depth, bf16", model, batch, S, FAMILY_TOL[cfg.name],
+                             slice(None), S)
+    # bidirectional: another last frame moves the first position; under a
+    # causal mask it could not (the same forward, mask forced causal)
+    frames2 = frames.clone()
+    frames2[:, -1] = torch.randn((b, cfg.d_frontend), generator=gen, device="cuda").bfloat16()
+    with torch.no_grad():
+        moved = _max_diff(forward(cfg, model, {"frames": frames2})[0][:, 0], checks["on"][:, 0])
+        with _attention_patched(causal=True):
+            causal_moved = _max_diff(forward(cfg, model, {"frames": frames2})[0][:, 0],
+                                     forward(cfg, model, batch)[0][:, 0])
+    print(f"families {cfg.name}: the last frame of each clip redrawn moves the first position's "
+          f"logits by {moved:.4g} (kernels on); with the mask forced causal, by {causal_moved:.4g}")
+    check(moved > 0 and causal_moved == 0, f"{cfg.name}: not bidirectional (first position "
+                                           f"moved {moved}; forced causal {causal_moved})")
+
+    times = _timed_forwards(cfg, model, batch)
+    with torch.no_grad():
+        busy = _profile(stamp, f"{cfg.name} forward (b={b}, {S} frames, kernels on)",
+                        lambda: forward(cfg, model, batch), 1)
+    best = min(times)
+    print(f"time [{stamp}] families {cfg.name}: forward {best * 1e3:.3f} ms (best of "
+          f"{len(times)}; first call {first_s * 1e3:.3f} ms) = {b * S / best:.1f} frames/s "
+          f"({b * 30 / best:.1f} s of audio per second); device busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / best / 1e3:.1%})")
+          + f"; peak memory {peak / 2**30:.3f} GiB")
+    pred, line = _union_step(cfg.name, ShapeConfig("h100_encode", S, b, "prefill"))
+    print(f"families [{stamp}] Union: {line}; measured forward {best * 1e3:.3f} ms "
+          f"({best * 1e3 / pred:.3f}x)")
+    del model, logits, checks
+    return {"launches": launches, "frames_s": b * S / best, "forward_ms": best * 1e3,
+            "device_ms": busy, "peak_gib": peak / 2**30, "loss": loss}
+
+
+def _families_llava(stamp) -> dict:
+    """llava-next-34b prefills one image (2880 patch embeddings) and a
+    128-token prompt: flash attention causal at GQA group 7 (56/8 heads of
+    128, many rows); time to the first token, kernels on vs off on the text
+    logits at full depth in bf16 and on the first 4 layers in float32."""
+    cfg = get_config(LLAVA["arch"])
+    n_img, T = cfg.n_frontend_tokens, LLAVA["text"]
+    S = n_img + T
+    weights = 2 * sum(p.numel() for p in Model(cfg, generator=None, device="meta").parameters())
+    free, total = torch.cuda.mem_get_info()
+    cuts = []
+    if weights + LLAVA_ACT_RESERVE > free:
+        per_layer = (weights - 2 * cfg.vocab * cfg.d_model * 2) / cfg.n_layers
+        n = int((free - LLAVA_ACT_RESERVE - 4 * cfg.vocab * cfg.d_model) // per_layer)
+        print(f"families {cfg.name}: the card cannot hold the full depth: weights "
+              f"{weights / 2**30:.3f} GiB + {LLAVA_ACT_RESERVE / 2**30:.0f} GiB for the prefill > "
+              f"{free / 2**30:.3f} GiB free of {total / 2**30:.3f} GiB (allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB)")
+        cuts.append(f"depth {cfg.n_layers} -> {n} layers (memory)")
+        cfg = dataclasses.replace(cfg, n_layers=n)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    patches = torch.randn((LLAVA["b"], n_img, cfg.d_frontend), generator=gen,
+                          device="cuda").bfloat16()
+    tokens = torch.randint(0, cfg.vocab, (LLAVA["b"], T), generator=gen, device="cuda")
+    batch = {"tokens": tokens, "patch_embeds": patches}
+
+    kernels.enable_kernels(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa_launches()
+    with torch.no_grad(), _fa_launch_log() as calls:
+        t1 = time.perf_counter()
+        logits, _ = forward(cfg, model, batch)
+        first_token = int(logits[0, -1].argmax())
+        first_s = time.perf_counter() - t1
+    launches = flash_attention_cuda.launches
+    check(logits.shape == (LLAVA["b"], S, cfg.vocab) and 0 <= first_token < cfg.vocab,
+          f"{cfg.name}: logits {tuple(logits.shape)}, first token {first_token}")
+    del logits
+    _check_launches(cfg, calls, launches, cfg.n_layers, LLAVA["b"], S, True)
+    ttft = []
+    with torch.no_grad():
+        for _ in range(FAMILY_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok = int(forward(cfg, model, batch)[0][0, -1].argmax())
+            ttft.append(time.perf_counter() - t1)
+            check(tok == first_token, f"{cfg.name}: first token {tok} != {first_token}")
+    peak = torch.cuda.max_memory_allocated()
+    D = compiled_dim(cfg.head_dim, cfg.head_dim)
+    print(f"families {cfg.name}: {n_params / 1e9:.3f} B params bf16 (random init {init_s:.1f} s; "
+          f"{n_params * 2 / 2**30:.3f} GiB), {cfg.n_layers} layers"
+          + (f" (cut: {'; '.join(cuts)})" if cuts else " (full depth)")
+          + f", d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} (GQA "
+            f"group {cfg.n_heads // cfg.n_kv_heads}); {n_img} patch embeddings (d "
+            f"{cfg.d_frontend}) + {T} text tokens = {S} positions; flash attention launches "
+            f"{launches} = {cfg.n_layers} layers, causal, many-row (bq {calls[0][3]}) on the "
+            f"D = {D} instance")
+
+    text = slice(n_img, S)
+    checks = _prefill_checks(cfg, "bf16, text positions", model, batch, S,
+                             FAMILY_TOL[LLAVA["arch"]], text, S // 2)
+    with torch.no_grad():
+        blank = forward(cfg, model, {**batch, "patch_embeds": torch.zeros_like(patches)})[0][:, text]
+    moved = _max_diff(blank, checks["on"])
+    print(f"families {cfg.name}: zeroing the patch embeddings moves the text logits by "
+          f"{moved:.4g} (must exceed the tolerance {FAMILY_TOL[LLAVA['arch']]})")
+    check(moved > FAMILY_TOL[LLAVA["arch"]], f"{cfg.name}: the image does not reach the text")
+    del blank
+    with torch.no_grad():
+        busy = _profile(stamp, f"{cfg.name} prefill (b=1, {S} positions, kernels on)",
+                        lambda: forward(cfg, model, batch), 1)
+    best = min(ttft)
+    print(f"time [{stamp}] families {cfg.name}: time to the first token (prefill of {S} positions "
+          f"and the argmax of the last text logit, synchronised): {best * 1e3:.3f} ms (best of "
+          f"{len(ttft)}, median {statistics.median(ttft) * 1e3:.3f}; first call "
+          f"{first_s * 1e3:.3f} ms) = {S / best:.1f} prefill tokens/s; device busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms ({busy / best / 1e3:.1%})")
+          + f"; peak memory {peak / 2**30:.3f} GiB")
+    pred, line = _union_step(cfg, ShapeConfig("h100_prefill", S, LLAVA["b"], "prefill"))
+    print(f"families [{stamp}] Union: {line}; measured prefill {best * 1e3:.3f} ms "
+          f"({best * 1e3 / pred:.4f}x)")
+
+    # the first LLAVA_CUT_LAYERS layers in float32, cut after the bf16 model is freed
+    small = Model(dataclasses.replace(cfg, n_layers=LLAVA_CUT_LAYERS), generator=None,
+                  device="meta")
+    names = {n for n, _ in small.named_parameters()}
+    stash = {n: p.detach().cpu() for n, p in model.named_parameters() if n in names}
+    del model, checks, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut, small = _cut_f32(cfg, stash.items(), LLAVA_CUT_LAYERS)
+    del stash
+    _prefill_checks(cut, f"first {cut.n_layers} layers, float32, text positions", small, batch,
+                    S, LLAVA_CUT_TOL, text, S // 2)
+    del small
+    return {"launches": launches, "ttft_ms": best * 1e3, "prefill_tok_s": S / best,
+            "device_ms": busy, "peak_gib": peak / 2**30, "cuts": cuts}
+
+
+def phase_families(stamp) -> dict:
+    """xlstm-1.3b served, hubert-xlarge encoded and llava-next-34b
+    prefilled at full width, one after the other, each freed before the
+    next; returns each one's measurements."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in (("xlstm", _families_xlstm), ("hubert", _families_hubert),
+                      ("llava", _families_llava)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out[name] = run(stamp)
+        print(f"time [{stamp}] families {name}: {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"time [{stamp}] families phase: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2554,7 +3082,36 @@ def _time_mla_decode(stamp, gen, fa, errs, moe_launches) -> dict:
             "device_library_ms": dev["library"], "n_split": parts}
 
 
-def phase_times(stamp, plans, serve_launches, moe_launches, train_launches, errs, loop) -> list:
+def _time_fa_prefill(stamp, gen, fa, path, launches, err) -> dict:
+    """Flash attention at the FA_FAMILIES shape named ``path`` (many rows,
+    bf16) beside its bound, its plain version and SDPA; the kernels-line
+    record with that path's launches."""
+    (b, S, _, hq, hkv, d), causal = next(c[1:3] for c in FA_FAMILIES if c[0] == path)
+    pick = _rotating([_qkv(gen, b, S, S, hq, hkv, d, torch.bfloat16) for _ in range(2)])
+    ms = _interleaved_ms({
+        "plain": lambda: _plain(*pick(), causal=causal, scale=1.0 / math.sqrt(d)),
+        "kernel": lambda: flash_attention(*pick(), causal=causal),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in pick()), is_causal=causal, enable_gqa=hq != hkv),
+    }, n=10)
+    bytes_ = 2 * (2 * b * S * hq * d + 2 * b * S * hkv * d)  # q, o; k, v in bf16
+    flops = 4 * b * hq * (S * (S + 1) // 2 if causal else S * S) * d
+    bound, bound_by = _bound(bytes_, flops, BF16_FLOP_PER_S)
+    label = (f"b={b} S={S} hq={hq} hkv={hkv} d={d} {'causal' if causal else 'non-causal'} bf16")
+    print(f"time [{stamp}] flash_attention {path} {label} (tile {plan_blocks(S, S, d)}): kernel "
+          f"{ms['kernel']:.4f} ms ({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain "
+          f"{ms['plain']:.4f} ms, sdpa {ms['library']:.4f} ms "
+          f"({flops / ms['library'] / 1e9:.1f} TFLOP/s), kernel / sdpa "
+          f"{ms['kernel'] / ms['library']:.3f}, bound {bound:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; {bound / ms['kernel']:.1%} of it); "
+          f"{launches} launches on the families path")
+    return {**fa, "path": "families", "shape": f"{path} {label}", "launches": launches,
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": ms["library"]}
+
+
+def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches, errs,
+                loop) -> list:
     """Each kernel at its main-path shape beside its bound, its plain version
     and, where one exists, the PyTorch call computing the same function. A
     matmul whose plan is not the searched tile (the model rated the default
@@ -2609,6 +3166,9 @@ def phase_times(stamp, plans, serve_launches, moe_launches, train_launches, errs
                     "device_library_ms": dev["library"], "n_split": parts})
 
     records.append(_time_mla_decode(stamp, gen, fa, errs, moe_launches))
+    for path, model in (("hubert encode", "hubert"), ("llava prefill", "llava")):
+        records.append(_time_fa_prefill(stamp, gen, fa, path, fam[model]["launches"],
+                                        errs[FAMILY_ERRS[path]]))
 
     # flash attention at zamba2's training shape: causal over 2 x 2048, 32 heads of 80
     t = FA_TRAIN
@@ -2795,9 +3355,10 @@ def main() -> int:
     phase_search_engine(stamp, wm)
     serve_launches, decode_step = phase_serve(stamp)
     moe = phase_serve_moe(stamp)
+    fam = phase_families(stamp)
     train_launches, train_step = phase_train(stamp)
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
-                          train_launches, errs, loop)
+                          fam, train_launches, errs, loop)
     report_whole_model(stamp, wm, decode_step, train_step, records)
     print(json.dumps({"kernels": records + mapper_records + wm["records"]}))
     print(json.dumps({"ok": True, "device": {

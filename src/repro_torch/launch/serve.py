@@ -45,7 +45,7 @@ class WaveServer:
                  pad_token: int = 0) -> None:
         self.cfg = cfg
         self.model = model
-        self.device = model.embed.device
+        self.device = next(model.parameters()).device
         self.slots = batch_slots
         self.max_len = max_len
         self.pad = pad_token

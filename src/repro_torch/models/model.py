@@ -1,10 +1,14 @@
-"""Model assembly: token embedding + prefix layers + repeating-unit block
-stack + head.
+"""Model assembly: embedding/frontends + prefix layers + repeating-unit
+block stack + head.
 
-Port of ``repro/models/model.py`` for attention (GQA or MLA) blocks with a
-dense MLP or a Mixture-of-Experts FFN, Mamba-2 blocks, and DeepSeek's
-``first_k_dense`` prefix of dense MLA layers (``model.prefix``, outside the
-units). JAX stacks the per-unit params and runs the units under
+Port of ``repro/models/model.py`` for every block kind of the ten configs:
+attention (GQA or MLA) with a dense MLP or a Mixture-of-Experts FFN,
+Mamba-2, mLSTM and sLSTM, DeepSeek's ``first_k_dense`` prefix of dense MLA
+layers (``model.prefix``, outside the units), and the two stub frontends:
+``audio_stub`` (precomputed frames through ``frontend_proj``, no token
+embedding) and ``vision_stub`` (precomputed patch embeddings through the
+two-layer projector ``frontend_proj.{l1, l2}``, placed before the text
+tokens). JAX stacks the per-unit params and runs the units under
 ``jax.lax.scan``; here each layer is its own module in one flat
 ``model.blocks`` list, in layer order (unit i, pattern slot j is
 ``blocks[i * len(pattern) + j]``), and the stack is a Python loop over
@@ -12,8 +16,9 @@ units. ``remat`` checkpoints each unit, as ``jax.checkpoint(unit_fn)``
 does. Every block returns its router aux loss (zero without MoE), summed
 over the layers. The decode cache is a list of per-layer dicts, prefix
 layers first (``{"k", "v"}`` for attention, ``{"ckv", "krope"}`` for MLA,
-the conv windows and SSM state for Mamba-2), updated in place by
-``decode_step``; MoE decodes droplessly, ``forward`` drops past capacity.
+the conv windows and SSM state for Mamba-2, the conv window and (C, n, m)
+for mLSTM, (c, n, h, m) for sLSTM), updated in place by ``decode_step``;
+MoE decodes droplessly, ``forward`` drops past capacity.
 
 Public API (the JAX names):
   init_params(cfg, generator, device)           -> Model
@@ -32,26 +37,24 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import DTYPE, MLA, MLP, Attention, Dense, _ones, _randn, rms_norm
+from repro_torch.models import ssm
+from repro_torch.models.layers import (
+    DTYPE,
+    MLA,
+    MLP,
+    Attention,
+    Dense,
+    _ones,
+    _randn,
+    gelu,
+    rms_norm,
+)
 from repro_torch.models.moe import MoE
-from repro_torch.models.ssm import Mamba2, init_mamba2_cache
 
 Cache = List[Dict[str, torch.Tensor]]
 # (x, the block's router aux loss: a 0-d f32 tensor from a MoE FFN, else 0.0,
 # which costs the decode step no device work)
 BlockOut = Tuple[torch.Tensor, Union[torch.Tensor, float]]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``repro.models`` this port does not have yet
-    (named by their ROADMAP queue item)."""
-    missing = []
-    if any(kind not in ("attn", "mamba2") for kind in cfg.block_pattern):
-        missing.append(f"blocks {cfg.block_pattern} (mlstm/slstm: ROADMAP A8)")
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend (ROADMAP A10)")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -96,29 +99,54 @@ class Block(nn.Module):
         return x, aux
 
 
-class Mamba2Block(nn.Module):
-    """Pre-norm Mamba-2 block: x + mamba2(ln(x))."""
+class _CoreBlock(nn.Module):
+    """Pre-norm recurrent block: x + core(ln(x)); the core updates a decode
+    cache in place."""
+
+    core_cls: type
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
         super().__init__()
         self.cfg = cfg
         self.ln = _ones(cfg.d_model, device)
-        self.core = Mamba2(cfg, generator=generator, device=device)
+        self.core = self.core_cls(cfg, generator=generator, device=device)
 
     def forward(self, x, positions, cache=None, cache_len=None) -> BlockOut:
         y, _ = self.core(rms_norm(x, self.ln, self.cfg.rms_eps), cache)
         return x + y, 0.0
 
 
-_BLOCKS = {"attn": Block, "mamba2": Mamba2Block}
+class Mamba2Block(_CoreBlock):
+    core_cls = ssm.Mamba2
+
+
+class MLSTMBlock(_CoreBlock):
+    core_cls = ssm.MLSTM
+
+
+class SLSTMBlock(_CoreBlock):
+    core_cls = ssm.SLSTM
+
+
+_BLOCKS = {"attn": Block, "mamba2": Mamba2Block, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
+_CACHES = {"mamba2": ssm.init_mamba2_cache, "mlstm": ssm.init_mlstm_cache,
+           "slstm": ssm.init_slstm_cache}
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
-        self.embed = _randn((cfg.vocab, cfg.d_model), 0.02, generator, device)
+        d = cfg.d_model
+        kw = dict(generator=generator, device=device)
+        if cfg.frontend == "audio_stub":  # frames in, no token embedding
+            self.embed = None
+            self.frontend_proj = Dense(cfg.d_frontend, d, **kw)
+        else:
+            self.embed = _randn((cfg.vocab, d), 0.02, generator, device)
+            if cfg.frontend == "vision_stub":
+                self.frontend_proj = nn.ModuleDict(
+                    {"l1": Dense(cfg.d_frontend, d, **kw), "l2": Dense(d, d, **kw)})
         # the dense prefix layers: attention blocks with an MLP, no MoE
         self.prefix = nn.ModuleList(
             Block(cfg, generator=generator, device=device, moe=False)
@@ -140,8 +168,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
 
 
 def embed_inputs(cfg: ModelConfig, model: Model, batch: Dict) -> Tuple[torch.Tensor, int]:
-    """Returns (x, text_start): x (b, S, d). Tokens only for now."""
-    return model.embed[batch["tokens"]], 0
+    """Returns (x, text_start): x (b, S, d); text_start is the index where
+    the text tokens begin (after a vision prefix; for the loss's mask).
+    Audio: ``batch["frames"]`` (b, S, d_frontend), cast to bf16, projected.
+    Vision: ``l2(gelu(l1(patch_embeds)))`` before the token embeddings
+    where the batch has ``patch_embeds``, else the text alone."""
+    if cfg.frontend == "audio_stub":
+        return model.frontend_proj(batch["frames"].to(DTYPE)), 0
+    tok = model.embed[batch["tokens"]]  # (b, s_text, d)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        fp = model.frontend_proj
+        img = fp["l2"](gelu(fp["l1"](batch["patch_embeds"].to(DTYPE))))
+        return torch.cat([img, tok], dim=1), img.shape[1]
+    return tok, 0
 
 
 def lm_logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
@@ -188,11 +227,16 @@ def forward(
 
 def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
             remat_policy: str = "full") -> torch.Tensor:
-    """Next-token cross-entropy of the token LM: logits in f32, logsumexp
-    minus the target logit, mean over positions, plus the aux loss."""
+    """Cross-entropy with logits in f32 (logsumexp minus the target logit,
+    mean over positions) plus the aux loss: against ``batch["labels"]`` at
+    every position for the audio / encoder-only configs, else next-token
+    over the text positions (after any image prefix)."""
     logits, aux = forward(cfg, model, batch, remat=remat, remat_policy=remat_policy)
-    lg32 = logits[:, :-1].float()
-    labels = batch["tokens"][:, 1:].long()
+    if cfg.frontend == "audio_stub" or cfg.encoder_only:
+        lg32, labels = logits.float(), batch["labels"].long()
+    else:
+        x0 = logits.shape[1] - batch["tokens"].shape[1]  # text start (VLM prefix)
+        lg32, labels = logits[:, x0:-1].float(), batch["tokens"][:, 1:].long()
     lse = torch.logsumexp(lg32, dim=-1)
     tgt = torch.gather(lg32, -1, labels[..., None])[..., 0]
     return (lse - tgt).mean() + aux
@@ -207,7 +251,11 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
         shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=DTYPE, device=device),
                 "v": torch.zeros(shape, dtype=DTYPE, device=device)}
-    return init_mamba2_cache(cfg, batch, device)
+    if kind not in _CACHES:
+        raise ValueError(f"unknown block kind {kind!r}")
+    # recurrent caches keep their initial values: the m-stabilisers of
+    # mLSTM and sLSTM start at -1e30, not 0
+    return _CACHES[kind](cfg, batch, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Cache:
@@ -227,8 +275,8 @@ def decode_step(
     pos: int,  # number of tokens already in the cache
 ) -> Tuple[torch.Tensor, Cache]:
     """One token for every sequence; updates ``cache`` in place (attention
-    K/V or MLA latents at ``pos``, Mamba-2 conv windows and state) and
-    returns (logits (b, vocab), cache). MoE routes droplessly."""
+    K/V or MLA latents at ``pos``, the recurrent blocks' conv windows and
+    states) and returns (logits (b, vocab), cache). MoE routes droplessly."""
     assert cfg.supports_decode, f"{cfg.name} is encoder-only"
     x = model.embed[tokens]
     positions = torch.arange(pos, pos + 1, device=x.device)

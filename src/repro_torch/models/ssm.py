@@ -1,16 +1,21 @@
-"""SSM blocks: Mamba-2 (SSD). Port of the Mamba-2 half of
-``repro/models/ssm.py``; mLSTM and sLSTM wait for a later slice.
+"""SSM / recurrent blocks: Mamba-2 (SSD), mLSTM and sLSTM (xLSTM). Port of
+``repro/models/ssm.py``.
 
-Training uses the chunkwise-parallel SSD form; decoding uses the O(1)-state
-recurrent step. With kernels switched on, the chunked SSD goes through
+Training uses the chunkwise-parallel forms; decoding uses the O(1)-state
+recurrent steps. With kernels switched on, the chunked SSD goes through
 ``kernels.ssd_scan.ssd_chunked`` (the CUDA intra-chunk kernel on a CUDA
-tensor); otherwise through the plain :func:`_ssd_chunked` here. The plain
-functions keep JAX's rounding order: gate math in f32, ``silu`` as the
-port's ``layers.silu``, softplus in f32 as ``jax.nn.softplus`` computes it.
+tensor); otherwise through the plain :func:`_ssd_chunked` here. mLSTM and
+sLSTM are plain torch, as the reference computes them in plain ``jnp``
+outside any Pallas call: the scans over chunks (mLSTM) and positions
+(sLSTM) are Python loops. The functions keep JAX's rounding order: gate
+math in f32, ``silu`` and ``gelu`` as the port's ``layers`` versions,
+softplus in f32 as ``jax.nn.softplus`` computes it (and ``log_sigmoid`` as
+``-softplus(-x)``), bf16 constants rounded to bf16.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -19,7 +24,7 @@ from torch import nn
 from repro_torch import kernels as _kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked as _ssd_fast
-from repro_torch.models.layers import DTYPE, Dense, _ones, rms_norm, silu
+from repro_torch.models.layers import DTYPE, Dense, _ones, gelu, rms_norm, silu
 
 Cache = Dict[str, torch.Tensor]
 
@@ -60,6 +65,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _conv_w(width: int, c: int, generator: Optional[torch.Generator], device) -> nn.Parameter:
+    """A depthwise conv's (width, c) taps, N(0, 0.1^2) in bf16, as JAX draws them."""
+    x = torch.randn((width, c), generator=generator, device=device)
+    return nn.Parameter((x * 0.1).to(DTYPE))
+
+
+def _zeros(c: int, device, dtype=DTYPE) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(c, dtype=dtype, device=device))
+
+
 # ===================================================================== #
 # Mamba-2 (SSD)
 # ===================================================================== #
@@ -79,20 +94,13 @@ class Mamba2(nn.Module):
         self.in_B = Dense(d, g * n, **kw)
         self.in_C = Dense(d, g * n, **kw)
         self.in_dt = Dense(d, nh, **kw)
-
-        def conv_w(c):
-            x = torch.randn((cfg.conv_width, c), generator=generator, device=device)
-            return nn.Parameter((x * 0.1).to(DTYPE))
-
-        def zeros(c, dtype=DTYPE):
-            return nn.Parameter(torch.zeros(c, dtype=dtype, device=device))
-
-        self.conv_x_w, self.conv_x_b = conv_w(di), zeros(di)
-        self.conv_B_w, self.conv_B_b = conv_w(g * n), zeros(g * n)
-        self.conv_C_w, self.conv_C_b = conv_w(g * n), zeros(g * n)
-        self.A_log = zeros(nh, torch.float32)  # A = -exp(A_log) = -1
+        W = cfg.conv_width
+        self.conv_x_w, self.conv_x_b = _conv_w(W, di, generator, device), _zeros(di, device)
+        self.conv_B_w, self.conv_B_b = _conv_w(W, g * n, generator, device), _zeros(g * n, device)
+        self.conv_C_w, self.conv_C_b = _conv_w(W, g * n, generator, device), _zeros(g * n, device)
+        self.A_log = _zeros(nh, device, torch.float32)  # A = -exp(A_log) = -1
         self.D = nn.Parameter(torch.ones(nh, dtype=torch.float32, device=device))
-        self.dt_bias = zeros(nh, torch.float32)
+        self.dt_bias = _zeros(nh, device, torch.float32)
         self.gate_norm = _ones(di, device)
         self.out_proj = Dense(di, d, **kw)
 
@@ -214,3 +222,234 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:
         "conv_C": torch.zeros((batch, W - 1, g * n), dtype=DTYPE, device=device),
         "state": torch.zeros((batch, nh, cfg.ssm_head_dim, n), dtype=torch.float32, device=device),
     }
+
+
+# ===================================================================== #
+# mLSTM (xLSTM): matrix memory with exponential gating
+# ===================================================================== #
+class MLSTM(nn.Module):
+    """mLSTM mixer with the JAX leaf names of ``init_mlstm``: ``up`` (d ->
+    2 di: the cell input and the output gate), a causal conv, q/k/v (di ->
+    di), the input and forget gate projections (d -> nh, with bias), the
+    output norm and ``down``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_heads
+        kw = dict(generator=generator, device=device)
+        self.cfg = cfg
+        self.up = Dense(d, 2 * di, **kw)
+        self.conv_w = _conv_w(cfg.conv_width, di, generator, device)
+        self.conv_b = _zeros(di, device)
+        self.wq = Dense(di, di, **kw)
+        self.wk = Dense(di, di, **kw)
+        self.wv = Dense(di, di, **kw)
+        self.w_i = Dense(d, nh, bias=True, **kw)
+        self.w_f = Dense(d, nh, bias=True, **kw)
+        self.out_norm = _ones(di, device)
+        self.down = Dense(di, d, **kw)
+
+    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, chunk: int = 256):
+        return mlstm_apply(self, self.cfg, u, cache, chunk)
+
+
+def _mlstm_chunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,  # (b, l, nh, dh)
+    ilog: torch.Tensor, flog: torch.Tensor,  # (b, l, nh) raw i, log-sigmoid f
+    chunk: int,
+    init: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,  # (C, n, m)
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Chunkwise mLSTM in f32: within a chunk, attention-like weights
+    exp(D - m_i) with the per-position stabiliser m_i = max(cf + m_prev,
+    m_intra); across chunks, the (C, n, m) carry, starting at m = -inf.
+    Returns (y (b, l, nh, dh), final (C, n, m))."""
+    b, l, nh, dh = q.shape
+    if l % chunk:
+        raise ValueError(f"seq {l} % chunk {chunk} != 0")
+    nc = l // chunk
+    sc = 1.0 / math.sqrt(dh)
+    qr = (q.float() * sc).reshape(b, nc, chunk, nh, dh)
+    kr = k.float().reshape(b, nc, chunk, nh, dh)
+    vr = v.float().reshape(b, nc, chunk, nh, dh)
+    ir = ilog.float().reshape(b, nc, chunk, nh)
+    fr = flog.float().reshape(b, nc, chunk, nh)
+    cf = torch.cumsum(fr, dim=2)  # inclusive cumulative log-forget
+    if init is None:
+        C = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=q.device)
+        n = torch.zeros((b, nh, dh), dtype=torch.float32, device=q.device)
+        m = torch.full((b, nh), -torch.inf, dtype=torch.float32, device=q.device)
+    else:
+        C, n, m = init
+
+    # intra-chunk log weights: D[i, j] = cf_i - cf_j + ilog_j (j <= i), -inf above
+    Dmat = _segsum(fr.permute(0, 1, 3, 2)) + ir.permute(0, 1, 3, 2)[:, :, :, None, :]
+    m_intra = Dmat.amax(dim=-1)  # (b, nc, nh, cl)
+    ys = []
+    for c in range(nc):
+        qc, kc, vc = qr[:, c], kr[:, c], vr[:, c]
+        cfc, irc, Dm = cf[:, c], ir[:, c], Dmat[:, c]
+        b_i = cfc.permute(0, 2, 1) + m[:, :, None]  # (b, nh, cl)
+        m_i = torch.maximum(b_i, m_intra[:, c])
+        inter_scale = torch.exp(b_i - m_i)
+        num_inter = torch.einsum("blhd,bhde->bhle", qc, C) * inter_scale[..., None]
+        den_inter = torch.einsum("blhd,bhd->bhl", qc, n) * inter_scale
+        W = torch.einsum("blhd,bshd->bhls", qc, kc) * torch.exp(Dm - m_i[..., None])
+        num = num_inter + torch.einsum("bhls,bshd->bhld", W, vc)
+        den = den_inter + W.sum(dim=-1)
+        h = num / torch.maximum(den.abs(), torch.exp(-m_i))[..., None]
+        ys.append(h.permute(0, 2, 1, 3))  # (b, cl, nh, dh)
+        # chunk-boundary state update
+        total = cfc[:, -1, :]  # (b, nh)
+        gk = total[:, None, :] - cfc + irc  # (b, cl, nh)
+        m_next = torch.maximum(total + m, gk.amax(dim=1))
+        scale_old = torch.exp(total + m - m_next)
+        gke = torch.exp(gk - m_next[:, None, :])
+        C = C * scale_old[:, :, None, None] + torch.einsum("blh,blhd,blhe->bhde", gke, kc, vc)
+        n = n * scale_old[:, :, None] + torch.einsum("blh,blhd->bhd", gke, kc)
+        m = m_next
+    return torch.stack(ys, dim=1).reshape(b, l, nh, dh), (C, n, m)
+
+
+def mlstm_apply(
+    p: MLSTM,
+    cfg: ModelConfig,
+    u: torch.Tensor,  # (b, L, d)
+    cache: Optional[Cache] = None,  # {"conv": (b, W-1, di), "C": (b, nh, dh, dh), "n", "m"}
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (y (b, L, d), the cache or None). Without a cache, the
+    chunked form over chunks of min(chunk, L) (L must divide into them);
+    with one, L == 1 and the cache dict is updated in place (JAX returns a
+    new one)."""
+    b, L, d = u.shape
+    di, nh = cfg.d_inner, cfg.n_heads
+    dh = di // nh
+    a, gate = p.up(u).chunk(2, dim=-1)
+    ilog = p.w_i(u).float()  # (b, L, nh)
+    flog = -softplus(-p.w_f(u).float())  # jax.nn.log_sigmoid
+    if cache is None:
+        c = silu(causal_conv1d(a, p.conv_w, p.conv_b))
+        q = p.wq(c).reshape(b, L, nh, dh)
+        k = p.wk(c).reshape(b, L, nh, dh)
+        v = p.wv(a).reshape(b, L, nh, dh)
+        y, _ = _mlstm_chunked(q, k, v, ilog, flog, chunk=min(chunk, L))
+    else:
+        conv, c_t = conv_step(cache["conv"], a[:, 0], p.conv_w, p.conv_b)
+        c_t = silu(c_t)
+        # q is scaled in its own dtype (sqrt(dh) rounded to it, as JAX's weak
+        # constant is), THEN widened; the chunked path widens first
+        root = torch.tensor(math.sqrt(dh), dtype=c_t.dtype).item()
+        q = (p.wq(c_t).reshape(b, nh, dh) / root).float()
+        k = p.wk(c_t).reshape(b, nh, dh).float()
+        v = p.wv(a[:, 0]).reshape(b, nh, dh).float()
+        i_t, f_t = ilog[:, 0], flog[:, 0]  # (b, nh)
+        m_prev, C_prev, n_prev = cache["m"], cache["C"], cache["n"]
+        m_new = torch.maximum(f_t + m_prev, i_t)
+        fp = torch.exp(f_t + m_prev - m_new)
+        ip = torch.exp(i_t - m_new)
+        C_new = C_prev * fp[:, :, None, None] + ip[:, :, None, None] * (
+            k[:, :, :, None] * v[:, :, None, :])
+        n_new = n_prev * fp[:, :, None] + ip[:, :, None] * k
+        num = torch.einsum("bhd,bhde->bhe", q, C_new)
+        den = torch.einsum("bhd,bhd->bh", q, n_new)
+        y = (num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])[:, None]
+        cache.update(conv=conv, C=C_new, n=n_new, m=m_new)
+    y = y.reshape(b, L, di).to(u.dtype)
+    y = rms_norm(y, p.out_norm, cfg.rms_eps) * silu(gate)
+    return p.down(y), cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:
+    """The stabiliser m starts at -1e30, not -inf (as the chunked form's
+    carry does) and not 0: the first step's m is then its input gate."""
+    di, nh = cfg.d_inner, cfg.n_heads
+    dh = di // nh
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, di), dtype=DTYPE, device=device),
+        "C": torch.zeros((batch, nh, dh, dh), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, nh, dh), dtype=torch.float32, device=device),
+        "m": torch.full((batch, nh), -1e30, dtype=torch.float32, device=device),
+    }
+
+
+# ===================================================================== #
+# sLSTM (xLSTM): scalar memory, per-head block-diagonal recurrence
+# ===================================================================== #
+class SLSTM(nn.Module):
+    """sLSTM mixer with the JAX leaf names of ``init_slstm``: ``wx`` (the
+    z, i, f, o input paths, d -> 4d with bias), the per-head recurrent
+    matrices ``r`` (4, nh, hd, hd), the output norm and a gelu FFN of width
+    round(4d / 3 / 64) * 64."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator], device) -> None:
+        super().__init__()
+        d, nh = cfg.d_model, cfg.n_heads
+        hd = d // nh
+        ffw = int(round(4 * d / 3 / 64)) * 64
+        kw = dict(generator=generator, device=device)
+        self.cfg = cfg
+        self.wx = Dense(d, 4 * d, bias=True, **kw)
+        r = torch.randn((4, nh, hd, hd), generator=generator, device=device)
+        self.r = nn.Parameter((r * (1.0 / math.sqrt(d))).to(DTYPE))
+        self.out_norm = _ones(d, device)
+        self.ffn_up = Dense(d, ffw, **kw)
+        self.ffn_down = Dense(ffw, d, **kw)
+
+    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None):
+        return slstm_apply(self, self.cfg, u, cache)
+
+
+def _slstm_cell(carry, gx: torch.Tensor, r: torch.Tensor):
+    """One sLSTM step. carry: (c, n, h, m), each (b, nh, hd) f32; gx: (b, 4,
+    nh, hd) the input paths; r: (4, nh, hd, hd) f32."""
+    c, n, h, m = carry
+    rec = torch.einsum("bhd,ghde->bghe", h, r)  # (b, 4, nh, hd)
+    z_r, i_r, f_r, o_r = [(gx[:, g] + rec[:, g]).float() for g in range(4)]
+    z = torch.tanh(z_r)
+    o = torch.sigmoid(o_r)
+    m_new = torch.maximum(f_r + m, i_r)
+    ip = torch.exp(i_r - m_new)
+    fp = torch.exp(f_r + m - m_new)
+    c_new = fp * c + ip * z
+    n_new = fp * n + ip
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_apply(
+    p: SLSTM,
+    cfg: ModelConfig,
+    u: torch.Tensor,  # (b, L, d)
+    cache: Optional[Cache] = None,  # {"c", "n", "h", "m"}: (b, nh, hd) f32
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Returns (y (b, L, d), the cache or None). Without a cache, a loop
+    over the L positions from (0, 0, 0, -1e30); with one, L == 1 and the
+    cache dict is updated in place."""
+    b, L, d = u.shape
+    nh = cfg.n_heads
+    hd = d // nh
+    gx = p.wx(u).reshape(b, L, 4, nh, hd)
+    r = p.r.float()
+    if cache is None:
+        zero = torch.zeros((b, nh, hd), dtype=torch.float32, device=u.device)
+        carry = (zero, zero, zero, torch.full((b, nh, hd), -1e30, dtype=torch.float32,
+                                              device=u.device))
+        hs = []
+        for t in range(L):
+            carry = _slstm_cell(carry, gx[:, t], r)
+            hs.append(carry[2])
+        y = torch.stack(hs, dim=1).reshape(b, L, d)
+    else:
+        c, n, h, m = _slstm_cell((cache["c"], cache["n"], cache["h"], cache["m"]), gx[:, 0], r)
+        y = h.reshape(b, 1, d)
+        cache.update(c=c, n=n, h=h, m=m)
+    y = rms_norm(y.to(u.dtype), p.out_norm, cfg.rms_eps)
+    return p.ffn_down(gelu(p.ffn_up(y))), cache
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:
+    nh = cfg.n_heads
+    shape = (batch, nh, cfg.d_model // nh)
+    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    return {"c": zero, "n": zero.clone(), "h": zero.clone(),
+            "m": torch.full(shape, -1e30, dtype=torch.float32, device=device)}

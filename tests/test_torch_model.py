@@ -169,12 +169,17 @@ def test_params_from_jax_maps_every_leaf():
         _np(model.blocks[1].attn.wq.w), _np(jp["units"]["b0"]["attn"]["wq"]["w"][1]))
 
 
-def test_unported_configs_raise():
-    base = get_config(ARCH)
-    for cfg in (dataclasses.replace(base, block_pattern=("mlstm",)),
-                dataclasses.replace(base, frontend="vision_stub")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Model(cfg, generator=None, device="meta")
+@pytest.mark.parametrize("over", [{"block_pattern": ("mlstm", "slstm")},
+                                  {"frontend": "vision_stub"}, {"frontend": "audio_stub"}])
+def test_formerly_unported_variants_build(over):
+    """qwen3's smoke config with xLSTM blocks or a stub frontend builds (it
+    raised NotImplementedError before those were ported), leaf for leaf
+    with the JAX init's parameter count."""
+    cfg = dataclasses.replace(get_config(ARCH), d_frontend=32, **over)
+    jcfg = dataclasses.replace(jax_get_config(ARCH), d_frontend=32, **over)
+    shapes = jax.eval_shape(lambda k: jm.init_params(jcfg, k), jax.random.PRNGKey(0))
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in Model(cfg, generator=None, device="meta").parameters()) == n_jax
 
 
 # --------------------------------------------------------------------- #

@@ -8,7 +8,8 @@ entry by entry (name, role, multiplicity, problem content, ``mappable``,
 ``meta``, ``backward_factor``); the shared builders, parameter counts,
 MODEL_FLOPS formula, artifact readers, end-to-end aggregation and the
 ``model_bench`` twin must agree with the reference bit for bit. The
-port's model code raises for each block kind it has not ported.
+port's model code builds every config the streams lower, with the JAX
+init's parameter count.
 """
 
 import json
@@ -16,6 +17,8 @@ import math
 import sys
 from pathlib import Path
 
+import jax
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,6 +29,7 @@ from repro.core import opstream as jax_opstream  # noqa: E402
 from repro.core.architecture import cloud_accelerator as jax_cloud  # noqa: E402
 from repro.core.optimizer import union_opt_sweep as jax_union_opt_sweep  # noqa: E402
 from repro.core.problem import Problem as JaxProblem  # noqa: E402
+from repro.models import model as jax_model  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
     SHAPES,
@@ -294,13 +298,15 @@ def test_model_bench_cli_flags(tmp_path, monkeypatch):
 
 
 # --------------------------------------------------------------------- #
-# the model code: configs it cannot run yet
+# the model code builds every config the streams lower
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("name,part", [
-    ("xlstm-1.3b", "mlstm/slstm"),
-    ("llava-next-34b", "vision_stub frontend"),
-    ("hubert-xlarge", "audio_stub frontend"),
-])
-def test_model_raises_for_unported_block_kinds(name, part):
-    with pytest.raises(NotImplementedError, match=part):
-        init_params(get_config(name).reduced(), None, "cpu")
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "llava-next-34b", "hubert-xlarge"])
+def test_model_builds_every_block_kind_and_frontend(name):
+    """The three configs with xLSTM blocks or a stub frontend build at full
+    width (meta tensors) with exactly the JAX init's parameter count, and
+    at smoke size on the CPU."""
+    shapes = jax.eval_shape(lambda k: jax_model.init_params(jax_configs.get_config(name), k),
+                            jax.random.PRNGKey(0))
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in init_params(get_config(name), None, "meta").parameters()) == n_jax
+    init_params(get_config(name).reduced(), None, "cpu")

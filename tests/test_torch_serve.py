@@ -73,6 +73,14 @@ def test_moe_wave_server_tokens_match_jax(kernels_on, kernels_reset):
     _check_wave_server("deepseek-v2-lite-16b_smoke", kernels_on)
 
 
+@pytest.mark.parametrize("kernels_on", [False, True])
+def test_xlstm_wave_server_tokens_match_jax(kernels_on, kernels_reset):
+    """xlstm's smoke config: every layer recurrent (5 mLSTM + 1 sLSTM), no
+    attention, so the kernel switch changes nothing on its path; the same
+    rule."""
+    _check_wave_server("xlstm-1.3b_smoke", kernels_on)
+
+
 def _check_wave_server(arch, kernels_on):
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     jp = jm.init_params(jcfg, jax.random.PRNGKey(0))
