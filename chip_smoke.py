@@ -23,8 +23,9 @@ Phases (any failure raises and the exit code is non-zero):
      prefill, GQA rows, decode), bf16 with many keys also within a
      row-scaled limit that fails with a KV tile dropped; the families
      phase's shapes (hubert's ragged non-causal 8 x 1499 at D = 80,
-     llava's causal 3008 at GQA group 7, group 7 in the split decode); its
-     autograd
+     llava's causal 3008 at GQA group 7, group 7 in the split decode); the
+     train_ft and train_moe shapes (qwen3 4 x 2048 at 16/8 heads of 128,
+     MLA 2 x 2048 at d 192, dv 128), both row-scaled too; its autograd
      wrapper's grads; the SSD kernel at the test_ssd_sweep shapes, the
      zamba2 training shape and hp = n = 128 with B/C materialised and
      expanded over heads with stride 0, and ``ssd_chunked`` against the
@@ -144,13 +145,39 @@ Phases (any failure raises and the exit code is non-zero):
      kernels off, and one train step is profiled (device busy share,
      flash attention's share, the plain attention backward's device time,
      top kernels);
+  train_ft: qwen3-0.6b at full width and depth (0.596 B parameters, 4 x
+     2048, AdamW, remat, kernels on, ``--deterministic``, checkpoints of
+     8.35 GB keeping 3, under ``chiprun_out/train_ft``, which is checked for
+     free space first and deleted at the end) through ``python -m
+     repro_torch.launch.train`` in processes of its own: 12 steps straight,
+     a checkpoint every 4; a run with a fault before step 5 and a failure
+     after half of step 7's update, each retried once, killed with SIGKILL
+     once ``latest_step`` reads 8; and a new process that resumes it to
+     step 12. The faulted run's step-8 checkpoint and the resumed run's
+     losses and step-12 checkpoint must equal the straight run's bit for
+     bit, and flash attention must launch exactly 28 x 2 times a step (a
+     retry runs no grads again). Prints the step time, tokens/s, peak
+     memory, each checkpoint's bytes, snapshot seconds, async write seconds
+     and how far the write overlapped training, the restore time, and one
+     step under the profiler;
+  train_moe: deepseek-v2-lite-16b at full width cut to 6 layers (1 dense
+     MLA layer + 5 MLA + MoE; 3.43 B parameters, 55 GB with AdamW) through
+     ``repro_torch.launch.train.main``: 6 steps of 2 x 2048, losses finite
+     and falling, flash attention (1 + 2 x 5) times a step on the D = 192
+     instance; then on one batch ``save_block_outputs`` against ``full``
+     (loss and grads bit for bit under deterministic algorithms, a step's
+     time and peak memory under each) and, on the first 3 layers in
+     float32, kernels on against off with the MoE routes forced to the
+     kernels-off ones (loss within 1e-4, grads within 1e-3 relative L2);
   7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
      at decode (eager calls, as serving pays them, and device time by
      CUDA-graph replay; GB/s, n_split), at the MLA decode shape (b = 8,
      16/16 heads, d 192, dv 128, kv_len 512), at hubert's encode and
-     llava's prefill shapes (the families path's launches) and at the
+     llava's prefill shapes (the families path's launches), at the
+     train_ft and train_moe shapes (qwen3 4 x 2048, 16/8 heads of 128;
+     MLA 2 x 2048, 16/16 heads, d 192, dv 128) and at zamba2's
      training shape (TFLOP/s; the
      planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
      four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
@@ -175,6 +202,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -197,7 +225,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import codesign, kernels  # noqa: E402
-from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config, register  # noqa: E402
 from repro_torch.core.architecture import H100_SXM, cloud_accelerator, h100_sm  # noqa: E402
 from repro_torch.core.cost import EvaluationEngine, TimeloopLikeModel  # noqa: E402
 from repro_torch.core.cost.analysis import get_context  # noqa: E402
@@ -270,6 +298,7 @@ from repro_torch.launch import quickstart  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch.serve import Request, WaveServer  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, loss_fn  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
@@ -625,9 +654,11 @@ def phase_kernels() -> dict:
     # group-7 prefill, and group 7 in the split decode
     cases += [(name, shape, causal, q_offset, kv_len, dtype)
               for name, shape, causal, q_offset, kv_len, dtypes in FA_FAMILIES for dtype in dtypes]
+    # the train_ft and train_moe phases' shapes (qwen3 at 4 x 2048; MLA at 2 x 2048)
+    cases += [(name, shape, True, 0, None, torch.bfloat16) for name, shape, _ in FA_TRAIN_NEW]
     # bf16 with many keys: also held to the row-scaled limit, whose teeth are shown
     rows_checked = ({"causal prefill", "train (zamba2)"} | {c[0] for c in FA_D192 if c[4] is None}
-                    | {c[0] for c in FA_FAMILIES if c[4] is None})
+                    | {c[0] for c in FA_FAMILIES if c[4] is None} | {c[0] for c in FA_TRAIN_NEW})
     errs = {"fa_decode": 0.0}
     for name, shape, causal, q_offset, kv_len, dtype in cases:
         b_, sq, skv, _, hkv_, d_ = shape[:6]
@@ -667,6 +698,8 @@ def phase_kernels() -> dict:
             errs["fa_train"] = err
         if name in FAMILY_ERRS and dtype == torch.bfloat16:
             errs[FAMILY_ERRS[name]] = err
+        if name in {c[0] for c in FA_TRAIN_NEW}:
+            errs[name] = err
         print(line)
 
     # the autograd wrapper: kernel forward, backward by recompute through the plain version
@@ -2081,6 +2114,456 @@ def _train_kernels_on_vs_off(stamp, cfg):
              f"kernels on, under the profiler)", one_step, 1)
 
 
+ROOT = Path(__file__).resolve().parent
+# train_ft: qwen3-0.6b at full width and depth (28 layers, 16/8 heads of 128,
+# vocab 151936) through ``python -m repro_torch.launch.train`` in processes of
+# its own: a straight run of 12 steps, and a run with injected faults that
+# is killed with SIGKILL after its step-8 checkpoint (its only one, which
+# keeps the phase's disk writes at five checkpoints) and resumed by a new
+# process. Every run is ``--deterministic``, so the faulted and the resumed
+# runs must repeat the straight run's checkpoints and losses bit for bit.
+# Each process keeps the entry point's default of 3 checkpoints.
+TRAIN_FT = dict(arch="qwen3-0.6b", batch=4, seq=2048, steps=12, every=4, keep=3, warmup=2,
+                lr=3e-4, fault_step=5, update_fault_step=7, kill_at=8, step_timeout=300,
+                run_timeout=600)
+# device memory a train_ft process needs: it peaks at 31.5 GiB on an H100 80GB
+FT_DEVICE_NEED = 40 * 2**30
+# the faulted run: ``fault_hook`` raises before step ``fault_step``'s first
+# attempt, and ``update_hook`` raises in step ``update_fault_step`` once half
+# of the parameters are written. A record file gets a line for each
+# attempt (its step, the flash-attention launches so far) and for each
+# finished step (its loss), as they happen: the run is killed (argv: the
+# two steps, the record file, then train's argv)
+FT_FAULTS = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.launch import train
+from repro_torch.models.model import Model
+step_at, update_at, record, argv = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4:]
+cfg = get_config(argv[argv.index("--arch") + 1])
+half = len(list(Model(cfg, generator=None, device="meta").parameters())) // 2
+fired, current = set(), {}
+def note(**line):
+    with open(record, "a") as f:
+        f.write(json.dumps(line) + "\\n")
+run_step = train.FaultTolerantRunner.run_step
+def run_step_noted(self, state, batch, step):
+    out = run_step(self, state, batch, step)
+    note(step=step, loss=float(out[1]["loss"]))
+    return out
+train.FaultTolerantRunner.run_step = run_step_noted
+def fault_hook(step):
+    current["step"] = step
+    note(attempt=step, launches=flash_attention_cuda.launches)
+    if step == step_at and "step" not in fired:
+        fired.add("step")
+        raise RuntimeError(f"injected fault before step {step}")
+def update_hook(n):
+    if current["step"] == update_at and n == half and "update" not in fired:
+        fired.add("update")
+        raise RuntimeError(f"injected failure after {n} parameters of the update")
+train.main(argv, fault_hook=fault_hook, update_hook=update_hook)
+"""
+# train_moe: deepseek-v2-lite-16b at full width (MLA d 192 / dv 128 on the
+# flash kernel's D = 192 instance; 64 experts top-6 + 2 shared) cut to its
+# dense prefix layer and 5 MoE layers: 3.43 B parameters, 16 bytes each with
+# AdamW (bf16 weights and grads; f32 m, v, master) = 55 GB, the deepest cut
+# that leaves room for a 2 x 2048 step's activations on 80 GB. The f32
+# kernels-on vs kernels-off check runs on its first 3 layers.
+TRAIN_MOE = dict(arch="deepseek-v2-lite-16b", n_layers=6, batch=2, seq=2048, steps=6, warmup=2,
+                 lr=3e-4, f32_layers=3)
+# the two training shapes the flash kernel had not been timed at: qwen3-0.6b
+# at 4 x 2048 (16/8 heads of 128) and deepseek-v2-lite's MLA at 2 x 2048
+# (16/16 heads, d 192, dv 128 padded to the D = 192 instance); causal, bf16.
+# (name, (b, sq, skv, hq, hkv, d[, dv]), the path whose launches it carries)
+FA_TRAIN_NEW = [
+    ("qwen3 train_ft", (4, 2048, 2048, 16, 8, 128), "train_ft"),
+    ("MLA train_moe d=192 dv=128", (2, 2048, 2048, 16, 16, 192, 128), "train_moe"),
+]
+
+
+def _ft_args(t, ckpt_dir: Path, metrics: Path, every: int) -> list:
+    return ["--arch", t["arch"], "--steps", str(t["steps"]), "--batch", str(t["batch"]),
+            "--seq", str(t["seq"]), "--lr", str(t["lr"]), "--warmup", str(t["warmup"]),
+            "--optimizer", "adamw", "--seed", str(SEED), "--log-every", "1", "--deterministic",
+            "--step-timeout", str(t["step_timeout"]), "--ckpt-dir", str(ckpt_dir),
+            "--ckpt-every", str(every), "--metrics-out", str(metrics)]
+
+
+def _child_env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def _ft_child(stamp, label: str, cmd: list, log: Path, metrics: Path) -> dict:
+    """Run one training process to its end; its returned dict, with the
+    process's wall seconds and where they went."""
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.run(cmd, cwd=ROOT, env=_child_env(), stdout=f, stderr=subprocess.STDOUT,
+                              timeout=TRAIN_FT["run_timeout"])
+    t_exit = time.time()
+    tail = log.read_text()[-3000:]
+    check(proc.returncode == 0, f"train_ft {label}: exit {proc.returncode}; its log ends:\n{tail}")
+    out = json.loads(metrics.read_text())
+    out["wall_s"] = t_exit - t0
+    out["spans"] = {"start-up to main": out["t_main"] - t0,
+                    "init or restore": out["t_loop"] - out["t_main"],
+                    "steps and checkpoints": out["t_done"] - out["t_loop"],
+                    "exit": t_exit - out["t_done"]}
+    out["recover_s"] = out["t_first_step"] - t0  # process start to its first step's end
+    print(f"time [{stamp}] train_ft {label} process: {out['wall_s']:.1f} s wall = "
+          + " + ".join(f"{k} {v:.1f} s" for k, v in out["spans"].items()))
+    return out
+
+
+def _ckpt_digest(step_dir: Path) -> dict:
+    """sha256 of each leaf file of a checkpoint, by leaf key (8 threads)."""
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+
+    def one(entry):
+        h = hashlib.sha256()
+        with open(step_dir / entry["file"], "rb") as f:
+            while chunk := f.read(1 << 26):
+                h.update(chunk)
+        return entry["key"], h.hexdigest()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(one, manifest["leaves"]))
+
+
+def _ft_records(stamp, label, out) -> None:
+    for r in out.get("checkpoints", []):
+        overlap = max(0.0, r["write_s"] - r["waited_s"])
+        print(f"time [{stamp}] train_ft {label} checkpoint step {r['step']}: {r['bytes'] / 1e9:.3f} "
+              f"GB; synchronous snapshot to host {r['snapshot_s']:.3f} s "
+              f"({r['bytes'] / r['snapshot_s'] / 1e9:.2f} GB/s); async write {r['write_s']:.3f} s "
+              f"({r['bytes'] / r['write_s'] / 1e9:.2f} GB/s), of which {overlap:.3f} s overlapped "
+              f"training and {r['waited_s']:.3f} s blocked the next save or the final wait")
+
+
+def phase_train_ft(stamp) -> dict:
+    """qwen3-0.6b at full width: checkpointed, faulted, killed and resumed
+    through the training entry point (TRAIN_FT); each run's flash-attention
+    launches, losses and final checkpoint checked. Returns the straight
+    run's launches and step time."""
+    t = TRAIN_FT
+    cfg = get_config(t["arch"])
+    meta = Model(cfg, generator=None, device="meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    # bf16 (or f32) parameters plus f32 m, v and master, and the int32 step
+    ckpt_bytes = sum(p.numel() * (p.element_size() + 12) for p in meta.parameters()) + 4
+    per_step = cfg.n_layers * 2  # forward + the remat recompute of every unit
+    # the training processes share the card with this one: hand back what
+    # the earlier phases left in this process's allocator cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_dev, total_dev = torch.cuda.mem_get_info()
+    print(f"train_ft: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"(reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB); {free_dev / 2**30:.2f} of "
+          f"{total_dev / 2**30:.2f} GiB of the card free for the training processes")
+    check(free_dev >= FT_DEVICE_NEED, f"train_ft: {free_dev / 2**30:.2f} GiB free on the card, "
+                                      f"{FT_DEVICE_NEED / 2**30:.0f} GiB needed")
+    root = ROOT / "chiprun_out" / "train_ft"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    need = (t["keep"] + 1) * ckpt_bytes + 2 * 2**30  # keep + one being written, + 2 GiB
+    print(f"train_ft {t['arch']}: {n_params / 1e9:.3f} B parameters, a checkpoint "
+          f"{ckpt_bytes / 1e9:.3f} GB; {free / 2**30:.1f} GiB free under {root} (need "
+          f"{need / 2**30:.1f} GiB for keep={t['keep']} and one being written)")
+    check(free >= need, f"train_ft: {free / 2**30:.1f} GiB free under {root}, {need / 2**30:.1f} "
+                        f"GiB needed")
+    train = [sys.executable, "-m", "repro_torch.launch.train"]
+    final = f"step_{t['steps']:09d}"
+    t_phase = time.perf_counter()
+    try:
+        # 1. straight
+        a = _ft_child(stamp, "straight", train + _ft_args(t, root / "a", root / "a.json", t["every"]),
+                      root / "a.log", root / "a.json")
+        losses = a["losses"]
+        check(a["steps"] == t["steps"] and all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"train_ft straight: losses {losses}")
+        want = per_step * t["steps"]
+        check(a["launches"]["flash_attention"] == want,
+              f"train_ft straight: {a['launches']['flash_attention']} flash-attention launches, "
+              f"not {cfg.n_layers} layers x 2 x {t['steps']} steps = {want}")
+        check([r["step"] for r in a["checkpoints"]] == list(range(t["every"], t["steps"] + 1,
+                                                                 t["every"])),
+              f"train_ft straight: checkpoints at {[r['step'] for r in a['checkpoints']]}")
+        k = t["kill_at"]
+        digest_k = _ckpt_digest(root / "a" / f"step_{k:09d}")
+        digest = _ckpt_digest(root / "a" / final)
+        shutil.rmtree(root / "a")
+        steady = sorted(a["step_s"][1:])
+        step_s = steady[len(steady) // 2]
+        tokens = t["batch"] * t["seq"]
+        print(f"train_ft straight: {t['steps']} adamw steps of {t['batch']} x {t['seq']}, remat, "
+              f"kernels on, deterministic, checkpoint every {t['every']} (keep {t['keep']}); "
+              f"flash_attention launches {a['launches']['flash_attention']} = {cfg.n_layers} x 2 "
+              f"x {t['steps']}")
+        print(f"train_ft losses: {' '.join(f'{x:.6f}' for x in losses)}")
+        print(f"time [{stamp}] train_ft step (median of steps 2-{t['steps']}): {step_s:.3f} s = "
+              f"{tokens / step_s:.0f} tokens/s; first step {a['step_s'][0]:.3f} s; peak memory "
+              f"{a['peak_bytes'] / 2**30:.2f} GiB (max_memory_allocated); process wall "
+              f"{a['wall_s']:.1f} s incl. start-up and init")
+        _ft_records(stamp, "straight", a)
+
+        # 2. injected faults (before step 5's first attempt, and halfway
+        # through step 7's update), then SIGKILL once the step-8 checkpoint
+        # is complete
+        c_dir, record = root / "c", root / "c.attempts"
+        t_c = time.time()
+        with open(root / "c.log", "w") as f:
+            proc = subprocess.Popen([sys.executable, "-c", FT_FAULTS, str(t["fault_step"]),
+                                     str(t["update_fault_step"]), str(record)]
+                                    + _ft_args(t, c_dir, root / "c.json", k),
+                                    cwd=ROOT, env=_child_env(), stdout=f, stderr=subprocess.STDOUT)
+            deadline = time.monotonic() + t["run_timeout"]
+            while latest_step(c_dir) != k:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    proc.kill()
+                    proc.wait()
+                    check(False, f"train_ft kill: the run ended ({proc.returncode}) or timed out "
+                                 f"before its step-{k} checkpoint; its log ends:\n"
+                                 f"{(root / 'c.log').read_text()[-3000:]}")
+                time.sleep(0.02)
+            proc.kill()  # SIGKILL
+            rc = proc.wait()
+        print(f"time [{stamp}] train_ft faulted process: {time.time() - t_c:.1f} s wall to its "
+              f"step-{k} checkpoint and the kill")
+        check(rc == -9 and latest_step(c_dir) == k,
+              f"train_ft kill: exit {rc}, latest checkpoint {latest_step(c_dir)}")
+        # (step, launches before the attempt): each step's grads run once, so
+        # step s starts at s x per_step; step 5's retry follows a fault before
+        # its dispatch, step 7's a failure after its grads
+        notes = [json.loads(line) for line in record.read_text().splitlines()]
+        attempts = [(n["attempt"], n["launches"]) for n in notes if "attempt" in n]
+        step_losses = {n["step"]: n["loss"] for n in notes if "loss" in n}
+        want_attempts = []
+        for s_ in range(k):
+            want_attempts.append((s_, per_step * s_))
+            if s_ == t["fault_step"]:
+                want_attempts.append((s_, per_step * s_))
+            if s_ == t["update_fault_step"]:
+                want_attempts.append((s_, per_step * (s_ + 1)))
+        check(attempts[:len(want_attempts)] == want_attempts
+              and all(a_ == (s_, per_step * s_) for s_, a_ in
+                      zip(range(k, t["steps"]), attempts[len(want_attempts):])),
+              f"train_ft faults: attempts [step, flash launches before it] {attempts}, "
+              f"not {want_attempts} then [s, {per_step} s] for s >= {k}")
+        check(all(step_losses.get(s_) == losses[s_] for s_ in range(k)),
+              f"train_ft faults: losses {[step_losses.get(s_) for s_ in range(k)]} != "
+              f"{losses[:k]}")
+        manifest = json.loads((c_dir / f"step_{k:09d}" / "manifest.json").read_text())
+        check(_ckpt_digest(c_dir / f"step_{k:09d}") == digest_k
+              and manifest["extra"]["loss"] == losses[k - 1],
+              f"train_ft faults: the step-{k} checkpoint (loss {manifest['extra']['loss']}) "
+              f"differs from the straight run's (loss {losses[k - 1]})")
+        print(f"train_ft faults: a fault before step {t['fault_step']} and a failure after half "
+              f"of step {t['update_fault_step']}'s update, each retried once; flash_attention "
+              f"launches before each attempt {[n for _, n in attempts]} (no step ran its grads "
+              f"twice); the losses of steps 1-{k} and every leaf of the step-{k} checkpoint "
+              f"equal the straight run's bit for bit; SIGKILL once latest_step read {k} "
+              f"(exit {rc})")
+
+        # 3. a new process resumes the killed run
+        d = _ft_child(stamp, "resumed", train + _ft_args(t, c_dir, root / "d.json", t["every"]),
+                      root / "d.log", root / "d.json")
+        check(d["start_step"] == k and d["losses"] == losses[k:],
+              f"train_ft resumed: from step {d['start_step']}, losses {d['losses']} != "
+              f"{losses[k:]}")
+        want_d = per_step * (t["steps"] - k)
+        check(d["launches"]["flash_attention"] == want_d,
+              f"train_ft resumed: {d['launches']['flash_attention']} flash launches != {want_d}")
+        check(_ckpt_digest(c_dir / final) == digest,
+              "train_ft resumed: the final checkpoint differs from the straight run's")
+        print(f"train_ft resumed: a new process restored step {k} and ran steps {k + 1}-"
+              f"{t['steps']}: losses {' '.join(f'{x:.6f}' for x in d['losses'])} and every leaf "
+              f"of the step-{t['steps']} checkpoint equal the straight run's bit for bit; "
+              f"flash_attention launches {d['launches']['flash_attention']} = {cfg.n_layers} x 2 "
+              f"x {t['steps'] - k}")
+        print(f"time [{stamp}] train_ft restore of the step-{k} checkpoint "
+              f"({ckpt_bytes / 1e9:.3f} GB, from disk to the card): {d['restore_s']:.3f} s "
+              f"({ckpt_bytes / d['restore_s'] / 1e9:.2f} GB/s); time to recover (the new "
+              f"process's start to the end of its first step): {d['recover_s']:.1f} s; peak "
+              f"memory of the resumed run {d['peak_bytes'] / 2**30:.2f} GiB")
+        _ft_records(stamp, "resumed", d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _ft_profile(stamp, cfg)
+    print(f"time [{stamp}] train_ft phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": a["launches"]["flash_attention"], "step_s": step_s}
+
+
+def _ft_profile(stamp, cfg) -> None:
+    """One train_ft step in this process under the profiler, after a
+    warm-up step, with deterministic algorithms as the train_ft runs."""
+    t = TRAIN_FT
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = adamw(cosine_schedule(t["lr"], t["warmup"], t["steps"]))
+    state = steps_mod.make_init_state(cfg, opt, "cuda")(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    step = steps_mod.make_train_step(cfg, opt)
+    data = SyntheticLM(cfg.vocab, seed=SEED)
+    it = iter(range(1 << 30))
+
+    def one_step():
+        nonlocal state
+        b = data.batch(next(it), t["batch"], t["seq"])
+        state, m = step(state, {"tokens": torch.from_numpy(b["tokens"]).cuda()})
+        float(m["loss"])
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    try:
+        torch.use_deterministic_algorithms(True)
+        one_step()
+        _profile(stamp, f"train_ft step ({t['arch']}, batch {t['batch']} x {t['seq']}, adamw, remat, "
+                 f"kernels on, deterministic, under the profiler)", one_step, 1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _grads_host(grads_of, model, batch) -> tuple:
+    """Loss and grads of one batch, the grads copied to the host, and the
+    pass's peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, g = grads_of(model, batch)
+    peak = torch.cuda.max_memory_allocated()
+    g = {k: v.detach().to("cpu") for k, v in g.items()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss), g, peak
+
+
+def phase_train_moe(stamp) -> dict:
+    """deepseek-v2-lite-16b at full width, cut to TRAIN_MOE's depth, trained
+    through the entry point (losses finite and falling, flash launches
+    exact), then on one batch: ``save_block_outputs`` against ``full``
+    (grads bit for bit under deterministic algorithms; a step's time and
+    peak memory under each), and kernels on vs off in float32 on the first
+    layers with the MoE routes forced equal."""
+    t = TRAIN_MOE
+    full = get_config(t["arch"])
+    cfg = register(dataclasses.replace(full, name=f"{full.name}-{t['n_layers']}l",
+                                       n_layers=t["n_layers"]))
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    n_params = sum(p.numel() for p in Model(cfg, generator=None, device="meta").parameters())
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa_launches()
+    out = train_main(["--arch", cfg.name, "--steps", str(t["steps"]), "--batch", str(t["batch"]),
+                      "--seq", str(t["seq"]), "--lr", str(t["lr"]), "--warmup", str(t["warmup"]),
+                      "--optimizer", "adamw", "--seed", str(SEED), "--log-every", "1"])
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    check(out["steps"] == t["steps"] and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"train_moe losses: {losses}")
+    # the prefix layer runs once a step (outside the units, no remat); each
+    # unit layer runs in the forward and in its remat recompute
+    want = (cfg.first_k_dense + 2 * n_moe) * t["steps"]
+    check(launches == want == flash_attention_cuda.launches_by_dim[192],
+          f"train_moe: {launches} flash launches ({flash_attention_cuda.launches_by_dim}), not "
+          f"({cfg.first_k_dense} + 2 x {n_moe}) x {t['steps']} = {want}, all at D = 192")
+    steady = sorted(out["step_s"][1:])
+    step_s = steady[len(steady) // 2]
+    tokens = t["batch"] * t["seq"]
+    print(f"train_moe {cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.first_k_dense} dense "
+          f"MLA layer + {n_moe} MLA + MoE layers of {cfg.n_routed_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared; cut from {full.n_layers} layers), batch "
+          f"{t['batch']} x {t['seq']}, {t['steps']} adamw steps, remat full, kernels on; "
+          f"flash_attention launches {launches} = ({cfg.first_k_dense} + 2 x {n_moe}) x "
+          f"{t['steps']}, all on the D = 192 instance")
+    print(f"train_moe losses: {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"time [{stamp}] train_moe step (median of steps 2-{t['steps']}): {step_s:.3f} s = "
+          f"{tokens / step_s:.0f} tokens/s; first step {out['step_s'][0]:.3f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the two remat policies on one batch and one step each
+    opt = adamw(cosine_schedule(t["lr"], t["warmup"], t["steps"]))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = steps_mod.make_init_state(cfg, opt, "cuda")(gen)
+    model = state["model"]
+    data = SyntheticLM(cfg.vocab, seed=SEED)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0, t["batch"], t["seq"]).items()}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = {p: _grads_host(steps_mod.make_grads_fn(cfg, remat_policy=p), model, batch)
+                 for p in ("full", "save_block_outputs")}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_full, g_full, m_full), (l_sbo, g_sbo, m_sbo) = grads.values()
+    same = l_full == l_sbo and all(torch.equal(g_full[k], g_sbo[k]) for k in g_full)
+    check(same, f"train_moe: save_block_outputs grads differ from full's (loss {l_sbo} vs "
+                f"{l_full})")
+    del grads, g_full, g_sbo
+    timed = {}
+    for i, policy in enumerate(("full", "save_block_outputs", "full", "save_block_outputs")):
+        step = steps_mod.make_train_step(cfg, opt, remat_policy=policy)
+        b = {k: torch.from_numpy(v).cuda() for k, v in data.batch(1 + i, t["batch"], t["seq"]).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        timed[policy] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated())
+    print(f"train_moe remat policies, one batch, deterministic algorithms: loss and every grad "
+          f"of save_block_outputs equal full's bit for bit (loss {l_full:.6f}); peak memory of "
+          f"the forward and backward (AdamW state allocated): full {m_full / 2**30:.2f} GiB, "
+          f"save_block_outputs {m_sbo / 2**30:.2f} GiB")
+    print(f"time [{stamp}] train_moe step by remat policy (the second step of each, steps "
+          f"interleaved): " + "; ".join(
+              f"{p} {s:.3f} s = {tokens / s:.0f} tokens/s, peak memory {m / 2**30:.2f} GiB"
+              for p, (s, m) in timed.items()))
+
+    # kernels on vs off in float32 on the first layers, the MoE routes forced equal
+    cut, small = _cut_f32(cfg, model.named_parameters(), t["f32_layers"])
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads_of = steps_mod.make_grads_fn(cut, remat=False)
+    kernels.enable_kernels(False)
+    with _moe_routes(small) as routes:
+        loss_off, g_off, _ = _grads_host(grads_of, small, batch)
+    kernels.enable_kernels(True)
+    before = flash_attention_cuda.launches
+    with _routes_forced(small, routes) as own:
+        loss_on, g_on, _ = _grads_host(grads_of, small, batch)
+    check(flash_attention_cuda.launches - before == cut.n_layers,
+          f"train_moe f32: {flash_attention_cuda.launches - before} flash launches, not "
+          f"{cut.n_layers}")
+    flips = _flip_share(own, routes).float().mean().item()
+    num = sum(((g_on[k] - g_off[k]) ** 2).sum() for k in g_off)
+    rel = math.sqrt(float(num) / float(sum((x ** 2).sum() for x in g_off.values())))
+    dl = abs(loss_on - loss_off)
+    print(f"train_moe float32, first {cut.n_layers} layers, kernels on vs off with the MoE "
+          f"routes forced to the kernels-off ones (the kernels-on step would have moved "
+          f"{flips:.2%} of its (layer, token) routes): loss {loss_on:.6f} vs {loss_off:.6f} (abs "
+          f"diff {dl:.3g}, tol {TRAIN_F32_LOSS_TOL}); grads relative L2 {rel:.3g} (tol "
+          f"{TRAIN_F32_GRAD_REL_L2})")
+    check(dl <= TRAIN_F32_LOSS_TOL and rel <= TRAIN_F32_GRAD_REL_L2,
+          f"train_moe f32 kernels on vs off: loss diff {dl}, grads rel L2 {rel}")
+    del small, g_on, g_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"time [{stamp}] train_moe phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "step_s": step_s}
+
+
 def phase_codesign(stamp, gen) -> dict:
     """The co-design loop on the card: quickstart step 4 (plan the GEMM in
     each dtype's space, launch it with the planned tile in f32 and bf16,
@@ -3110,8 +3593,39 @@ def _time_fa_prefill(stamp, gen, fa, path, launches, err) -> dict:
             "bound_by": bound_by, "library_ms": ms["library"]}
 
 
+def _time_fa_train(stamp, gen, fa, name, shape, path, launches, err) -> dict:
+    """Flash attention at a training shape of FA_TRAIN_NEW (causal, bf16; v
+    of dv < d zero-padded by the op as the model's MLA call is) beside its
+    bound, its plain version and SDPA; the kernels-line record with that
+    path's launches."""
+    b, S, _, hq, hkv, d = shape[:6]
+    dv = shape[6] if len(shape) > 6 else d
+    pick = _rotating([_qkv(gen, b, S, S, hq, hkv, d, torch.bfloat16, dv) for _ in range(2)])
+    ms = _interleaved_ms({
+        "plain": lambda: _plain(*pick(), causal=True, scale=1.0 / math.sqrt(d)),
+        "kernel": lambda: flash_attention(*pick(), causal=True),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in pick()), is_causal=True, enable_gqa=hq != hkv),
+    }, n=10)
+    bytes_ = 2 * b * S * (hq * d + hkv * d + hkv * dv + hq * dv)  # q, k, v, o in bf16
+    flops = 2 * b * hq * (S * (S + 1) // 2) * (d + dv)
+    bound, bound_by = _bound(bytes_, flops, BF16_FLOP_PER_S)
+    label = f"b={b} S={S} hq={hq} hkv={hkv} d={d}" + (f" dv={dv}" if dv != d else "") + " causal bf16"
+    D = compiled_dim(d, dv)
+    print(f"time [{stamp}] flash_attention {path} {label} (the D={D} instance, tile "
+          f"{plan_blocks(S, S, D)}): kernel {ms['kernel']:.4f} ms "
+          f"({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain {ms['plain']:.4f} ms, sdpa "
+          f"{ms['library']:.4f} ms ({flops / ms['library'] / 1e9:.1f} TFLOP/s), kernel / sdpa "
+          f"{ms['kernel'] / ms['library']:.3f}, bound {bound:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; {bound / ms['kernel']:.1%} of it); "
+          f"{launches} launches on the {path} path")
+    return {**fa, "path": path, "shape": f"{name} {label}", "launches": launches,
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": ms["library"]}
+
+
 def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches, errs,
-                loop) -> list:
+                loop, new_train) -> list:
     """Each kernel at its main-path shape beside its bound, its plain version
     and, where one exists, the PyTorch call computing the same function. A
     matmul whose plan is not the searched tile (the model rated the default
@@ -3196,6 +3710,9 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
                     "launches": train_launches["flash_attention"], "max_abs_err": errs["fa_train"],
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": ms["library"]})
+    for name, shape, path in FA_TRAIN_NEW:
+        records.append(_time_fa_train(stamp, gen, fa, name, shape, path,
+                                      new_train[path]["launches"], errs[name]))
 
     # the SSD kernel at zamba2's training shape, B/C shared by the heads as
     # the model passes them (stride 0: the score kernel, then the main
@@ -3357,8 +3874,9 @@ def main() -> int:
     moe = phase_serve_moe(stamp)
     fam = phase_families(stamp)
     train_launches, train_step = phase_train(stamp)
+    new_train = {"train_ft": phase_train_ft(stamp), "train_moe": phase_train_moe(stamp)}
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
-                          fam, train_launches, errs, loop)
+                          fam, train_launches, errs, loop, new_train)
     report_whole_model(stamp, wm, decode_step, train_step, records)
     print(json.dumps({"kernels": records + mapper_records + wm["records"]}))
     print(json.dumps({"ok": True, "device": {

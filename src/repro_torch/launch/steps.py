@@ -2,12 +2,14 @@
 PyTorch runs them eagerly: there is no ``jax.jit`` here.
 
 The training state is ``{"model": Model, "opt": optimizer state}``; a train
-step updates the model's parameters in place and returns the new state.
+step updates the model's parameters and the optimizer state in place and
+returns the new state (a retried step ends where an unfailed one ends: see
+``make_train_step``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -59,6 +61,20 @@ def make_grads_fn(cfg: ModelConfig, *, remat: bool = True, microbatches: int = 1
     return grads_of
 
 
+class _Progress(set):
+    """The parameters a step's update has written; ``hook(n)`` runs after
+    the n-th (the fault-injection point of the tests and chip_smoke.py)."""
+
+    def __init__(self, hook: Optional[Callable[[int], None]]) -> None:
+        super().__init__()
+        self.hook = hook
+
+    def add(self, name: str) -> None:
+        super().add(name)
+        if self.hook is not None:
+            self.hook(len(self))
+
+
 def make_train_step(
     cfg: ModelConfig,
     optimizer: Optimizer,
@@ -66,19 +82,34 @@ def make_train_step(
     remat: bool = True,
     microbatches: int = 1,
     remat_policy: str = "full",
+    update_hook: Optional[Callable[[int], None]] = None,
 ):
-    """One optimizer step: (state, batch) -> (state, {"loss", "step"})."""
+    """One optimizer step: (state, batch) -> (state, {"loss", "step"}).
+
+    The update is written in place, so a step that fails partway is
+    recorded on the ``state`` dict it was given, and calling it again with
+    the same (state, batch) -- a retry -- ends where one unfailed call
+    ends, bit for bit: the grads are computed once (a failure before the
+    update leaves the state untouched) and kept under ``state["pending"]``
+    with the set of parameters already written; a retry skips the grads
+    and finishes the update. A finished step leaves nothing behind, so a
+    call after it is the next step. ``update_hook(n)`` runs after the n-th
+    parameter is written."""
     grads_of = make_grads_fn(cfg, remat=remat, microbatches=microbatches,
                              remat_policy=remat_policy)
 
     def train_step(state: Dict, batch: Dict):
         model = state["model"]
-        loss, grads = grads_of(model, batch)
-        opt = optimizer.update(grads, state["opt"], dict(model.named_parameters()))
-        del grads
-        for p in model.parameters():
-            p.grad = None
-        return {"model": model, "opt": opt}, {"loss": loss, "step": opt["step"]}
+        if "pending" not in state:
+            loss, grads = grads_of(model, batch)
+            for p in model.parameters():
+                p.grad = None
+            state["pending"] = {"loss": loss, "grads": grads, "written": _Progress(update_hook)}
+        pending = state["pending"]
+        opt = optimizer.update(pending["grads"], state["opt"], dict(model.named_parameters()),
+                               committed=pending["written"])
+        del state["pending"]
+        return {"model": model, "opt": opt}, {"loss": pending["loss"], "step": opt["step"]}
 
     return train_step
 

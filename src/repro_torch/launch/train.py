@@ -1,37 +1,58 @@
 """Training entry point (port of ``repro/launch/train.py``).
 
 Wires config registry -> model -> train step -> deterministic data
-pipeline, and runs the steps eagerly on one device. ``--device cuda`` (the
-default; raises without a card) switches the CUDA kernels on (flash
-attention, the Mamba-2 SSD scan); ``--device cpu`` trains with the plain
-versions.
+pipeline -> checkpoint manager (atomic, async, in the reference's format)
+-> fault-tolerant runner (retry / restore / straggler watchdog), and runs
+the steps eagerly on one device. ``--device cuda`` (the default; raises
+without a card) switches the CUDA kernels on (flash attention, the Mamba-2
+SSD scan); ``--device cpu`` trains with the plain versions.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
-        --arch zamba2-2.7b_smoke --steps 8 --batch 2 --seq 64
+        --arch qwen3-0.6b_smoke --steps 50 --batch 8 --seq 128 \\
+        --ckpt-dir experiments/torch/run1
 
-Not ported yet: ``--mesh`` (the distributed layer, ROADMAP A12) and
-``--ckpt-dir`` (checkpoints and the fault-tolerant runner, ROADMAP A10);
-both raise.
+Run the same command again and it resumes from the latest checkpoint in
+``--ckpt-dir`` (the data pipeline restarts at that step). With
+``--deterministic`` a resumed run repeats an unbroken one bit for bit.
+
+Not ported yet: ``--mesh`` (the distributed layer, ROADMAP A12); it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import time
+from pathlib import Path
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import kernels
+from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLM, TokenFileDataset, make_pipeline
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim import adamw, cosine_schedule, lion
+from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
 
 log = logging.getLogger("repro_torch.train")
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
+         update_hook: Optional[Callable[[int], None]] = None) -> dict:
+    """Train; returns the losses, per-step seconds, the runner's stats, the
+    checkpoint records and the kernels' launch counters. ``fault_hook(step)``
+    runs before each attempt of a step and ``update_hook(n)`` after the
+    n-th parameter of an update is written (fault injection; either may
+    raise). Wall-clock marks (``time.time()``): ``t_main`` on entry,
+    ``t_loop`` when the first step starts (after init or restore),
+    ``t_first_step`` when it ends, ``t_done`` on return."""
+    t_main = time.time()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -42,65 +63,108 @@ def main(argv=None) -> dict:
     ap.add_argument("--optimizer", choices=["adamw", "lion"], default="adamw")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="", help="not ported yet (ROADMAP A12)")
-    ap.add_argument("--ckpt-dir", default="", help="not ported yet (ROADMAP A10)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", default="synthetic", help="'synthetic' or a token file path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--step-timeout", type=float, default=None)
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="torch.use_deterministic_algorithms: runs repeat bit for bit")
+    ap.add_argument("--metrics-out", default="", help="write the returned dict here as JSON")
     args = ap.parse_args(argv)
 
     if args.mesh:
         raise NotImplementedError("--mesh: the distributed layer is not ported yet (ROADMAP A12)")
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoints and the fault-tolerant runner are "
-                                  "not ported yet (ROADMAP A10)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    if args.deterministic:
+        # cuBLAS reads this when its handle is made, before the first product
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
     kernels.enable_kernels(args.device == "cuda")
     cfg = get_config(args.arch)
 
     lr = cosine_schedule(args.lr, args.warmup, args.steps)
     optimizer = {"adamw": adamw, "lion": lion}[args.optimizer](lr)
-    step_fn = steps_mod.make_train_step(
-        cfg, optimizer, remat=not args.no_remat, microbatches=args.microbatches
-    )
-    gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    state = steps_mod.make_init_state(cfg, optimizer, args.device)(gen)
+    step_fn = steps_mod.make_train_step(cfg, optimizer, remat=not args.no_remat,
+                                        microbatches=args.microbatches, update_hook=update_hook)
 
+    # ---- init / restore ------------------------------------------------ #
+    state, start_step, restore_s, ckpt = None, 0, None, None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(Path(args.ckpt_dir), every=args.ckpt_every)
+        if latest_step(args.ckpt_dir) is not None:
+            # into a structure on the meta device: each leaf is made once, on the device
+            t0 = time.perf_counter()
+            state, start_step, _ = ckpt.restore_latest(
+                steps_mod.make_init_state(cfg, optimizer, "meta")(None), device=args.device)
+            restore_s = time.perf_counter() - t0
+            log.info("restored checkpoint at step %d (%.2f s)", start_step, restore_s)
+    if state is None:
+        gen = torch.Generator(device=args.device).manual_seed(args.seed)
+        state = steps_mod.make_init_state(cfg, optimizer, args.device)(gen)
+
+    # ---- data ----------------------------------------------------------- #
     if args.data == "synthetic":
         source = SyntheticLM(cfg.vocab, seed=args.seed)
     else:
         source = TokenFileDataset(args.data, cfg.vocab, seed=args.seed)
     pipe = make_pipeline(source, args.batch, args.seq, device=args.device,
-                         data_cfg=DataConfig(seed=args.seed))
+                         start_step=start_step, data_cfg=DataConfig(seed=args.seed))
 
-    def sync():
-        if args.device == "cuda":
-            torch.cuda.synchronize()
+    def restore_fn():
+        # in place: the torn state's tensors take the checkpoint's values
+        st, step, _ = ckpt.restore_latest(state)
+        return st, step
 
-    losses, step_s = [], []
+    runner = FaultTolerantRunner(step_fn, RunnerConfig(step_timeout_s=args.step_timeout),
+                                 checkpoint_manager=ckpt,
+                                 restore_fn=restore_fn if ckpt else None,
+                                 fault_hook=fault_hook)
+
+    # ---- loop ------------------------------------------------------------ #
+    losses, step_s, saved = [], [], None
+    t_loop, t_first_step = time.time(), None
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = next(pipe)
-        sync()
         ts = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        sync()
+        state, metrics = runner.run_step(state, batch, step)  # waits for the device
         step_s.append(time.perf_counter() - ts)
+        t_first_step = t_first_step or time.time()
+        loss = float(metrics["loss"])
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
             log.info("step %-5d loss %.4f  (%.2f s/step avg)",
-                     step, loss, (time.perf_counter() - t0) / (step + 1))
+                     step, loss, (time.perf_counter() - t0) / (step - start_step + 1))
+        if ckpt is not None and ckpt.should_save(step + 1):
+            ckpt.save(step + 1, state, extra={"loss": loss})
+            saved = step + 1
     pipe.close()
-    if not losses:
-        return {"first_loss": float("nan"), "last_loss": float("nan"), "steps": 0,
-                "losses": [], "step_s": []}
-    return {"first_loss": losses[0], "last_loss": losses[-1], "steps": len(losses),
-            "losses": losses, "step_s": step_s}
+    out = {"steps": len(losses), "start_step": start_step, "losses": losses, "step_s": step_s,
+           "stats": [vars(s) for s in runner.stats], "restore_s": restore_s,
+           "peak_bytes": torch.cuda.max_memory_allocated() if args.device == "cuda" else None,
+           "t_main": t_main, "t_loop": t_loop, "t_first_step": t_first_step,
+           "launches": {"flash_attention": flash_attention_cuda.launches,
+                        "ssd_scan": ssd_intra_chunk_cuda.launches}}
+    if losses:  # else resumed at/after the target step: nothing to do
+        if ckpt is not None and saved != args.steps:
+            ckpt.save(args.steps, state, extra={"loss": losses[-1]})
+        out.update(first_loss=losses[0], last_loss=losses[-1])
+    else:
+        out.update(first_loss=float("nan"), last_loss=float("nan"))
+    if ckpt is not None:
+        ckpt.wait()
+        out["checkpoints"] = ckpt.records
+    out["t_done"] = time.time()
+    if args.metrics_out:
+        Path(args.metrics_out).write_text(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

@@ -13,8 +13,9 @@ tokens). JAX stacks the per-unit params and runs the units under
 ``model.blocks`` list, in layer order (unit i, pattern slot j is
 ``blocks[i * len(pattern) + j]``), and the stack is a Python loop over
 units. ``remat`` checkpoints each unit, as ``jax.checkpoint(unit_fn)``
-does. Every block returns its router aux loss (zero without MoE), summed
-over the layers. The decode cache is a list of per-layer dicts, prefix
+does, or, with ``remat_policy="save_block_outputs"``, each residual branch
+inside the units. Every block returns its router aux loss (zero without
+MoE), summed over the layers. The decode cache is a list of per-layer dicts, prefix
 layers first (``{"k", "v"}`` for attention, ``{"ckv", "krope"}`` for MLA,
 the conv windows and SSM state for Mamba-2, the conv window and (C, n, m)
 for mLSTM, (c, n, h, m) for sLSTM), updated in place by ``decode_step``;
@@ -52,6 +53,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import MoE
 
 Cache = List[Dict[str, torch.Tensor]]
+REMAT_POLICIES = ("full", "save_block_outputs")
 # (x, the block's router aux loss: a 0-d f32 tensor from a MoE FFN, else 0.0,
 # which costs the decode step no device work)
 BlockOut = Tuple[torch.Tensor, Union[torch.Tensor, float]]
@@ -65,6 +67,13 @@ def n_units(cfg: ModelConfig) -> int:
         raise ValueError(f"{cfg.name}: {n_scanned} layers after the prefix do not divide "
                          f"into units of {cfg.block_pattern}")
     return n_scanned // len(cfg.block_pattern)
+
+
+def _branch(fn, x: torch.Tensor, remat: bool):
+    """One residual branch ``fn(x)``; with ``remat`` its output is kept for
+    the backward and everything inside it is recomputed (the reference's
+    ``checkpoint_name(..., "block_out")`` under ``save_only_these_names``)."""
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
 
 
 class Block(nn.Module):
@@ -87,15 +96,17 @@ class Block(nn.Module):
             self.ln2 = _ones(cfg.d_model, device)
             self.ffn = MLP(cfg, **kw)
 
-    def forward(self, x, positions, cache=None, cache_len=None) -> BlockOut:
-        x = x + self.attn(rms_norm(x, self.ln1, self.rms_eps), positions, cache, cache_len)
+    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False) -> BlockOut:
+        x = x + _branch(lambda h: self.attn(rms_norm(h, self.ln1, self.rms_eps), positions,
+                                            cache, cache_len), x, remat)
         aux = 0.0
         if self.moe is not None:
             # decode (cache present) routes droplessly, as the reference does
-            y, aux = self.moe(rms_norm(x, self.ln2, self.rms_eps), dropless=cache is not None)
+            y, aux = _branch(lambda h: self.moe(rms_norm(h, self.ln2, self.rms_eps),
+                                                dropless=cache is not None), x, remat)
             x = x + y
         elif self.ffn is not None:
-            x = x + self.ffn(rms_norm(x, self.ln2, self.rms_eps))
+            x = x + _branch(lambda h: self.ffn(rms_norm(h, self.ln2, self.rms_eps)), x, remat)
         return x, aux
 
 
@@ -111,8 +122,8 @@ class _CoreBlock(nn.Module):
         self.ln = _ones(cfg.d_model, device)
         self.core = self.core_cls(cfg, generator=generator, device=device)
 
-    def forward(self, x, positions, cache=None, cache_len=None) -> BlockOut:
-        y, _ = self.core(rms_norm(x, self.ln, self.cfg.rms_eps), cache)
+    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False) -> BlockOut:
+        y = _branch(lambda h: self.core(rms_norm(h, self.ln, self.cfg.rms_eps), cache)[0], x, remat)
         return x + y, 0.0
 
 
@@ -198,11 +209,15 @@ def forward(
     remat: bool = True,
     remat_policy: str = "full",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``remat`` checkpoints each unit when autograd records (full remat: the
-    backward re-runs the unit's forward, kernels included)."""
-    if remat and remat_policy != "full":
-        raise NotImplementedError(f"remat_policy={remat_policy!r}: only 'full' is ported "
-                                  f"(save_block_outputs: ROADMAP A6)")
+    """With autograd recording, ``remat`` recomputes in the backward, by
+    ``remat_policy``: ``"full"`` checkpoints each unit (the backward re-runs
+    the unit's forward, kernels included, from the unit's input);
+    ``"save_block_outputs"`` checkpoints each residual branch of each unit
+    (attention, FFN/MoE, recurrent core), so the residual stream between
+    branches is kept and each branch's inside is recomputed. The prefix
+    layers are never rematerialised, as in the reference."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={remat_policy!r}: one of {REMAT_POLICIES}")
     x, _ = embed_inputs(cfg, model, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     P = len(cfg.block_pattern)
@@ -210,15 +225,17 @@ def forward(
     for blk in model.prefix:  # outside the units, as in the reference: no remat
         x, a = blk(x, positions)
         aux = aux + a
+    remat = remat and torch.is_grad_enabled()
+    per_branch = remat and remat_policy == "save_block_outputs"
 
     def unit_fn(x: torch.Tensor, aux, i: int) -> BlockOut:
         for blk in model.blocks[i * P:(i + 1) * P]:
-            x, a = blk(x, positions)
+            x, a = blk(x, positions, remat=per_branch)
             aux = aux + a
         return x, aux
 
     for i in range(n_units(cfg)):
-        if remat and torch.is_grad_enabled():
+        if remat and not per_branch:
             x, aux = checkpoint(unit_fn, x, aux, i, use_reentrant=False)
         else:
             x, aux = unit_fn(x, aux, i)

@@ -8,6 +8,14 @@ dicts of tensors keyed alike, writes the new parameter values into
 ``params`` IN PLACE (JAX returns new arrays) and returns the new state.
 It works leaf by leaf, so at most one leaf's f32 gradient exists at once,
 and every step keeps JAX's order of float32 operations.
+
+An update can be resumed: ``committed`` is a set of parameter names whose
+update this step has already written; they are skipped, and each leaf is
+added to it once its parameter and state are written (the new values of a
+leaf are computed before any of them is stored). An update that fails
+halfway and is called again with the same grads, state and set ends where
+an unfailed update ends, bit for bit; the step counter moves only at the
+end.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ Tensors = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable  # (params) -> state
-    update: Callable  # (grads, state, params) -> new state; params updated in place
+    update: Callable  # (grads, state, params, committed=None) -> new state; params in place
 
 
 def _lr_fn(lr):
@@ -60,6 +68,16 @@ def _f32_zeros(params: Tensors) -> Tensors:
             for k, p in params.items()}
 
 
+def _pending(params: Tensors, committed):
+    """The (name, parameter) pairs an update still has to write."""
+    return [(k, p) for k, p in params.items() if committed is None or k not in committed]
+
+
+def _commit(committed, name: str) -> None:
+    if committed is not None:
+        committed.add(name)
+
+
 def _master(params: Tensors) -> Tensors:
     return {k: p.detach().float().clone() for k, p in params.items()}
 
@@ -79,7 +97,7 @@ def adamw(
                 "master": _master(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors) -> Dict:
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
         step = state["step"] + 1
         scale = _clip_scale(global_norm(grads), grad_clip) if grad_clip is not None else None
         lr_t = lr_fn(step)
@@ -87,14 +105,16 @@ def adamw(
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
         m, v, master = state["m"], state["v"], state["master"]
-        for k, p in params.items():
+        for k, p in _pending(params, committed):
             g = _clipped(grads[k], scale)
-            m[k] = b1 * m[k] + (1 - b1) * g
-            v[k] = b2 * v[k] + (1 - b2) * g * g
-            mh = m[k] / bc1
-            vh = v[k] / bc2
-            master[k] = master[k] - lr_t * (mh / (torch.sqrt(vh) + eps) + weight_decay * master[k])
-            p.copy_(master[k])
+            m_k = b1 * m[k] + (1 - b1) * g
+            v_k = b2 * v[k] + (1 - b2) * g * g
+            mh = m_k / bc1
+            vh = v_k / bc2
+            ma_k = master[k] - lr_t * (mh / (torch.sqrt(vh) + eps) + weight_decay * master[k])
+            m[k], v[k], master[k] = m_k, v_k, ma_k
+            p.copy_(ma_k)
+            _commit(committed, k)
         return {"step": step, "m": m, "v": v, "master": master}
 
     return Optimizer(init, update)
@@ -115,17 +135,19 @@ def lion(
         return {"step": 0, "m": _f32_zeros(params), "master": _master(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors) -> Dict:
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
         step = state["step"] + 1
         scale = _clip_scale(global_norm(grads), grad_clip) if grad_clip is not None else None
         lr_t = lr_fn(step)
         m, master = state["m"], state["master"]
-        for k, p in params.items():
+        for k, p in _pending(params, committed):
             g = _clipped(grads[k], scale)
             u = torch.sign(b1 * m[k] + (1 - b1) * g)
-            master[k] = master[k] - lr_t * (u + weight_decay * master[k])
-            m[k] = b2 * m[k] + (1 - b2) * g
-            p.copy_(master[k])
+            ma_k = master[k] - lr_t * (u + weight_decay * master[k])
+            m_k = b2 * m[k] + (1 - b2) * g
+            m[k], master[k] = m_k, ma_k
+            p.copy_(ma_k)
+            _commit(committed, k)
         return {"step": step, "m": m, "master": master}
 
     return Optimizer(init, update)
@@ -138,13 +160,16 @@ def sgd(lr: Callable | float = 1e-2, momentum: float = 0.9) -> Optimizer:
         return {"step": 0, "m": _f32_zeros(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors) -> Dict:
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
         step = state["step"] + 1
         lr_t = lr_fn(step)
         m = state["m"]
-        for k, p in params.items():
-            m[k] = momentum * m[k] + grads[k].float()
-            p.copy_(p.float() - lr_t * m[k])
+        for k, p in _pending(params, committed):
+            m_k = momentum * m[k] + grads[k].float()
+            p_k = p.float() - lr_t * m_k
+            m[k] = m_k
+            p.copy_(p_k)
+            _commit(committed, k)
         return {"step": step, "m": m}
 
     return Optimizer(init, update)

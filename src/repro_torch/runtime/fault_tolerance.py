@@ -16,18 +16,22 @@ dispatch and runs it again:
     count-based probe schedule, around the engine's torch backend in the
     long-lived mapping service.
 
+  * :class:`FaultTolerantRunner` -- the training-loop shape (step_fn +
+    checkpoint restore) expressed through the core above.
+
 ``repro_torch.core.sweep_exec`` wraps every group dispatch of
-``union_opt_sweep`` in ``retry_call`` with a per-group deadline. The
-deadlines time host work: nothing here synchronises a device. The module
-imports neither torch nor jax, so spawned sweep workers import it cheaply.
-The reference's ``FaultTolerantRunner`` (the training-loop runner) is not
-ported yet.
+``union_opt_sweep`` in ``retry_call`` with a per-group deadline; those
+deadlines time host work. The runner's deadline times a train step to its
+end on the device (it synchronises the state's CUDA device). The module
+imports neither torch nor jax, so spawned sweep workers import it cheaply;
+the runner finds torch in ``sys.modules`` when its state holds tensors.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -37,7 +41,15 @@ log = logging.getLogger("repro_torch.runtime")
 
 
 class CallTimeoutError(RuntimeError):
-    """A watchdogged callable missed its deadline."""
+    """A watchdogged callable missed its deadline. ``abandoned`` is the
+    thread still running it; ``outcome`` gets its result under "out" or its
+    error under "err" once that thread ends."""
+
+    def __init__(self, msg: str = "", abandoned: Optional[threading.Thread] = None,
+                 outcome: Optional[Dict[str, Any]] = None) -> None:
+        super().__init__(msg)
+        self.abandoned = abandoned
+        self.outcome = outcome
 
 
 class StepTimeoutError(CallTimeoutError):
@@ -76,7 +88,8 @@ def call_with_deadline(fn: Callable[[], Any], deadline_s: Optional[float],
     th = threading.Thread(target=work, name=f"deadline:{label}", daemon=True)
     th.start()
     if not done.wait(deadline_s):
-        raise CallTimeoutError(f"{label} exceeded {deadline_s}s deadline")
+        raise CallTimeoutError(f"{label} exceeded {deadline_s}s deadline", abandoned=th,
+                               outcome=box)
     th.join()  # finished: reap promptly, no lingering thread on early exit
     if "err" in box:
         raise box["err"]
@@ -344,3 +357,162 @@ class StragglerMeter:
     def avg(self) -> float:
         w = self._durations[-self.window:]
         return sum(w) / max(1, len(w))
+
+
+# ------------------------------------------------------------------ #
+# Train-step runner
+# ------------------------------------------------------------------ #
+@dataclass
+class RunnerConfig:
+    max_retries_per_step: int = 2       # transient-failure retries
+    max_restores: int = 3               # checkpoint restores before giving up
+    step_timeout_s: Optional[float] = None  # straggler deadline (None = off)
+    # moving-average straggler detection: flag steps slower than
+    # slack * avg of the last window steps
+    straggler_window: int = 20
+    straggler_slack: float = 3.0
+    # after a missed deadline, how long to wait for the abandoned step to
+    # end before giving up (None = as long as it takes)
+    abandon_wait_s: Optional[float] = 600.0
+
+
+@dataclass
+class StepStats:
+    step: int
+    seconds: float
+    retried: int       # failed attempts before this success (CUMULATIVE
+    #                    across checkpoint restores)
+    straggler: bool
+
+
+class StepAbandonedError(StepTimeoutError):
+    """A step missed its deadline and was still running ``abandon_wait_s``
+    later: it may still write the state, so nothing is retried."""
+
+
+def _devices(tree, found: set) -> set:
+    """The CUDA devices of the tensors in a state/metrics tree."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return found
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            found.add(tree.device)
+    elif isinstance(tree, torch.nn.Module):
+        found.update(p.device for p in tree.parameters() if p.is_cuda)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _devices(v, found)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _devices(v, found)
+    return found
+
+
+class FaultTolerantRunner:
+    """Wraps a step function with retry/restore/straggler logic (port of the
+    reference's runner).
+
+    ``step_fn(state, batch) -> (state, metrics)``: on failure the runner
+    calls it again with the same (state, batch). The reference's step is
+    functional; the port's updates the model and optimizer state in place,
+    so a retry is exact only because ``launch.steps.make_train_step``
+    records a half-written update on the state and a retry finishes it. A
+    step that misses its deadline is abandoned in a thread that may still
+    be writing the state: the runner waits for that thread to end
+    (``abandon_wait_s``) and gives up (:class:`StepAbandonedError`) if it
+    does not. The timed-out attempt counts as failed; if the thread then
+    ended with a result, that result is the retry's (running the step
+    again would apply its update twice), else the retry calls ``step_fn``.
+    Checkpoint restore (``restore_fn() -> (state, step)``) is the last line
+    of defense once a step's retries are spent; the restored state then
+    takes the step's batch, as in the reference.
+    """
+
+    def __init__(
+        self,
+        step_fn: Callable,
+        cfg: RunnerConfig = RunnerConfig(),
+        *,
+        checkpoint_manager=None,
+        restore_fn: Optional[Callable] = None,  # () -> (state, step)
+        fault_hook: Optional[Callable[[int], None]] = None,  # test injection
+    ) -> None:
+        self.step_fn = step_fn
+        self.cfg = cfg
+        self.ckpt = checkpoint_manager
+        self.restore_fn = restore_fn
+        self.fault_hook = fault_hook
+        self._meter = StragglerMeter(cfg.straggler_window, cfg.straggler_slack)
+        self._restores = 0
+        self.stats: list[StepStats] = []
+
+    # ---------------------------------------------------------------- #
+    def _block(self, tree) -> None:
+        """Wait for the device work of ``tree`` (the deadline times the step,
+        not its launch); nothing to wait for on the CPU."""
+        for dev in _devices(tree, set()):
+            sys.modules["torch"].cuda.synchronize(dev)
+
+    def _run_once(self, state, batch, step: int):
+        """One dispatch with an optional watchdog deadline."""
+        if self.fault_hook is not None:
+            self.fault_hook(step)  # may raise (injected fault)
+
+        def dispatch():
+            out = self.step_fn(state, batch)
+            self._block(out)
+            return out
+
+        try:
+            return call_with_deadline(dispatch, self.cfg.step_timeout_s, label=f"step{step}")
+        except CallTimeoutError as e:
+            # the abandoned dispatch writes the state in place: nothing
+            # goes on before it has ended
+            e.abandoned.join(self.cfg.abandon_wait_s)
+            if e.abandoned.is_alive():
+                raise StepAbandonedError(f"{e}; still running {self.cfg.abandon_wait_s}s "
+                                         f"later") from None
+            raise StepTimeoutError(str(e), outcome=e.outcome) from None
+
+    # ---------------------------------------------------------------- #
+    def run_step(self, state, batch, step: int):
+        """Returns (new_state, metrics). Raises only after exhausting both
+        retries and checkpoint restores."""
+        budget_used = 0     # retries since the last restore (the budget)
+        failed_attempts = 0  # cumulative, for stats
+        late = None  # the outcome of an attempt that ended after its deadline
+        while True:
+            t0 = time.time()
+            try:
+                if late is not None and "out" in late:
+                    out, late = late["out"], None  # it finished: the retry's result
+                else:
+                    out = self._run_once(state, batch, step)
+                dt = time.time() - t0
+                straggler = self._meter.note(dt)
+                if straggler:
+                    log.warning("step %d straggled: %.2fs (avg %.2fs)",
+                                step, dt, self._meter.avg())
+                self.stats.append(StepStats(step, dt, failed_attempts, straggler))
+                return out
+            except StepAbandonedError:
+                raise
+            except Exception as e:  # noqa: BLE001 -- deliberate catch-all
+                late = e.outcome if isinstance(e, StepTimeoutError) else None
+                budget_used += 1
+                failed_attempts += 1
+                log.warning("step %d failed (%s: %s), retry %d/%d",
+                            step, type(e).__name__, e, budget_used,
+                            self.cfg.max_retries_per_step)
+                if budget_used <= self.cfg.max_retries_per_step:
+                    continue
+                if self.restore_fn is not None and self._restores < self.cfg.max_restores:
+                    self._restores += 1
+                    log.warning("restoring from checkpoint (restore %d/%d)",
+                                self._restores, self.cfg.max_restores)
+                    state, _ = self.restore_fn()
+                    late = None
+                    budget_used = 0  # fresh budget; failed_attempts keeps history
+                    continue
+                raise

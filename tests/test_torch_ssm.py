@@ -253,8 +253,12 @@ def test_init_params_dtypes_and_layout():
 
 
 def test_remat_save_block_outputs_raises():
+    """``save_block_outputs`` is ported (its grads: test_torch_train.py);
+    a policy that is neither it nor ``full`` raises, naming both."""
     cfg = get_config(ARCH)
     model = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="save_block_outputs"):
-        forward(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.long)},
-                remat_policy="save_block_outputs")
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
+    logits, _ = forward(cfg, model, batch, remat_policy="save_block_outputs")
+    assert torch.equal(logits, forward(cfg, model, batch)[0])
+    with pytest.raises(ValueError, match="save_block_outputs"):
+        forward(cfg, model, batch, remat_policy="save_block_output")
