@@ -96,8 +96,8 @@ Phases (any failure raises and the exit code is non-zero):
      (chunked attention) decode and against the full forward pass;
   serve_moe: deepseek-v2-lite-16b (15.7 B parameters; MLA at d = 192,
      dv = 128 on the flash kernel's D = 192 instance; one dense prefix
-     layer, 26 MoE layers of 64 experts top-6 + 2 shared) with 16 requests
-     of 32 new tokens, then qwen2-moe-a2.7b (14.3 B; GQA, 24 MoE layers of
+     layer, 26 MoE layers of 64 experts top-6 + 2 shared) with 8 requests
+     (one wave) of 32 new tokens, then qwen2-moe-a2.7b (14.3 B; GQA, 24 MoE layers of
      60 top-4 + 4 shared) with 8 of 16, at full width and depth with random
      weights, 8 slots, max_len 512, kernels on, each freed before the next.
      Each must serve every request with flash-attention launches equal to
@@ -169,6 +169,18 @@ Phases (any failure raises and the exit code is non-zero):
      time and peak memory under each) and, on the first 3 layers in
      float32, kernels on against off with the MoE routes forced to the
      kernels-off ones (loss within 1e-4, grads within 1e-3 relative L2);
+  distributed: (a) ``python -m torch.distributed.run --nproc-per-node 1``
+     of the training entry point with train_ft's arguments and ``--mesh
+     1,1`` (NCCL, world size 1), ended before step 4: its losses, flash
+     launches (28 x 2 x 4) and step-4 checkpoint (written by rank 0 under
+     the mesh) bit for bit the straight run's, then that checkpoint
+     restored with ``shardings=`` on a 1x1 mesh, every leaf bit for bit;
+     the step time and peak memory beside the unmeshed run's; (b) the
+     expert-parallel MoE layer at qwen2-moe-a2.7b's width in float32 on 4
+     gloo ranks sharing the card, mesh (1, 4), 15 experts a rank, against
+     the port's MoE (y 2e-4, aux 1e-5, grads 2e-3), with its all-to-all
+     bytes and forward time; (c) the int8 compressed all-reduce over (b)'s
+     grads, within the int8 bound, with its wire bytes against raw;
   7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
@@ -176,8 +188,9 @@ Phases (any failure raises and the exit code is non-zero):
      CUDA-graph replay; GB/s, n_split), at the MLA decode shape (b = 8,
      16/16 heads, d 192, dv 128, kv_len 512), at hubert's encode and
      llava's prefill shapes (the families path's launches), at the
-     train_ft and train_moe shapes (qwen3 4 x 2048, 16/8 heads of 128;
-     MLA 2 x 2048, 16/16 heads, d 192, dv 128) and at zamba2's
+     train_ft and train_moe shapes (qwen3 4 x 2048, 16/8 heads of 128,
+     also the distributed path's; MLA 2 x 2048, 16/16 heads, d 192, dv
+     128) and at zamba2's
      training shape (TFLOP/s; the
      planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
      four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
@@ -1040,8 +1053,9 @@ def phase_serve(stamp):
 
 
 # serve_moe: the two MoE configs at full width and depth through WaveServer,
-# at the serve phase's slots and max_len: (arch, requests, new tokens)
-SERVE_MOE = [("deepseek-v2-lite-16b", N_REQ, MAX_NEW), ("qwen2-moe-a2.7b", SLOTS, 16)]
+# at the serve phase's slots and max_len, one wave each (deepseek served two
+# before: the script's time limit): (arch, requests, new tokens)
+SERVE_MOE = [("deepseek-v2-lite-16b", SLOTS, MAX_NEW), ("qwen2-moe-a2.7b", SLOTS, 16)]
 MOE_TIMED_STEPS = 10  # decode steps in each timed turn, kernels on and off in turns
 MOE_TIMED_POS = 200  # the first timed step's position, as the serve phase times
 # Kernels-on first-step logits against kernels off and the full forward,
@@ -1384,11 +1398,12 @@ def phase_serve_moe(stamp) -> dict:
 
 # families: the three configs whose block kinds and frontends were ported
 # last, at full width and depth, each freed before the next. xlstm-1.3b
-# (mLSTM + sLSTM, no attention) serves the serve phase's load; the f32 check
+# (mLSTM + sLSTM, no attention) serves one wave of the serve phase's load; the f32 check
 # runs one unit (5 mLSTM + 1 sLSTM) cut from it at XLSTM_CUT_L = 512
 # positions, two mLSTM chunks of 256 (the chunk carry), against
 # test_arch_smoke.py's decode bound
 XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_REQ = SLOTS  # one wave (the serve phase's load was two): the script's time limit
 XLSTM_CUT_L, XLSTM_CUT_TOL = 512, 2e-3
 # xlstm's first decode step after a prefill of wave 0 against the chunked
 # forward at full depth. In bf16 the two forms of the recurrence round
@@ -1564,7 +1579,7 @@ def _xlstm_full_depth(cfg, model, prompts, first) -> None:
 
 
 def _families_xlstm(stamp) -> dict:
-    """xlstm-1.3b served through WaveServer at the serve phase's load, its
+    """xlstm-1.3b served through WaveServer (one wave of SLOTS requests), its
     decode checked against the chunked forward (one unit in f32, full depth
     in bf16), timed and profiled, beside its byte bound and Union's
     predicted step."""
@@ -1575,7 +1590,7 @@ def _families_xlstm(stamp) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    run = _served(cfg, model, N_REQ, MAX_NEW)
+    run = _served(cfg, model, XLSTM_REQ, MAX_NEW)
     prompts, waves, steps, done, dt, peak = (run[k] for k in ("prompts", "waves", "steps", "done",
                                                                "dt", "peak"))
     check(flash_attention_cuda.launches == 0, f"{cfg.name} has no attention layer, yet flash "
@@ -1586,7 +1601,7 @@ def _families_xlstm(stamp) -> dict:
           f"{cfg.n_layers} layers ({cfg.n_layers // len(cfg.block_pattern)} units of "
           f"{'+'.join(cfg.block_pattern)}), d {cfg.d_model}, {cfg.n_heads} heads, d_inner "
           f"{cfg.d_inner} (mLSTM heads of {dh}, sLSTM heads of {cfg.d_model // cfg.n_heads}); "
-          f"{N_REQ} requests, slots {SLOTS}, max_len {MAX_LEN}, prompts {min(map(len, prompts))}-"
+          f"{XLSTM_REQ} requests, slots {SLOTS}, max_len {MAX_LEN}, prompts {min(map(len, prompts))}-"
           f"{max(map(len, prompts))} tokens, {steps} steps; no attention layer and no TPU kernel "
           f"on this path: flash attention launched 0 times")
 
@@ -2295,6 +2310,8 @@ def phase_train_ft(stamp) -> dict:
         k = t["kill_at"]
         digest_k = _ckpt_digest(root / "a" / f"step_{k:09d}")
         digest = _ckpt_digest(root / "a" / final)
+        # the distributed phase's --mesh 1,1 run is held to this one's step-4 checkpoint
+        digest_every = _ckpt_digest(root / "a" / f"step_{t['every']:09d}")
         shutil.rmtree(root / "a")
         steady = sorted(a["step_s"][1:])
         step_s = steady[len(steady) // 2]
@@ -2394,7 +2411,8 @@ def phase_train_ft(stamp) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     _ft_profile(stamp, cfg)
     print(f"time [{stamp}] train_ft phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": a["launches"]["flash_attention"], "step_s": step_s}
+    return {"launches": a["launches"]["flash_attention"], "step_s": step_s, "losses": losses,
+            "steps_s": a["step_s"], "digest_every": digest_every, "peak_bytes": a["peak_bytes"]}
 
 
 def _ft_profile(stamp, cfg) -> None:
@@ -2562,6 +2580,367 @@ def phase_train_moe(stamp) -> dict:
     torch.cuda.empty_cache()
     print(f"time [{stamp}] train_moe phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "step_s": step_s}
+
+
+# distributed: the port's distributed layer on the card. One card
+# means world size 1 (NCCL) or ranks sharing it (gloo); nothing here measures
+# a speed-up across cards.
+# (a) qwen3-0.6b through ``torch.distributed.run --nproc-per-node 1`` and the
+#     training entry point with ``--mesh 1,1`` (NCCL), train_ft's arguments and
+#     schedule (12 steps), ended before step DIST_STOP once its step-DIST_STOP
+#     checkpoint is written: its losses and that checkpoint must be the straight
+#     run's bit for bit (the cosine schedule reads --steps, so a 4-step run
+#     would not be), then the checkpoint restored with ``shardings=`` on a 1x1
+#     mesh, every leaf bit for bit the file's.
+# (b) the expert-parallel MoE layer at qwen2-moe-a2.7b's width (d 2048, 60
+#     experts top-4, d_expert 1408, 4 shared) in f32 on 4 ranks sharing the
+#     card over gloo, mesh (1, 4) ("data", "model"): 15 experts a rank, against
+#     the port's MoE at the reference test's tolerances, at the first
+#     capacity factor of DIST_EP_CF at which neither path drops an
+#     assignment (the plain MoE's from the routes and its capacity, the
+#     layer's from its own count, moe_ep.DROPPED). DIST_EP_X tokens, not the
+#     2 x 2048 of a training batch: the reference layer dispatches each
+#     sender's empty slots to local expert 0 on the owner, so a drop-free
+#     owner needs capacity_factor ~ e_loc (11 at e_loc = 15), and its
+#     (e_loc, cap_own, d) f32 buffers, activations and grads at 2 x 2048
+#     tokens would need ~25 GB a rank, 4 ranks more than the card holds; at
+#     2 x 512, ~9 GB. Fewer ranks need more: at 2 ranks, e_loc 30 wants a
+#     factor ~15 and ~4x the buffer a rank.
+# (c) the int8 compressed all-reduce on the same 4 ranks over (b)'s grads
+#     (each rank's x grad and its experts' w_down grads: distinct per rank).
+DIST_STOP = 4
+DIST_EP_X = (2, 512)
+DIST_EP_CF = (8.0, 10.0, 11.0, 12.0, 14.0, 16.0)  # the first drop-free one is used
+DIST_EP_TIMED = 3  # timed forward calls of each path
+DIST_Y_TOL, DIST_AUX_RTOL, DIST_GRAD_TOL = 2e-4, 1e-5, 2e-3  # tests/test_moe_ep.py's
+DIST_TIMEOUT = 300
+# (a)'s process: train.main with a fault hook that ends the run before step
+# ``stop`` (not an Exception: the runner does not retry it); then, once rank
+# 0's writer has finished that checkpoint, restore it on a 1x1 mesh
+MESH_RUN = """
+import json, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import latest_step, restore
+from repro_torch.checkpoint.checkpoint import _from_native
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.launch import steps, train
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.convert import reference_leaves
+from repro_torch.optim import adamw
+from repro_torch.sharding.specs import ShardingRules, named, state_specs
+stop, out_path, argv = int(sys.argv[1]), sys.argv[2], sys.argv[3:]
+ckpt_dir = Path(argv[argv.index("--ckpt-dir") + 1])
+rec = {"losses": [], "step_s": [], "t0": time.time()}
+class Stop(BaseException):
+    pass
+run_step = train.FaultTolerantRunner.run_step
+def timed(self, state, batch, step):
+    t0 = time.perf_counter()
+    out = run_step(self, state, batch, step)  # waits for the device
+    rec["step_s"].append(time.perf_counter() - t0)
+    rec["losses"].append(float(out[1]["loss"]))
+    rec["backend"], rec["world"] = dist.get_backend(), dist.get_world_size()
+    rec["placements"] = sorted({str(tuple(p.placements)) for p in state["model"].parameters()})
+    return out
+train.FaultTolerantRunner.run_step = timed
+def fault_hook(step):
+    if step == stop:
+        rec["launches"] = flash_attention_cuda.launches
+        raise Stop
+try:
+    train.main(argv, fault_hook=fault_hook)
+except Stop:
+    pass
+rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+while latest_step(ckpt_dir) != stop:  # the writer thread finishes the checkpoint
+    time.sleep(0.05)
+dist.init_process_group("nccl", init_method="env://")
+mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+cfg = get_config(argv[argv.index("--arch") + 1])
+meta = steps.make_init_state(cfg, adamw(1e-4), "meta")(None)
+t0 = time.perf_counter()
+state, step, _ = restore(ckpt_dir, meta, shardings=named(state_specs(meta, cfg, mesh,
+                                                                      ShardingRules()), mesh),
+                         device="cuda")
+torch.cuda.synchronize()
+rec["restore_s"] = time.perf_counter() - t0
+cdir = ckpt_dir / f"step_{step:09d}"
+files = {e["key"]: e for e in json.loads((cdir / "manifest.json").read_text())["leaves"]}
+bad, n = [], 0
+for key, _, _, ts, stacked in reference_leaves(state, cfg):
+    n += 1
+    if key == "['opt']['step']":
+        bad += [] if ts[0] == stop else [key]
+        continue
+    e = files[key]
+    arr = _from_native(np.load(cdir / e["file"], mmap_mode="c"), e["dtype"])
+    for u, t in enumerate(ts):
+        if type(t).__name__ != "DTensor" or not torch.equal(t.to_local().cpu(),
+                                                            arr[u] if stacked else arr):
+            bad.append(key)
+rec.update(restore_leaves=n, restore_bad=sorted(set(bad)), restore_step=step)
+dist.destroy_process_group()
+Path(out_path).write_text(json.dumps(rec))
+"""
+# (b) and (c): each of the 4 ranks (torchrun) on cuda:0 over gloo
+EP_RUN = """
+import json, math, sys, time
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Shard
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe_ep
+from repro_torch.models.moe import MoE
+from repro_torch.runtime.compression import (compressed_wire_bytes, error_feedback_update,
+                                             make_compressed_allreduce, raw_wire_bytes)
+from repro_torch.sharding.hints import clear_hints, hints_from_mesh
+from repro_torch.sharding.place import from_full, local_index
+out_path, seed, B, S, n_timed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+cfs = [float(c) for c in sys.argv[6].split(",")]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method="env://")
+rank, world = dist.get_rank(), dist.get_world_size()
+torch.cuda.set_device(0)
+mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+hints_from_mesh(mesh, None)
+cfg0 = get_config("qwen2-moe-a2.7b")
+e, k, d = cfg0.n_routed_experts, cfg0.top_k, cfg0.d_model
+gen = torch.Generator(device="cuda").manual_seed(seed)
+moe = MoE(cfg0, generator=gen, device="cuda").float()
+x = torch.randn((B, S, d), generator=gen, device="cuda")
+T, T_loc, e_loc = B * S, B * S // world, -(-e // world)
+# the first capacity factor at which neither path drops an assignment: the
+# plain MoE's from the routes and its capacity, the expert-parallel layer's
+# from its own count (a forward at each candidate)
+import dataclasses
+with torch.no_grad():
+    _, eidx, _ = moe.route(x.reshape(T, d))
+load = int(torch.bincount(eidx.reshape(-1), minlength=e).max())
+xd = from_full(x, mesh, (Shard(0), Shard(1)))
+for cf in cfs:
+    cfg = dataclasses.replace(cfg0, capacity_factor=cf)
+    moe.cfg = cfg
+    moe_ep.DROPPED["assignments"] = 0
+    with torch.no_grad():
+        moe_ep.moe_apply_ep(moe, cfg, xd)
+    dropped = torch.tensor([int(moe_ep.DROPPED["assignments"])], dtype=torch.int64)
+    dist.all_reduce(dropped)
+    torch.cuda.empty_cache()
+    if load <= moe.capacity(T) and int(dropped) == 0:
+        break
+else:
+    raise SystemExit(f"no capacity factor of {cfs} is drop-free")
+cap_send, cap_own = moe_ep._capacities(cfg, T_loc, world, e_loc)
+moe_ep.HOST_STAGED.update(calls=0, bytes=0)  # count the checked run's alone
+res = {"cf": cf, "cap_send": cap_send, "cap_own": cap_own, "e_loc": e_loc, "T": T}
+# the port's MoE on the whole x: the reference of the check
+xa = x.clone().requires_grad_(True)
+y0, a0 = moe(xa)
+y0.sum().backward()
+g0 = {n: p.grad.clone() for n, p in moe.named_parameters()}
+gx0 = xa.grad
+moe.zero_grad(set_to_none=True)
+# the expert-parallel layer on this rank's block (the contract's layout)
+layout = (Shard(0), Shard(1))
+xd.requires_grad_(True)
+ex0 = dict(moe_ep.EXCHANGE)
+y1, a1 = moe_ep.moe_apply_ep(moe, cfg, xd)
+ex1 = dict(moe_ep.EXCHANGE)
+y1.to_local().sum().backward()
+idx = local_index(x.shape, mesh, layout)
+def maxerr(a, b):
+    return float((a.detach() - b.detach()).abs().max())
+def within(a, b, tol):
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+res["y_err"] = maxerr(y1.to_local(), y0[idx])
+res["y_ok"] = within(y1.to_local(), y0[idx], YTOL)
+res["aux"] = [float(a1), float(a0)]
+res["aux_ok"] = abs(float(a1) - float(a0)) <= AUXTOL * abs(float(a0))
+g1 = {n: p.grad for n, p in moe.named_parameters()}
+res["grad_err"] = max([maxerr(g1[n], g0[n]) for n in g0] + [maxerr(xd.grad.to_local(), gx0[idx])])
+res["grad_ok"] = all(within(g1[n], g0[n], GTOL) for n in g0) and within(xd.grad.to_local(), gx0[idx], GTOL)
+res["grad_max"] = max(float(g.abs().max()) for g in g0.values())
+res["a2a_bytes_fwd"] = ex1["bytes"] - ex0["bytes"]
+res["a2a_calls_fwd"] = ex1["calls"] - ex0["calls"]
+res["staged"] = dict(moe_ep.HOST_STAGED)
+# forward times, ranks in step
+def timed(fn, together=True):
+    out = []
+    for _ in range(n_timed):
+        if together:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        if together:
+            dist.barrier()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+res["ep_ms"] = timed(lambda: moe_ep.moe_apply_ep(moe, cfg, xd))
+dist.barrier()
+res["moe_ms"] = timed(lambda: moe(x), together=False) if rank == 0 else []  # the card to itself
+dist.barrier()
+# (c) the compressed all-reduce over this rank's own grads: its block's x
+# grad and its experts' w_down grads (each rank's differ)
+own = {"x": xd.grad.to_local(), "w_down": g1["w_down"][rank * e_loc:(rank + 1) * e_loc].contiguous()}
+ar = make_compressed_allreduce()
+c_err, c_bound, res_ok = 0.0, 0.0, True
+for n, g in own.items():
+    avg, new_res = ar(g, None)
+    plain = g.clone()
+    dist.all_reduce(plain)
+    plain /= world
+    _, scale, want_res, _ = error_feedback_update(g, None)
+    scales = scale.reshape(1).clone()
+    gathered = [torch.zeros_like(scales) for _ in range(world)]
+    dist.all_gather(gathered, scales)
+    bound = float(torch.stack(gathered).mean()) / 2
+    c_err = max(c_err, maxerr(avg, plain) / bound)
+    res_ok &= torch.equal(new_res, want_res)
+    avg2, _ = ar(g, new_res)  # a second step through the error feedback
+    res_ok &= bool(torch.isfinite(avg2).all())
+res["compress_err_over_bound"] = c_err
+res["residual_ok"] = bool(res_ok)
+res["wire"] = [compressed_wire_bytes(own), raw_wire_bytes(own)]
+clear_hints()
+flags = torch.tensor([res["y_ok"], res["aux_ok"], res["grad_ok"], res["residual_ok"],
+                      c_err <= 1.0 + 1e-3], dtype=torch.int32)
+dist.all_reduce(flags, op=dist.ReduceOp.MIN)
+res["all_ranks_ok"] = flags.tolist()
+errs = torch.tensor([res["y_err"], res["grad_err"], c_err, max(res["ep_ms"])], dtype=torch.float64)
+dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+res["max_over_ranks"] = errs.tolist()
+if rank == 0:
+    Path(out_path).write_text(json.dumps(res))
+dist.destroy_process_group()
+""".replace("YTOL", repr(DIST_Y_TOL)).replace("AUXTOL", repr(DIST_AUX_RTOL)).replace(
+    "GTOL", repr(DIST_GRAD_TOL))
+
+
+def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list) -> float:
+    """Run ``script`` (written under ``root``) on ``nproc`` ranks through
+    ``python -m torch.distributed.run --standalone``; its wall seconds."""
+    path = root / f"{label}.py"
+    path.write_text(script)
+    log = root / f"{label}.log"
+    t0 = time.time()
+    with open(log, "w") as f:
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc-per-node", str(nproc), str(path), *args],
+                              cwd=ROOT, env=_child_env(), stdout=f, stderr=subprocess.STDOUT,
+                              timeout=DIST_TIMEOUT)
+    check(proc.returncode == 0, f"distributed {label}: exit {proc.returncode}; its log ends:\n"
+                                f"{log.read_text()[-3000:]}")
+    return time.time() - t0
+
+
+def phase_distributed(stamp, ft: dict) -> dict:
+    """(a) train --mesh 1,1 on NCCL held bit for bit to train_ft's straight
+    run, (b) the expert-parallel MoE at qwen2-moe's width on 4 gloo ranks of
+    the card against the port's MoE, (c) the compressed all-reduce on those
+    ranks. Returns (a)'s flash launches."""
+    t = TRAIN_FT
+    cfg = get_config(t["arch"])
+    root = ROOT / "chiprun_out" / "distributed"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_dev, _ = torch.cuda.mem_get_info()
+    check(free_dev >= FT_DEVICE_NEED, f"distributed: {free_dev / 2**30:.2f} GiB free on the card, "
+                                      f"{FT_DEVICE_NEED / 2**30:.0f} GiB needed")
+    try:
+        # (a) --mesh 1,1 through torchrun
+        args = _ft_args(t, root / "ckpt", root / "unused.json", DIST_STOP) + ["--mesh", "1,1"]
+        wall = _torchrun(stamp, "mesh_run", root, 1, MESH_RUN,
+                         [str(DIST_STOP), str(root / "mesh.json"), *args])
+        m = json.loads((root / "mesh.json").read_text())
+        want = cfg.n_layers * 2 * DIST_STOP
+        print(f"distributed (a) train --mesh 1,1: {m['world']} rank, backend {m['backend']}, "
+              f"torchrun --nproc-per-node 1, {t['arch']} {t['batch']} x {t['seq']}, "
+              f"--deterministic, train_ft's 12-step schedule ended before step {DIST_STOP}; "
+              f"parameter placements {m['placements']}")
+        print(f"distributed (a) losses: {' '.join(f'{x:.6f}' for x in m['losses'])}; train_ft "
+              f"straight: {' '.join(f'{x:.6f}' for x in ft['losses'][:DIST_STOP])}")
+        check(m["backend"] == "nccl" and m["world"] == 1, f"distributed (a): {m['backend']}, "
+                                                          f"world {m['world']}")
+        check(m["losses"] == ft["losses"][:DIST_STOP],
+              f"distributed (a): losses {m['losses']} != the straight run's "
+              f"{ft['losses'][:DIST_STOP]}")
+        check(m["launches"] == want, f"distributed (a): {m['launches']} flash-attention launches, "
+                                     f"not {cfg.n_layers} x 2 x {DIST_STOP} = {want}")
+        digest = _ckpt_digest(root / "ckpt" / f"step_{DIST_STOP:09d}")
+        check(digest == ft["digest_every"], f"distributed (a): the step-{DIST_STOP} checkpoint "
+                                            f"written under the mesh differs from the straight "
+                                            f"run's")
+        check(not m["restore_bad"] and m["restore_step"] == DIST_STOP,
+              f"distributed (a): restore(shardings=) leaves differ: {m['restore_bad'][:5]}")
+        step_s = statistics.median(m["step_s"][1:])
+        same = statistics.median(ft["steps_s"][1:DIST_STOP])  # the straight run's same steps
+        print(f"distributed (a): losses bit for bit the straight run's; flash_attention launches "
+              f"{m['launches']} = {cfg.n_layers} x 2 x {DIST_STOP}; the step-{DIST_STOP} "
+              f"checkpoint (written by rank 0 under the mesh) sha256 leaf for leaf the straight "
+              f"run's; restored with shardings= on a 1x1 mesh: {m['restore_leaves']} leaves, "
+              f"DTensors, bit for bit the files")
+        print(f"time [{stamp}] distributed (a) step (median of steps 2-{DIST_STOP}): {step_s:.3f} "
+              f"s ({' '.join(f'{x:.3f}' for x in m['step_s'][1:])}) vs the unmeshed straight "
+              f"run's steps 2-{DIST_STOP} {same:.3f} s ({step_s / same - 1:+.1%}; its median of "
+              f"steps 2-12 {ft['step_s']:.3f} s); peak memory {m['peak_bytes'] / 2**30:.2f} GiB vs "
+              f"{ft['peak_bytes'] / 2**30:.2f} GiB; restore with shardings {m['restore_s']:.3f} s; "
+              f"process wall {wall:.1f} s")
+
+        # (b) and (c) on 4 gloo ranks sharing the card
+        B, S = DIST_EP_X
+        wall = _torchrun(stamp, "ep_run", root, 4, EP_RUN,
+                         [str(root / "ep.json"), str(SEED), str(B), str(S), str(DIST_EP_TIMED),
+                          ",".join(map(str, DIST_EP_CF))])
+        r = json.loads((root / "ep.json").read_text())
+        moe_cfg = get_config("qwen2-moe-a2.7b")
+        print(f"distributed (b) moe_apply_ep, qwen2-moe-a2.7b width (d {moe_cfg.d_model}, "
+              f"{moe_cfg.n_routed_experts} experts top-{moe_cfg.top_k}, d_expert "
+              f"{moe_cfg.d_expert}, {moe_cfg.n_shared_experts} shared), x ({B}, {S}, "
+              f"{moe_cfg.d_model}) f32, 4 gloo ranks on cuda:0, mesh (1, 4): {r['e_loc']} experts "
+              f"a rank; capacity_factor {r['cf']} (the first of {DIST_EP_CF} drop-free on both "
+              f"paths): cap_send {r['cap_send']}, cap_own {r['cap_own']}")
+        print(f"distributed (b) against the port's MoE: y max abs err {r['max_over_ranks'][0]:.3g} "
+              f"(rtol = atol = {DIST_Y_TOL}); aux {r['aux'][0]:.8f} vs {r['aux'][1]:.8f} (rtol "
+              f"{DIST_AUX_RTOL}); grads max abs err {r['max_over_ranks'][1]:.3g} (rtol = atol = "
+              f"{DIST_GRAD_TOL}; largest grad {r['grad_max']:.4g}); all ranks [y, aux, grads, "
+              f"residual, bound] {r['all_ranks_ok']}")
+        check(r["all_ranks_ok"][:3] == [1, 1, 1], f"distributed (b): [y, aux, grads] within "
+                                                  f"tolerance on all ranks: {r['all_ranks_ok'][:3]}")
+        print(f"distributed (b) gloo has no all-to-all for CUDA tensors: the layer copied "
+              f"{r['staged']['calls']} collectives' buffers ({r['staged']['bytes'] / 1e6:.1f} MB) "
+              f"to the host and back on rank 0")
+        print(f"time [{stamp}] distributed (b) moe_apply_ep forward: {min(r['ep_ms']):.2f} ms "
+              f"(min of {DIST_EP_TIMED}; slowest rank {r['max_over_ranks'][3]:.2f} ms; 4 ranks "
+              f"share one card and exchange through host memory), all-to-all "
+              f"{r['a2a_calls_fwd']} calls sending {r['a2a_bytes_fwd'] / 1e6:.1f} MB a rank; the "
+              f"port's MoE on the whole x on one rank {min(r['moe_ms']):.2f} ms")
+        print(f"distributed (c) make_compressed_allreduce over each rank's x grad and its "
+              f"{r['e_loc']} experts' w_down grads: |mean - plain all_reduce mean| at most "
+              f"{r['max_over_ranks'][2]:.3f} of the int8 bound (half the mean scale); residual "
+              f"= g_eff - deq bit for bit: {bool(r['all_ranks_ok'][3])}; wire bytes "
+              f"{r['wire'][0]:,} int8 + scales vs {r['wire'][1]:,} raw "
+              f"({r['wire'][0] / r['wire'][1]:.4f})")
+        check(r["all_ranks_ok"][3:] == [1, 1], f"distributed (c): [residual, bound] "
+                                               f"{r['all_ranks_ok'][3:]}")
+        print(f"time [{stamp}] distributed (b)+(c) 4 processes: {wall:.1f} s wall")
+    finally:
+        shutil.rmtree(root / "ckpt", ignore_errors=True)
+    print(f"time [{stamp}] distributed phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": m["launches"], "step_s": step_s}
 
 
 def phase_codesign(stamp, gen) -> dict:
@@ -3713,6 +4092,10 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
     for name, shape, path in FA_TRAIN_NEW:
         records.append(_time_fa_train(stamp, gen, fa, name, shape, path,
                                       new_train[path]["launches"], errs[name]))
+    # the distributed path (train --mesh 1,1) runs the train_ft shape: its own launches
+    ft_rec = next(r for r in records if r.get("path") == "train_ft")
+    records.append({**ft_rec, "path": "distributed",
+                    "launches": new_train["distributed"]["launches"]})
 
     # the SSD kernel at zamba2's training shape, B/C shared by the heads as
     # the model passes them (stride 0: the score kernel, then the main
@@ -3875,6 +4258,7 @@ def main() -> int:
     fam = phase_families(stamp)
     train_launches, train_step = phase_train(stamp)
     new_train = {"train_ft": phase_train_ft(stamp), "train_moe": phase_train_moe(stamp)}
+    new_train["distributed"] = phase_distributed(stamp, new_train["train_ft"])
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
                           fam, train_launches, errs, loop, new_train)
     report_whole_model(stamp, wm, decode_step, train_step, records)

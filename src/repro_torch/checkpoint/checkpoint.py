@@ -24,8 +24,11 @@ into tensors and numbers).
   the model in place) and writes in the background, overlapping the next
   steps; a writer's error is raised by the next ``wait`` or ``save``.
 * GC: keep the most recent ``keep`` checkpoints.
-* One card: ``shardings=`` (the reference's elastic re-placement on a mesh)
-  accepts ``None`` only; the distributed layer is ROADMAP A12.
+* On a mesh (a state of DTensors): the format is unchanged. Every rank
+  takes part in gathering each leaf whole; rank 0 writes. ``restore(...,
+  shardings=named(state_specs(...)))`` re-places a checkpoint on a mesh
+  (the reference's elastic re-placement): each rank reads only its own
+  slice of each memory-mapped leaf file and builds the DTensors.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import sys
 import threading
 import time
 import uuid
@@ -95,20 +99,46 @@ def _leaves(tree) -> list:
     return out
 
 
-def _snapshot(leaves, buffers: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    """A host copy of every leaf (stacked leaves gathered), reusing
-    ``buffers`` of the same shape and dtype. Returns once every copy is
-    complete."""
+def _dtensor_type():
+    """``DTensor``, or None where nothing has imported it: then no tensor is
+    one, and a process that trains on one card never imports it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
+def _distributed(leaves) -> bool:
+    """A state on a mesh: its leaves are DTensors."""
+    dtensor = _dtensor_type()
+    return dtensor is not None and any(isinstance(t, dtensor) for leaf in leaves for t in leaf[3])
+
+
+def _writer(leaves) -> bool:
+    """Whether this process writes: always, but on a mesh rank 0 only."""
+    import torch.distributed as dist
+
+    return not _distributed(leaves) or dist.get_rank() == 0
+
+
+def _snapshot(leaves, buffers: Optional[Dict] = None, keep: bool = True) -> Dict[str, torch.Tensor]:
+    """A host copy of every leaf (stacked leaves gathered, DTensors
+    gathered whole), reusing ``buffers`` of the same shape and dtype.
+    Returns once every copy is complete. ``keep=False``: take part in the
+    gathers and copy nothing (a rank that does not write)."""
     out, cuda = {}, False
+    whole = lambda t: t  # noqa: E731
+    if _distributed(leaves):
+        from repro_torch.sharding.place import full_value as whole
     for key, shape, dtype, ts, stacked in leaves:
         buf = None if buffers is None else buffers.get(key)
-        if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
+        if keep and (buf is None or tuple(buf.shape) != shape or buf.dtype != dtype):
             buf = torch.empty(shape, dtype=dtype)
-        for dst, src in zip(buf if stacked else [buf], ts):
-            src = _as_tensor(src)
-            cuda |= src.is_cuda
-            dst.copy_(src.detach(), non_blocking=src.is_cuda)
-        out[key] = buf
+        for i, src in enumerate(ts):
+            src = whole(_as_tensor(src)).detach()
+            if keep:
+                cuda |= src.is_cuda
+                (buf[i] if stacked else buf).copy_(src, non_blocking=src.is_cuda)
+        if keep:
+            out[key] = buf
     if cuda:
         torch.cuda.synchronize()
     if buffers is not None:
@@ -137,8 +167,13 @@ def _write(directory: Path, step: int, host: Dict[str, torch.Tensor],
 
 
 def save(directory: str | Path, step: int, tree, *, extra: Optional[Dict] = None) -> Path:
-    """Write one complete checkpoint; returns the final path."""
-    return _write(Path(directory), step, _snapshot(_leaves(tree)), extra)
+    """Write one complete checkpoint; returns the final path. On a mesh
+    every rank calls it and rank 0 writes."""
+    leaves = _leaves(tree)
+    keep = _writer(leaves)
+    host = _snapshot(leaves, keep=keep)
+    directory = Path(directory)
+    return _write(directory, step, host, extra) if keep else directory / f"step_{step:09d}"
 
 
 def _complete(directory: Path) -> List[Path]:
@@ -167,10 +202,15 @@ def restore(directory: str | Path, target, *, step: Optional[int] = None, shardi
     ``device``. Leaf files are memory-mapped, and each leaf (each unit's
     slice of a stacked one) is copied to its device once, so a restore
     needs no more device memory than the state it makes. Numbers come back
-    as Python numbers (the optimizer's step as an int)."""
-    if shardings is not None:
-        raise NotImplementedError("shardings=: one card has no mesh to re-place leaves on; "
-                                  "the distributed layer is not ported yet (ROADMAP A12)")
+    as Python numbers (the optimizer's step as an int).
+
+    ``shardings``: a tree like ``target``'s of ``(mesh, placements)``
+    (``sharding.specs.named``; for a training state, of ``state_specs``).
+    Each tensor then becomes a DTensor of which this rank reads only its
+    slice from the file: DTensors of ``target`` with those placements
+    take their slice in place; a target on the meta device is made anew.
+    A DTensor of ``target`` is restored by its own placements without
+    ``shardings``."""
     directory = Path(directory)
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -189,6 +229,7 @@ def restore(directory: str | Path, target, *, step: Optional[int] = None, shardi
     if meta and device is None:
         raise ValueError("restore into a target on the meta device needs device=")
     values = {}
+    state_shardings = _state_shardings(target, shardings)
     with torch.no_grad():
         for key, _, dtype, ts, stacked in leaves:
             entry = by_key[key]
@@ -196,26 +237,79 @@ def restore(directory: str | Path, target, *, step: Optional[int] = None, shardi
             if not isinstance(ts[0], torch.Tensor):  # a number: the optimizer's step
                 values[key] = type(ts[0])(arr.item())
             elif meta:  # left on the host: state_from_reference_layout places it
-                values[key] = arr.to(dtype)
+                values[key] = arr if shardings is not None else arr.to(dtype)
             else:
                 for dst, src in zip(ts, arr if stacked else [arr]):
-                    dst.copy_(src)
+                    _copy_into(dst, src)
                 values[key] = ts[0]
     extra = manifest.get("extra", {})
     if _is_state(target):
         cfg = target["model"].cfg
         if meta:
-            return state_from_reference_layout(values, cfg, device), step, extra
+            place = None
+            if state_shardings is not None:
+                from repro_torch.sharding.place import from_full
+
+                def place(root, name, host):
+                    mesh, pl = state_shardings(root, name)
+                    return from_full(host, mesh, pl, device=device)
+            return state_from_reference_layout(values, cfg, device, place=place), step, extra
         return {"model": target["model"],
                 "opt": {**target["opt"], "step": values[keystr(("opt", "step"))]}}, step, extra
+    if shardings is not None and meta:
+        return _rebuild(target, values, shardings=shardings, device=device), step, extra
     return _rebuild(target, values), step, extra
 
 
-def _rebuild(tree, values, path=()):
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` takes its own slice of ``src``."""
+    dtensor = _dtensor_type()
+    if dtensor is not None and isinstance(dst, dtensor):
+        from repro_torch.sharding.place import local_index
+
+        dst.to_local().copy_(src[local_index(src.shape, dst.device_mesh, dst.placements)])
+    else:
+        dst.copy_(src)
+
+
+def _state_shardings(target, shardings):
+    """For a training state: (root, parameter name) -> (mesh, placements),
+    root None for the parameters, else the optimizer tree's name; with a
+    target of DTensors, checked against their placements."""
+    if shardings is None or not _is_state(target):
+        return None
+
+    def lookup(root, name):
+        return shardings["params"][name] if root is None else shardings["opt"][root][name]
+
+    from torch.distributed.tensor import DTensor
+
+    trees = [(None, dict(target["model"].named_parameters()))]
+    trees += [(k, v) for k, v in target["opt"].items() if k != "step"]
+    for root, tensors in trees:
+        for name, t in tensors.items():
+            if isinstance(t, DTensor) and tuple(t.placements) != tuple(lookup(root, name)[1]):
+                raise ValueError(f"{root or 'params'}.{name}: the target's placements "
+                                 f"{t.placements} differ from shardings' {lookup(root, name)[1]}")
+    return lookup
+
+
+def _rebuild(tree, values, path=(), shardings=None, device=None):
+    if shardings is not None and not isinstance(tree, (dict, list, tuple)):
+        v = values[keystr(path)]
+        if isinstance(v, torch.Tensor):
+            from repro_torch.sharding.place import from_full
+
+            mesh, pl = shardings
+            return from_full(v, mesh, pl, device=device, dtype=tree.dtype)
+        return v
     if isinstance(tree, dict):
-        return {k: _rebuild(v, values, path + (k,)) for k, v in tree.items()}
+        return {k: _rebuild(v, values, path + (k,), None if shardings is None else shardings[k],
+                            device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, values, path + (i,)) for i, v in enumerate(tree))
+        return type(tree)(_rebuild(v, values, path + (i,),
+                                   None if shardings is None else shardings[i], device)
+                          for i, v in enumerate(tree))
     return values[keystr(path)]
 
 
@@ -255,11 +349,17 @@ class CheckpointManager:
         self.wait()  # one outstanding async save at a time
         t0 = time.perf_counter()
         # a host copy of everything now: the next train step writes the
-        # model and the optimizer state in place
-        host = _snapshot(_leaves(tree), self._buffers)
+        # model and the optimizer state in place. On a mesh every rank
+        # takes part in the gathers and rank 0 writes.
+        leaves = _leaves(tree)
+        keep = _writer(leaves)
+        host = _snapshot(leaves, self._buffers, keep=keep)
         rec = {"step": step, "bytes": sum(t.numel() * t.element_size() for t in host.values()),
                "snapshot_s": time.perf_counter() - t0, "write_s": None, "waited_s": 0.0}
         self.records.append(rec)
+        if not keep:
+            rec["write_s"] = 0.0
+            return
 
         def work():
             t1 = time.perf_counter()

@@ -7,8 +7,10 @@
     host-side batch assembly overlaps device compute.
 
 The numpy generation is JAX's, so batches are bit-for-bit the JAX
-package's; only placement differs (``.to(device)`` instead of a sharded
-``jax.Array``). Two sources: ``SyntheticLM`` (seeded Zipf-ish token stream)
+package's. Placement: ``.to(device)``, or on a mesh a ``DTensor`` laid
+out by the batch specs, of which each rank builds only its own slice
+(``_place``, the counterpart of ``jax.make_array_from_callback``); the
+global batch is the unsharded one for each (seed, step). Two sources: ``SyntheticLM`` (seeded Zipf-ish token stream)
 and ``TokenFileDataset`` (memory-mapped flat token file).
 """
 
@@ -18,7 +20,7 @@ import queue
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -78,18 +80,34 @@ class TokenFileDataset:
         return {"tokens": out % self.vocab}
 
 
+def _place(batch_np: Dict[str, np.ndarray], mesh, specs, device="cuda") -> Dict:
+    """A global numpy batch -> tensors on ``device``; on a mesh, DTensors
+    by ``specs`` (replicated where a key has none), each rank copying only
+    its own slice to the device."""
+    if mesh is None:
+        return {k: torch.from_numpy(v).to(device) for k, v in batch_np.items()}
+    from repro_torch.sharding.place import from_full
+    from repro_torch.sharding.specs import P, placements
+
+    return {k: from_full(arr, mesh, placements((specs or {}).get(k, P()), mesh), device=device)
+            for k, arr in batch_np.items()}
+
+
 def make_pipeline(
     source,
     batch: int,
     seq: int,
     *,
     device="cuda",
+    mesh=None,
+    specs: Optional[Dict] = None,
     start_step: int = 0,
     data_cfg: DataConfig = DataConfig(),
     extra_fn=None,  # hook: batch_np -> batch_np (labels, frontends, ...)
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Prefetching iterator of batches on ``device``, starting at start_step.
-    The thread builds numpy batches; the caller's thread places them."""
+    """Prefetching iterator of batches on ``device`` (on ``mesh``, sharded
+    by ``specs``), starting at start_step. The thread builds numpy batches;
+    the caller's thread places them."""
     q: "queue.Queue" = queue.Queue(maxsize=max(1, data_cfg.prefetch))
     stop = threading.Event()
 
@@ -110,6 +128,6 @@ def make_pipeline(
     try:
         while True:
             _, b = q.get()
-            yield {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            yield _place(b, mesh, specs, device)
     finally:
         stop.set()

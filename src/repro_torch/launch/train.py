@@ -15,7 +15,17 @@ Run the same command again and it resumes from the latest checkpoint in
 ``--ckpt-dir`` (the data pipeline restarts at that step). With
 ``--deterministic`` a resumed run repeats an unbroken one bit for bit.
 
-Not ported yet: ``--mesh`` (the distributed layer, ROADMAP A12); it raises.
+``--mesh a,b[,c]`` trains on a ``DeviceMesh`` over ``("pod", "data",
+"model")[-len(dims):]``, one rank per process, the process group from
+torchrun's environment (NCCL on ``--device cuda``, gloo on ``--device
+cpu``); the world size must equal the mesh's. Parameters, moments and
+master weights are DTensors placed by the reference's sharding rules
+(``sharding.specs.state_specs``), batches by ``batch_specs``; the step is
+``steps.make_sharded_train_step``. Checkpoints keep the reference's format
+(rank 0 writes) and a resume re-places them on the mesh.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --arch qwen3-0.6b_smoke --mesh 2,2 --steps 8 --batch 4 --seq 64
 """
 
 from __future__ import annotations
@@ -23,22 +33,26 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import kernels
 from repro_torch.checkpoint import CheckpointManager, latest_step
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.data import DataConfig, SyntheticLM, TokenFileDataset, make_pipeline
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda
 from repro_torch.launch import steps as steps_mod
 from repro_torch.optim import adamw, cosine_schedule, lion
 from repro_torch.runtime import FaultTolerantRunner, RunnerConfig
+from repro_torch.sharding.hints import clear_hints, hints_from_mesh
+from repro_torch.sharding.specs import ShardingRules, batch_specs, named, state_specs
 
 log = logging.getLogger("repro_torch.train")
 
@@ -62,7 +76,7 @@ def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--optimizer", choices=["adamw", "lion"], default="adamw")
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--mesh", default="", help="not ported yet (ROADMAP A12)")
+    ap.add_argument("--mesh", default="", help="e.g. '1,1', '2,2' or '2,16,16' (under torchrun)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", default="synthetic", help="'synthetic' or a token file path")
@@ -76,11 +90,42 @@ def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
     ap.add_argument("--metrics-out", default="", help="write the returned dict here as JSON")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: the distributed layer is not ported yet (ROADMAP A12)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
+    own_group = args.mesh and not dist.is_initialized()
+    try:
+        return _main(args, t_main, fault_hook, update_hook)
+    finally:
+        if args.mesh:
+            clear_hints()
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def build_mesh(spec: str, device: str):
+    """``--mesh`` -> a DeviceMesh over ("pod", "data", "model")[-len(dims):],
+    on the process group of torchrun's environment (initialised here unless
+    the caller has): NCCL for cuda, gloo for cpu, nothing else."""
+    from repro_torch.launch.mesh import make_mesh
+
+    dims = [int(x) for x in spec.split(",")]
+    names = ("pod", "data", "model")[-len(dims):]
+    backend = {"cuda": "nccl", "cpu": "gloo"}[device]
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://")
+    if dist.get_backend() != backend:
+        raise RuntimeError(f"--mesh on {device} needs the {backend} backend; the process group "
+                           f"is {dist.get_backend()}")
+    if dist.get_world_size() != math.prod(dims):
+        raise RuntimeError(f"--mesh {spec} needs {math.prod(dims)} ranks; the world has "
+                           f"{dist.get_world_size()}")
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+    return make_mesh(dims, names, device_type=device)
+
+
+def _main(args, t_main, fault_hook, update_hook) -> dict:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     if args.deterministic:
         # cuBLAS reads this when its handle is made, before the first product
@@ -88,44 +133,66 @@ def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
         torch.use_deterministic_algorithms(True)
     kernels.enable_kernels(args.device == "cuda")
     cfg = get_config(args.arch)
+    mesh = build_mesh(args.mesh, args.device) if args.mesh else None
+    rules = ShardingRules()
+    if mesh is not None:
+        hints_from_mesh(mesh, rules)
 
     lr = cosine_schedule(args.lr, args.warmup, args.steps)
     optimizer = {"adamw": adamw, "lion": lion}[args.optimizer](lr)
-    step_fn = steps_mod.make_train_step(cfg, optimizer, remat=not args.no_remat,
-                                        microbatches=args.microbatches, update_hook=update_hook)
+    agree = None
+    if mesh is None:
+        step_fn = steps_mod.make_train_step(cfg, optimizer, remat=not args.no_remat,
+                                            microbatches=args.microbatches,
+                                            update_hook=update_hook)
+    else:
+        agree = steps_mod.make_agree(args.device)
+        step_fn = steps_mod.make_sharded_train_step(
+            cfg, optimizer, mesh, agree=agree, remat=not args.no_remat,
+            microbatches=args.microbatches, update_hook=update_hook)
 
     # ---- init / restore ------------------------------------------------ #
-    state, start_step, restore_s, ckpt = None, 0, None, None
+    state, start_step, restore_s, ckpt, st_sh = None, 0, None, None, None
+    meta_state = steps_mod.make_init_state(cfg, optimizer, "meta")(None)
+    if mesh is not None:
+        st_sh = named(state_specs(meta_state, cfg, mesh, rules), mesh)
     if args.ckpt_dir:
         ckpt = CheckpointManager(Path(args.ckpt_dir), every=args.ckpt_every)
         if latest_step(args.ckpt_dir) is not None:
-            # into a structure on the meta device: each leaf is made once, on the device
+            # into a structure on the meta device: each leaf (each rank's
+            # slice of it, on a mesh) is made once, on the device
             t0 = time.perf_counter()
-            state, start_step, _ = ckpt.restore_latest(
-                steps_mod.make_init_state(cfg, optimizer, "meta")(None), device=args.device)
+            state, start_step, _ = ckpt.restore_latest(meta_state, shardings=st_sh,
+                                                       device=args.device)
             restore_s = time.perf_counter() - t0
             log.info("restored checkpoint at step %d (%.2f s)", start_step, restore_s)
     if state is None:
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
         state = steps_mod.make_init_state(cfg, optimizer, args.device)(gen)
+        if mesh is not None:  # the same whole state on every rank; each keeps its slice
+            state = steps_mod.distribute_state(state, cfg, mesh, rules)
 
     # ---- data ----------------------------------------------------------- #
     if args.data == "synthetic":
         source = SyntheticLM(cfg.vocab, seed=args.seed)
     else:
         source = TokenFileDataset(args.data, cfg.vocab, seed=args.seed)
-    pipe = make_pipeline(source, args.batch, args.seq, device=args.device,
-                         start_step=start_step, data_cfg=DataConfig(seed=args.seed))
+    b_specs = None
+    if mesh is not None:
+        b_specs = batch_specs(cfg, ShapeConfig("cli", args.seq, args.batch, "train"), mesh, rules)
+    pipe = make_pipeline(source, args.batch, args.seq, device=args.device, mesh=mesh,
+                         specs=b_specs, start_step=start_step,
+                         data_cfg=DataConfig(seed=args.seed))
 
     def restore_fn():
-        # in place: the torn state's tensors take the checkpoint's values
-        st, step, _ = ckpt.restore_latest(state)
+        # in place: the torn state's tensors (slices) take the checkpoint's values
+        st, step, _ = ckpt.restore_latest(state, shardings=st_sh)
         return st, step
 
     runner = FaultTolerantRunner(step_fn, RunnerConfig(step_timeout_s=args.step_timeout),
                                  checkpoint_manager=ckpt,
                                  restore_fn=restore_fn if ckpt else None,
-                                 fault_hook=fault_hook)
+                                 fault_hook=fault_hook, agree=agree)
 
     # ---- loop ------------------------------------------------------------ #
     losses, step_s, saved = [], [], None
@@ -160,9 +227,13 @@ def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
         out.update(first_loss=float("nan"), last_loss=float("nan"))
     if ckpt is not None:
         ckpt.wait()
+        if mesh is not None:  # every rank returns once rank 0's writes are complete
+            dist.barrier()
         out["checkpoints"] = ckpt.records
     out["t_done"] = time.time()
-    if args.metrics_out:
+    if mesh is not None:
+        out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if args.metrics_out and (mesh is None or dist.get_rank() == 0):
         Path(args.metrics_out).write_text(json.dumps(out))
     return out
 

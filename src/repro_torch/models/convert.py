@@ -45,7 +45,15 @@ def _tensor(arr, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
-def params_from_jax(np_params: Dict, cfg: ModelConfig, device="cuda") -> Model:
+def params_from_jax(np_params: Dict, cfg: ModelConfig, device="cuda", *, mesh=None,
+                    rules=None) -> Model:
+    """The port's Model holding the JAX params. With a ``mesh``, each
+    parameter is then distributed by ``sharding.specs.param_specs`` (under
+    ``rules``, default ``ShardingRules()``): a DTensor of which each rank
+    keeps its own slice."""
+    if mesh is not None:
+        return distribute_model(params_from_jax(np_params, cfg, "cpu"), cfg, mesh, rules,
+                                device=device)
     model = Model(cfg, generator=None, device="meta")
     P = len(cfg.block_pattern)
     state = {}
@@ -59,6 +67,22 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, device="cuda") -> Model:
             state[path] = t
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def distribute_model(model: Model, cfg: ModelConfig, mesh, rules=None, *, device=None) -> Model:
+    """Each parameter of ``model`` (whole on every rank) becomes a DTensor
+    placed by ``param_specs``; this rank keeps only its slice (the tensor
+    itself where the slice is all of it), on ``device`` (default: where the
+    parameter is)."""
+    from repro_torch.sharding.place import from_full
+    from repro_torch.sharding.specs import ShardingRules, param_specs, placements
+
+    specs = param_specs(model, cfg, mesh, rules or ShardingRules())
+    state = {n: from_full(p.detach(), mesh, placements(specs[n], mesh), device=device, copy=False)
+             for n, p in model.named_parameters()}
+    out = Model(cfg, generator=None, device="meta")
+    out.load_state_dict(state, strict=True, assign=True)
+    return out
 
 
 def layer_from_jax(layer_cls, np_params: Dict, cfg: ModelConfig, device="cuda") -> nn.Module:
@@ -151,12 +175,15 @@ def state_to_reference_layout(state: Dict, cfg: ModelConfig, device=None) -> Dic
     return out
 
 
-def state_from_reference_layout(leaves: Dict, cfg: ModelConfig, device="cuda") -> Dict:
+def state_from_reference_layout(leaves: Dict, cfg: ModelConfig, device="cuda",
+                                place=None) -> Dict:
     """Inverse of ``state_to_reference_layout``: the port's training state
     from {reference key: array or tensor}: ``params``, ``opt.step`` and
     whatever optimizer trees the leaves hold (Adam's m/v/master, Lion's
     m/master, SGD's m). Each leaf keeps its dtype; each parameter's tensor
-    is one copy on ``device`` (the leaves are never changed or aliased)."""
+    is one copy on ``device`` (the leaves are never changed or aliased), or
+    what ``place(root, name, value)`` makes of the value (root None for a
+    parameter, else the optimizer tree's name; e.g. a DTensor of a slice)."""
     P = len(cfg.block_pattern)
     model = Model(cfg, generator=None, device="meta")
     names = [n for n, _ in model.named_parameters()]
@@ -176,7 +203,9 @@ def state_from_reference_layout(leaves: Dict, cfg: ModelConfig, device="cuda") -
             raise KeyError(f"{key}: no parameter of {cfg.name} has this reference key")
         tree = trees.setdefault(root.group(1), {})  # None: the params
         for name, unit in port_of[key[root.end():]]:
-            tree[name] = (t if unit is None else t[unit]).to(device=device, copy=True)
+            piece = t if unit is None else t[unit]
+            tree[name] = (piece.to(device=device, copy=True) if place is None
+                          else place(root.group(1), name, piece))
     model.load_state_dict(trees.pop(None), strict=True, assign=True)
     opt = {"step": step}
     for opt_name, tree in trees.items():

@@ -113,6 +113,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------- #
 # chunked multi-head attention with GQA grouping
 # --------------------------------------------------------------------- #
+def _auto_q_chunk(B: int, Sq: int, Skv: int, hq: int, budget: int = 1 << 31) -> int:
+    """The q-chunk (the temporal tile of the attention problem's q dim) of
+    the plain path: halved from 1024 (down to 128) until the f32 score
+    chunk of one rank's batch and heads fits ``budget`` bytes inside a hint
+    context (the reference's rule); 1024 outside one. The reference takes
+    the global batch and divides it over dp, and the heads over tp; the
+    port's ``mha`` is given one rank's tensors (the sharded train step
+    computes on this dp rank's rows with every head), so B and hq are
+    taken as they are."""
+    from repro_torch.sharding import hints as _h
+
+    qc = 1024
+    if not _h._STATE["enabled"]:
+        return qc
+    while qc > 128 and B * qc * Skv * hq * 4 > budget:
+        qc //= 2
+    return qc
+
+
 def mha(
     q: torch.Tensor,  # (b, Sq, hq, d)
     k: torch.Tensor,  # (b, Skv, hkv, d)
@@ -121,18 +140,20 @@ def mha(
     causal: bool,
     q_offset: int = 0,  # global position of q[:, 0]
     kv_len: Optional[int] = None,  # valid cache length (decode)
-    q_chunk: int = 1024,
+    q_chunk: Optional[int] = None,  # the plain path's; None: _auto_q_chunk's
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     b, Sq, hq, d = q.shape
     _, Skv, hkv, dv = v.shape
     g = hq // hkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if _kernels.kernels_enabled():
+    if _kernels.kernels_enabled():  # the flash kernel takes no q chunk
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, sm_scale=scale,
         )
+    if q_chunk is None:
+        q_chunk = _auto_q_chunk(b, Sq, Skv, hq)
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)

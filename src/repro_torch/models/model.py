@@ -51,6 +51,8 @@ from repro_torch.models.layers import (
     rms_norm,
 )
 from repro_torch.models.moe import MoE
+from repro_torch.sharding import hints as hints_mod
+from repro_torch.sharding.hints import shard_hint
 
 Cache = List[Dict[str, torch.Tensor]]
 REMAT_POLICIES = ("full", "save_block_outputs")
@@ -101,13 +103,23 @@ class Block(nn.Module):
                                             cache, cache_len), x, remat)
         aux = 0.0
         if self.moe is not None:
-            # decode (cache present) routes droplessly, as the reference does
-            y, aux = _branch(lambda h: self.moe(rms_norm(h, self.ln2, self.rms_eps),
-                                                dropless=cache is not None), x, remat)
+            y, aux = _branch(lambda h: self._moe(rms_norm(h, self.ln2, self.rms_eps), cache),
+                             x, remat)
             x = x + y
         elif self.ffn is not None:
             x = x + _branch(lambda h: self.ffn(rms_norm(h, self.ln2, self.rms_eps)), x, remat)
         return x, aux
+
+    def _moe(self, h: torch.Tensor, cache) -> BlockOut:
+        """The expert-parallel layer under a mesh with ``ep_shardmap`` (no
+        cache; ``moe_ep.ep_available``), else the MoE FFN; decode (cache
+        present) routes droplessly, as the reference does."""
+        from repro_torch.models import moe_ep
+
+        if (cache is None and hints_mod._STATE.get("ep_shardmap")
+                and moe_ep.ep_available(self.moe.cfg, h)):
+            return moe_ep.moe_apply_ep(self.moe, self.moe.cfg, h)
+        return self.moe(h, dropless=cache is not None)
 
 
 class _CoreBlock(nn.Module):
@@ -196,9 +208,9 @@ def embed_inputs(cfg: ModelConfig, model: Model, batch: Dict) -> Tuple[torch.Ten
 
 def lm_logits(cfg: ModelConfig, model: Model, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, model.final_norm, cfg.rms_eps)
-    if cfg.tie_embeddings:
-        return x @ model.embed.T
-    return model.lm_head(x)
+    logits = x @ model.embed.T if cfg.tie_embeddings else model.lm_head(x)
+    # keep the vocab dim model-sharded: the single biggest activation
+    return shard_hint(logits, "dp", None, "tp")
 
 
 def forward(
@@ -222,6 +234,7 @@ def forward(
     positions = torch.arange(x.shape[1], device=x.device)
     P = len(cfg.block_pattern)
     aux = 0.0  # a float until a MoE block adds its tensor: no device work without MoE
+    x = shard_hint(x, "dp", "sp", None)
     for blk in model.prefix:  # outside the units, as in the reference: no remat
         x, a = blk(x, positions)
         aux = aux + a
@@ -231,6 +244,7 @@ def forward(
     def unit_fn(x: torch.Tensor, aux, i: int) -> BlockOut:
         for blk in model.blocks[i * P:(i + 1) * P]:
             x, a = blk(x, positions, remat=per_branch)
+            x = shard_hint(x, "dp", "sp", None)
             aux = aux + a
         return x, aux
 
@@ -254,6 +268,7 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
     else:
         x0 = logits.shape[1] - batch["tokens"].shape[1]  # text start (VLM prefix)
         lg32, labels = logits[:, x0:-1].float(), batch["tokens"][:, 1:].long()
+    lg32 = shard_hint(lg32, "dp", None, "tp")
     lse = torch.logsumexp(lg32, dim=-1)
     tgt = torch.gather(lg32, -1, labels[..., None])[..., 0]
     return (lse - tgt).mean() + aux

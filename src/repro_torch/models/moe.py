@@ -20,6 +20,20 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DTYPE, Dense, act_fn
+from repro_torch.sharding.hints import shard_hint
+
+
+def top_k_gates(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router logits (T, E) f32 -> (renormalised gates (T, k), expert
+    indices (T, k), probabilities (T, E)). The k largest in descending
+    order and, on an exact tie, the lower expert index first, as
+    ``lax.top_k`` orders them: a stable sort, where ``torch.topk`` leaves
+    the order of ties open. Ties are common: the router's logits are bf16
+    before the f32 softmax."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, eidx = gate_vals[:, :k], eidx[:, :k]
+    return gate_vals / gate_vals.sum(dim=-1, keepdim=True), eidx, probs
 
 
 class SharedExperts(nn.Module):
@@ -54,16 +68,14 @@ class MoE(nn.Module):
 
     def route(self, xt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """xt: (T, d) -> (renormalised gates (T, k) f32, expert indices
-        (T, k), router probabilities (T, E) f32). The k largest in
-        descending order and, on an exact tie, the lower expert index first,
-        as ``lax.top_k`` orders them: a stable sort, where ``torch.topk``
-        leaves the order of ties open. Ties are common: the router's logits
-        are bf16 before the f32 softmax."""
-        logits = self.router(xt).float()
-        probs = torch.softmax(logits, dim=-1)
-        gate_vals, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-        gate_vals, eidx = gate_vals[:, :self.cfg.top_k], eidx[:, :self.cfg.top_k]
-        return gate_vals / gate_vals.sum(dim=-1, keepdim=True), eidx, probs
+        (T, k), router probabilities (T, E) f32)."""
+        return top_k_gates(self.router(xt).float(), self.cfg.top_k)
+
+    def capacity(self, T: int, dropless: bool = False) -> int:
+        """Slots per expert for T tokens: ceil(T k capacity_factor / E), or
+        T k (``dropless``)."""
+        k, e = self.cfg.top_k, self.cfg.n_routed_experts
+        return T * k if dropless else max(1, int(math.ceil(T * k * self.cfg.capacity_factor / e)))
 
     def forward(self, x: torch.Tensor, dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (b, s, d) -> (y, aux_loss). ``dropless=True`` sizes the expert
@@ -81,7 +93,7 @@ class MoE(nn.Module):
 
         # capacity-based dispatch: each assignment's position within its
         # expert, in row-major (token, slot) order; overflow parks in slot C
-        C = T * k if dropless else max(1, int(math.ceil(T * k * cfg.capacity_factor / e)))
+        C = self.capacity(T, dropless)
         flat_e = eidx.reshape(T * k)
         pos = torch.cumsum(nn.functional.one_hot(flat_e, e), dim=0) - 1  # (T*k, E)
         slot = torch.gather(pos, 1, flat_e[:, None])[:, 0]
@@ -90,7 +102,7 @@ class MoE(nn.Module):
         tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
         buf = torch.zeros((e, C + 1, d), dtype=x.dtype, device=x.device)
         buf[flat_e, slot_c] = xt[tok_of]  # kept (expert, slot) pairs are unique
-        buf = buf[:, :C]
+        buf = shard_hint(buf[:, :C], "tp", None, None)  # expert-parallel dispatch buffer
 
         f = act_fn(cfg.act)
         h = f(torch.bmm(buf, self.w_gate)) * torch.bmm(buf, self.w_up)

@@ -16,6 +16,10 @@ leaf are computed before any of them is stored). An update that fails
 halfway and is called again with the same grads, state and set ends where
 an unfailed update ends, bit for bit; the step counter moves only at the
 end.
+
+``norm`` (optional) is the global gradient norm to clip by, where
+``grads`` are one rank's shards of gradients whose whole norm the caller
+knows (``launch.steps.make_sharded_train_step``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ Tensors = Dict[str, torch.Tensor]
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable  # (params) -> state
-    update: Callable  # (grads, state, params, committed=None) -> new state; params in place
+    update: Callable  # (grads, state, params, committed=None, norm=None) -> new state; params in place
 
 
 def _lr_fn(lr):
@@ -97,9 +101,10 @@ def adamw(
                 "master": _master(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None, norm=None) -> Dict:
         step = state["step"] + 1
-        scale = _clip_scale(global_norm(grads), grad_clip) if grad_clip is not None else None
+        gn = global_norm(grads) if norm is None else norm
+        scale = _clip_scale(gn, grad_clip) if grad_clip is not None else None
         lr_t = lr_fn(step)
         # f32 scalars, as JAX computes them from its int32 step
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
@@ -135,9 +140,10 @@ def lion(
         return {"step": 0, "m": _f32_zeros(params), "master": _master(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None, norm=None) -> Dict:
         step = state["step"] + 1
-        scale = _clip_scale(global_norm(grads), grad_clip) if grad_clip is not None else None
+        gn = global_norm(grads) if norm is None else norm
+        scale = _clip_scale(gn, grad_clip) if grad_clip is not None else None
         lr_t = lr_fn(step)
         m, master = state["m"], state["master"]
         for k, p in _pending(params, committed):
@@ -160,8 +166,8 @@ def sgd(lr: Callable | float = 1e-2, momentum: float = 0.9) -> Optimizer:
         return {"step": 0, "m": _f32_zeros(params)}
 
     @torch.no_grad()
-    def update(grads: Tensors, state: Dict, params: Tensors, committed=None) -> Dict:
-        step = state["step"] + 1
+    def update(grads: Tensors, state: Dict, params: Tensors, committed=None, norm=None) -> Dict:
+        step = state["step"] + 1  # no clipping: ``norm`` is not read
         lr_t = lr_fn(step)
         m = state["m"]
         for k, p in _pending(params, committed):

@@ -385,6 +385,11 @@ class StepStats:
     straggler: bool
 
 
+class PeerStepError(RuntimeError):
+    """This rank's attempt went well, another rank's failed: every rank
+    retries the step."""
+
+
 class StepAbandonedError(StepTimeoutError):
     """A step missed its deadline and was still running ``abandon_wait_s``
     later: it may still write the state, so nothing is retried."""
@@ -427,6 +432,11 @@ class FaultTolerantRunner:
     Checkpoint restore (``restore_fn() -> (state, step)``) is the last line
     of defense once a step's retries are spent; the restored state then
     takes the step's batch, as in the reference.
+
+    On a mesh, ``agree(ok) -> bool`` (a collective: True when every rank
+    passed True) runs after ``fault_hook`` before each dispatch, so a fault
+    on one rank fails the attempt on all and they retry together (the
+    sharded step agrees again before its update commits).
     """
 
     def __init__(
@@ -437,12 +447,14 @@ class FaultTolerantRunner:
         checkpoint_manager=None,
         restore_fn: Optional[Callable] = None,  # () -> (state, step)
         fault_hook: Optional[Callable[[int], None]] = None,  # test injection
+        agree: Optional[Callable[[bool], bool]] = None,  # the ranks' outcome, on a mesh
     ) -> None:
         self.step_fn = step_fn
         self.cfg = cfg
         self.ckpt = checkpoint_manager
         self.restore_fn = restore_fn
         self.fault_hook = fault_hook
+        self.agree = agree
         self._meter = StragglerMeter(cfg.straggler_window, cfg.straggler_slack)
         self._restores = 0
         self.stats: list[StepStats] = []
@@ -456,8 +468,16 @@ class FaultTolerantRunner:
 
     def _run_once(self, state, batch, step: int):
         """One dispatch with an optional watchdog deadline."""
-        if self.fault_hook is not None:
-            self.fault_hook(step)  # may raise (injected fault)
+        err = None
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(step)  # may raise (injected fault)
+        except Exception as e:  # noqa: BLE001 -- the ranks hear of it first
+            err = e
+        if self.agree is not None and not self.agree(err is None) and err is None:
+            err = PeerStepError(f"step {step}: another rank failed before its dispatch")
+        if err is not None:
+            raise err
 
         def dispatch():
             out = self.step_fn(state, batch)

@@ -126,11 +126,51 @@ def test_restore_missing_leaf_raises(tmp_path):
 
 
 def test_shardings_are_not_ported(tmp_path):
-    save(tmp_path, 1, tree())
-    with pytest.raises(NotImplementedError, match="A12"):
-        restore(tmp_path, tree(), shardings={"w": None})
-    with pytest.raises(NotImplementedError, match="A12"):
-        CheckpointManager(tmp_path).restore_latest(tree(), shardings=object())
+    """shardings= is ported: on a mesh of one gloo rank, a tree on the meta
+    device comes back as DTensors of the saved values with the placements
+    asked for (the 4-rank case: tests/test_torch_train_mesh.py)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_mesh
+
+    save(tmp_path / "c", 1, tree())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'init'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        target = _meta(tree())
+        sh = {"params": {"w": (mesh, (Shard(0), Shard(1))), "b": (mesh, (Replicate(), Shard(0)))},
+              "opt": {"step": None, "m": {"w": (mesh, (Shard(1), Replicate()))}}}
+        for got, step, _ in (restore(tmp_path / "c", target, shardings=sh, device="cpu"),
+                             CheckpointManager(tmp_path / "c").restore_latest(
+                                 target, shardings=sh, device="cpu")):
+            assert step == 1
+            for (path, g), (_, want) in zip(_paths(got), _paths(tree())):
+                if isinstance(want, torch.Tensor):
+                    assert isinstance(g, DTensor) and torch.equal(g.full_tensor(), want), path
+                else:
+                    assert g == want, path
+            assert got["params"]["w"].placements == (Shard(0), Shard(1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _meta(t):
+    """The tree with every tensor on the meta device."""
+    if isinstance(t, dict):
+        return {k: _meta(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_meta(v) for v in t]
+    return t.to("meta") if isinstance(t, torch.Tensor) else t
+
+
+def _paths(t, path=()):
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _paths(t[k], path + (k,))]
+    if isinstance(t, list):
+        return [x for i, v in enumerate(t) for x in _paths(v, path + (i,))]
+    return [(path, t)]
 
 
 def test_manager_gc_and_async(tmp_path):

@@ -15,6 +15,7 @@ through their plain versions in both packages).
 import dataclasses
 import filecmp
 import json
+import socket
 import time
 
 import jax
@@ -161,10 +162,18 @@ def test_train_main_microbatches_and_lion_on_the_cpu():
     assert out["steps"] == 2 and all(np.isfinite(out["losses"]))
 
 
-@pytest.mark.parametrize("flag,item", [(["--mesh", "1,4"], "A12")])
-def test_train_main_raises_for_what_is_not_ported(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flag,item", [(["--mesh", "1,4"], "needs 4 ranks; the world has 1")])
+def test_train_main_raises_for_what_is_not_ported(flag, item, tmp_path, monkeypatch):
+    """--mesh is ported (tests/test_torch_train_mesh.py); a world whose size
+    is not the mesh's raises, and the process group made for it is gone."""
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost"}.items():
+        monkeypatch.setenv(k, v)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        monkeypatch.setenv("MASTER_PORT", str(s.getsockname()[1]))
+    with pytest.raises(RuntimeError, match=item):
         train_main(["--device", "cpu", "--arch", ARCH, "--steps", "1", *flag])
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_main_defaults_to_the_card():
