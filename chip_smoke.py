@@ -181,6 +181,17 @@ Phases (any failure raises and the exit code is non-zero):
      the port's MoE (y 2e-4, aux 1e-5, grads 2e-3), with its all-to-all
      bytes and forward time; (c) the int8 compressed all-reduce over (b)'s
      grads, within the int8 bound, with its wire bytes against raw;
+  dryrun: the dry-run (``repro_torch.launch.dryrun``), shapes only, on the
+     host: (a) one step of train_ft's straight run (qwen3-0.6b, 4 x 2048,
+     AdamW, remat full) traced for a (1, 1) mesh on ``meta`` tensors with
+     the kernels off, its traced peak within 20% of the peak that run
+     measured (``max_memory_allocated``), beside the reference's analytic
+     estimate and the H100 roofline terms (FLOPs at 989 TFLOP/s, bytes at
+     3.35 TB/s) next to the measured step; (b) ``python -m
+     repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k`` on the
+     16x16 and 2x16x16 fake meshes, writing under ``chiprun_out/dryrun``:
+     FLOPs per device fall with the pod axis, the step all-gathers and
+     reduce-scatters, and ``model_flops`` is ``formula_model_flops``;
   7. times: each kernel at its main-path shapes beside its bound, its plain
      version and, where one exists, the PyTorch call computing the same
      function (a yardstick only: the port never calls it): flash attention
@@ -238,7 +249,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import codesign, kernels  # noqa: E402
-from repro_torch.configs import ShapeConfig, get_config, register  # noqa: E402
+from repro_torch.configs import SHAPES, ShapeConfig, get_config, register  # noqa: E402
 from repro_torch.core.architecture import H100_SXM, cloud_accelerator, h100_sm  # noqa: E402
 from repro_torch.core.cost import EvaluationEngine, TimeloopLikeModel  # noqa: E402
 from repro_torch.core.cost.analysis import get_context  # noqa: E402
@@ -249,6 +260,7 @@ from repro_torch.core.opstream import (  # noqa: E402
     aggregate_stream_costs,
     build_gemm,
     build_opstream,
+    formula_model_flops,
     reconcile_model_flops,
     stream_sweep_tasks,
 )
@@ -2943,6 +2955,89 @@ def phase_distributed(stamp, ft: dict) -> dict:
     return {"launches": m["launches"], "step_s": step_s}
 
 
+DRYRUN_PEAK_TOL = 0.20  # the traced peak against train_ft's measured one
+DRYRUN_TIMEOUT = 300
+
+
+def phase_dryrun(stamp, ft: dict) -> dict:
+    """(a) the dry-run's one-card trace of train_ft's step against that
+    run's measured peak and step; (b) the dry-run CLI on qwen3-0.6b
+    train_4k on both production meshes, in a process of its own."""
+    from repro_torch.launch import dryrun
+
+    t = TRAIN_FT
+    cfg = get_config(t["arch"])
+    root = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    # (a) the cell train_ft's straight run trains, on a (1, 1) mesh
+    shape = ShapeConfig("train_ft", t["seq"], t["batch"], "train")
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    art = dryrun.run_cell(t["arch"], shape, False, out_dir=root, hbm_bytes=hbm,
+                          mesh_shape=(1, 1))
+    mem, est = art["memory"], art["memory_tpu_analytic"]
+    peak, measured = mem["peak_per_device"], ft["peak_bytes"]
+    rel = peak / measured - 1
+    print(f"dryrun (a) {art['cell']}: {cfg.name} {t['batch']} x {t['seq']}, adamw, remat full, "
+          f"kernels off, traced for rank 0 of a fake 1-rank group on meta tensors in "
+          f"{art['lower_s']:.1f} s (build) + {art['compile_s']:.1f} s (trace, "
+          f"{art['aten_ops']} aten ops); microbatches {art['microbatches']}")
+    print(f"dryrun (a) traced peak {peak / 2**30:.2f} GiB vs train_ft's measured "
+          f"{measured / 2**30:.2f} GiB (max_memory_allocated): {rel:+.1%} (limit "
+          f"{DRYRUN_PEAK_TOL:.0%}); at the peak "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in mem["peak_by_category"].items())
+          + f" GiB; fits {hbm / 2**30:.2f} GiB: {mem['fits_hbm']}")
+    print(f"dryrun (a) the reference's analytic estimate {est['total_bytes'] / 2**30:.2f} GiB "
+          f"(arguments {est['args_bytes'] / 2**30:.2f}, activations "
+          f"{est['activation_bytes'] / 2**30:.2f}; for its partitioned step, not gated)")
+    check(abs(rel) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a): traced peak {peak / 2**30:.2f} GiB is {rel:+.1%} off the measured "
+          f"{measured / 2**30:.2f} GiB")
+    flops_s = art["flops_per_device"] / H100_SXM["peak_bf16_flops"]
+    bytes_s = art["bytes_per_device"] / H100_SXM["hbm_bw"]
+    print(f"time [{stamp}] dryrun (a) H100 roofline of the traced step: FLOPs "
+          f"{art['flops_per_device']:.4e} / 989 TFLOP/s = {flops_s:.3f} s, bytes "
+          f"{art['bytes_per_device']:.4e} / 3.35 TB/s = {bytes_s:.3f} s, bound "
+          f"{max(flops_s, bytes_s):.3f} s vs train_ft's measured step {ft['step_s']:.3f} s "
+          f"({ft['step_s'] / max(flops_s, bytes_s):.2f}x the bound; not gated); useful FLOPs "
+          f"{art['model_flops'] / art['flops_per_device']:.3f}")
+
+    # (b) the CLI on the production meshes, in a process of its own
+    t_b = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", t["arch"], "--shape",
+           "train_4k", "--out", str(root)]
+    proc = subprocess.run(cmd, cwd=ROOT, env=_child_env(), capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    (root / "cli.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"dryrun (b): exit {proc.returncode}; its output ends:\n"
+                                f"{(proc.stdout + proc.stderr)[-3000:]}")
+    wall_b = time.perf_counter() - t_b
+    arts = {m: json.loads((root / f"{t['arch']}__train_4k__{m}.json").read_text())
+            for m in ("16x16", "2x16x16")}
+    want_mf = formula_model_flops(cfg, SHAPES["train_4k"])
+    for m, a in arts.items():
+        c = a["collectives"]
+        print(f"dryrun (b) {a['cell']}: {a['chips']} ranks, {a['compute']}; per device "
+              f"FLOPs {a['flops_per_device']:.4e}, bytes {a['bytes_per_device']:.4e}, "
+              f"collective bytes {a['collective_bytes_per_device']:.4e} (all-gather "
+              f"{c['all-gather_count']}, reduce-scatter {c['reduce-scatter_count']}, all-reduce "
+              f"{c['all-reduce_count']}); peak {a['memory']['peak_per_device'] / 2**30:.2f} GiB "
+              f"(fits: {a['memory']['fits_hbm']}), analytic "
+              f"{a['memory_tpu_analytic']['total_bytes'] / 2**30:.2f} GiB; useful FLOPs "
+              f"{a['model_flops'] / (a['flops_per_device'] * a['chips']):.4f}; host "
+              f"{a['lower_s']:.1f} s build + {a['compile_s']:.1f} s trace")
+        check(c["all-gather_count"] > 0 and c["reduce-scatter_count"] > 0,
+              f"dryrun (b) {m}: all-gathers {c['all-gather_count']}, reduce-scatters "
+              f"{c['reduce-scatter_count']}")
+        check(a["model_flops"] == want_mf, f"dryrun (b) {m}: model_flops {a['model_flops']} != "
+                                           f"formula_model_flops {want_mf}")
+    f1, f2 = (arts[m]["flops_per_device"] for m in ("16x16", "2x16x16"))
+    check(f2 < f1, f"dryrun (b): FLOPs per device {f1:.4e} (16x16) -> {f2:.4e} (2x16x16)")
+    print(f"time [{stamp}] dryrun (b) the CLI's process: {wall_b:.1f} s wall for both meshes")
+    print(f"time [{stamp}] dryrun phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"peak": peak, "measured": measured, "rel": rel}
+
+
 def phase_codesign(stamp, gen) -> dict:
     """The co-design loop on the card: quickstart step 4 (plan the GEMM in
     each dtype's space, launch it with the planned tile in f32 and bf16,
@@ -4259,6 +4354,7 @@ def main() -> int:
     train_launches, train_step = phase_train(stamp)
     new_train = {"train_ft": phase_train_ft(stamp), "train_moe": phase_train_moe(stamp)}
     new_train["distributed"] = phase_distributed(stamp, new_train["train_ft"])
+    phase_dryrun(stamp, new_train["train_ft"])
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
                           fam, train_launches, errs, loop, new_train)
     report_whole_model(stamp, wm, decode_step, train_step, records)

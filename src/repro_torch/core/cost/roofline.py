@@ -114,11 +114,12 @@ class RooflineReport:
 
     @staticmethod
     def from_artifact(name: str, art: Dict) -> "RooflineReport":
-        """Build from a dry-run artifact dict (the reference's
-        ``launch/dryrun.py`` output, read as JSON; the port does not make
-        such artifacts yet).
+        """Build from a dry-run artifact dict, read as JSON: the port's
+        ``launch/dryrun.py`` output (``experiments/torch/dryrun``) or the
+        reference's.
 
-        Prefers the structure-corrected costs (scan bodies x trip count);
+        Prefers the ``corrected`` costs (the reference's scan bodies x trip
+        count; the port traces every unit and stores its counts there);
         raw cost_analysis numbers are the fallback for artifacts produced
         without the correction pass.
         """

@@ -171,7 +171,8 @@ def main(argv=None) -> dict:
                     help="persistent cross-run ResultStore directory")
     ap.add_argument("--art-dir", default="experiments/dryrun",
                     help="dryrun artifact directory for the measured "
-                         "collective term")
+                         "collective term (the port's dry-run writes "
+                         "experiments/torch/dryrun)")
     add_sweep_args(ap)
     args = ap.parse_args(argv)
     return run(smoke=args.smoke,

@@ -217,6 +217,9 @@ def test_ep_available_guards():
     from repro_torch.sharding.hints import clear_hints, hints
 
     clear_hints()
+    # clear_hints keeps the mesh an earlier hints_from_mesh in this process
+    # installed (as the reference's does): drop it for "no mesh installed"
+    moe_ep.hints_mod._STATE.pop("mesh", None)
     cfg = get_config("qwen2-moe-a2.7b").reduced()
     x = torch.zeros((2, 8, cfg.d_model))
     assert not moe_ep.ep_available(cfg, x)  # no hints installed -> the MoE FFN
