@@ -24,8 +24,9 @@ Phases (any failure raises and the exit code is non-zero):
      row-scaled limit that fails with a KV tile dropped; the families
      phase's shapes (hubert's ragged non-causal 8 x 1499 at D = 80,
      llava's causal 3008 at GQA group 7, group 7 in the split decode); the
-     train_ft and train_moe shapes (qwen3 4 x 2048 at 16/8 heads of 128,
-     MLA 2 x 2048 at d 192, dv 128), both row-scaled too; its autograd
+     train_ft, train_moe and distributed (d) shapes (qwen3 4 x 2048 at
+     16/8 heads of 128, MLA 2 x 2048 at d 192, dv 128, qwen3 2 x 2048 at
+     8/4 heads of 128), all row-scaled too; its autograd
      wrapper's grads; the SSD kernel at the test_ssd_sweep shapes, the
      zamba2 training shape and hp = n = 128 with B/C materialised and
      expanded over heads with stride 0, and ``ssd_chunked`` against the
@@ -150,13 +151,17 @@ Phases (any failure raises and the exit code is non-zero):
      8.35 GB keeping 3, under ``chiprun_out/train_ft``, which is checked for
      free space first and deleted at the end) through ``python -m
      repro_torch.launch.train`` in processes of its own: 12 steps straight,
-     a checkpoint every 4; a run with a fault before step 5 and a failure
-     after half of step 7's update, each retried once, killed with SIGKILL
-     once ``latest_step`` reads 8; and a new process that resumes it to
-     step 12. The faulted run's step-8 checkpoint and the resumed run's
-     losses and step-12 checkpoint must equal the straight run's bit for
-     bit, and flash attention must launch exactly 28 x 2 times a step (a
-     retry runs no grads again). Prints the step time, tokens/s, peak
+     a checkpoint every 4, with ``--mesh 1,1`` through ``python -m
+     torch.distributed.run --nproc-per-node 1`` (NCCL, world size 1; rank
+     0 writes the checkpoints); a run without a mesh with a fault before
+     step 5 and a failure after half of step 7's update, each retried once,
+     killed with SIGKILL once ``latest_step`` reads 8; and a new process
+     without a mesh that resumes it to step 12. The faulted run's step-8
+     checkpoint and the resumed run's losses and step-12 checkpoint must
+     equal the straight run's bit for bit (so the 1x1 mesh step is the
+     unmeshed one), and flash attention must launch exactly 28 x 2 times a
+     step (a retry runs no grads again). Prints the step time (the meshed
+     straight run's beside the unmeshed resumed run's), tokens/s, peak
      memory, each checkpoint's bytes, snapshot seconds, async write seconds
      and how far the write overlapped training, the restore time, and one
      step under the profiler;
@@ -169,25 +174,31 @@ Phases (any failure raises and the exit code is non-zero):
      time and peak memory under each) and, on the first 3 layers in
      float32, kernels on against off with the MoE routes forced to the
      kernels-off ones (loss within 1e-4, grads within 1e-3 relative L2);
-  distributed: (a) ``python -m torch.distributed.run --nproc-per-node 1``
-     of the training entry point with train_ft's arguments and ``--mesh
-     1,1`` (NCCL, world size 1), ended before step 4: its losses, flash
-     launches (28 x 2 x 4) and step-4 checkpoint (written by rank 0 under
-     the mesh) bit for bit the straight run's, then that checkpoint
-     restored with ``shardings=`` on a 1x1 mesh, every leaf bit for bit;
-     the step time and peak memory beside the unmeshed run's; (b) the
-     expert-parallel MoE layer at qwen2-moe-a2.7b's width in float32 on 4
-     gloo ranks sharing the card, mesh (1, 4), 15 experts a rank, against
-     the port's MoE (y 2e-4, aux 1e-5, grads 2e-3), with its all-to-all
-     bytes and forward time; (c) the int8 compressed all-reduce over (b)'s
-     grads, within the int8 bound, with its wire bytes against raw;
+  distributed: one ``python -m torch.distributed.run --nproc-per-node 4``
+     launch of gloo ranks sharing the card: (b) the expert-parallel MoE
+     layer at qwen2-moe-a2.7b's width in float32, mesh (1, 4), 15 experts a
+     rank, against the port's MoE (y 2e-4, aux 1e-5, grads 2e-3), with its
+     all-to-all bytes and forward time; (c) the int8 compressed all-reduce
+     over (b)'s grads, within the int8 bound, with its wire bytes against
+     raw; (d) the training entry point with train_ft's arguments and
+     ``--mesh 2,2`` (qwen3-0.6b at full width and depth, the partitioned
+     step: FSDP per unit over "data", tensor and sequence parallelism over
+     "model"), ended before step 2: losses falling and within 2e-2 of the
+     straight run's, flash attention 28 x 2 a step at one rank's heads,
+     every rank's parameters, grads and moments of its spec slice's shape,
+     each rank's peak memory and the step time; then train_ft's
+     straight-run step-4 checkpoint restored with ``shardings=`` onto the
+     2x2 mesh as cuda DTensors, each rank's slice of every leaf the file's
+     bit for bit;
   dryrun: the dry-run (``repro_torch.launch.dryrun``), shapes only, on the
      host: (a) one step of train_ft's straight run (qwen3-0.6b, 4 x 2048,
      AdamW, remat full) traced for a (1, 1) mesh on ``meta`` tensors with
      the kernels off, its traced peak within 20% of the peak that run
      measured (``max_memory_allocated``), beside the reference's analytic
      estimate and the H100 roofline terms (FLOPs at 989 TFLOP/s, bytes at
-     3.35 TB/s) next to the measured step; (b) ``python -m
+     3.35 TB/s) next to the measured step; the distributed phase's (d)
+     step traced for rank 0 of a fake group of 4, its peak within 20% of
+     rank 0's measured one; (b) ``python -m
      repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k`` on the
      16x16 and 2x16x16 fake meshes, writing under ``chiprun_out/dryrun``:
      FLOPs per device fall with the pod axis, the step all-gathers and
@@ -199,9 +210,10 @@ Phases (any failure raises and the exit code is non-zero):
      CUDA-graph replay; GB/s, n_split), at the MLA decode shape (b = 8,
      16/16 heads, d 192, dv 128, kv_len 512), at hubert's encode and
      llava's prefill shapes (the families path's launches), at the
-     train_ft and train_moe shapes (qwen3 4 x 2048, 16/8 heads of 128,
-     also the distributed path's; MLA 2 x 2048, 16/16 heads, d 192, dv
-     128) and at zamba2's
+     train_ft and train_moe shapes (qwen3 4 x 2048, 16/8 heads of 128;
+     MLA 2 x 2048, 16/16 heads, d 192, dv 128), at the distributed
+     phase's (d) one-rank shape (2 x 2048, 8/4 heads of 128) and at
+     zamba2's
      training shape (TFLOP/s; the
      planned tile and the earlier fixed 128-key tile, interleaved), the SSD kernel, the matmul kernel at the
      four calibration shapes in both dtypes beside ``torch.matmul`` (bf16:
@@ -2155,6 +2167,8 @@ TRAIN_FT = dict(arch="qwen3-0.6b", batch=4, seq=2048, steps=12, every=4, keep=3,
                 run_timeout=600)
 # device memory a train_ft process needs: it peaks at 31.5 GiB on an H100 80GB
 FT_DEVICE_NEED = 40 * 2**30
+# where the straight run's step-DIST_RESTORE checkpoint waits for the distributed phase
+FT_KEPT = ROOT / "chiprun_out" / "train_ft_kept"
 # the faulted run: ``fault_hook`` raises before step ``fault_step``'s first
 # attempt, and ``update_hook`` raises in step ``update_fault_step`` once half
 # of the parameters are written. A record file gets a line for each
@@ -2207,6 +2221,9 @@ TRAIN_MOE = dict(arch="deepseek-v2-lite-16b", n_layers=6, batch=2, seq=2048, ste
 FA_TRAIN_NEW = [
     ("qwen3 train_ft", (4, 2048, 2048, 16, 8, 128), "train_ft"),
     ("MLA train_moe d=192 dv=128", (2, 2048, 2048, 16, 16, 192, 128), "train_moe"),
+    # the distributed phase's (d): train --mesh 2,2, one rank's 2 rows and its
+    # 8 of 16 q heads, 4 of 8 kv heads, over the gathered sequence
+    ("qwen3 train --mesh 2,2, one rank's heads", (2, 2048, 2048, 8, 4, 128), "distributed"),
 ]
 
 
@@ -2303,12 +2320,18 @@ def phase_train_ft(stamp) -> dict:
     check(free >= need, f"train_ft: {free / 2**30:.1f} GiB free under {root}, {need / 2**30:.1f} "
                         f"GiB needed")
     train = [sys.executable, "-m", "repro_torch.launch.train"]
+    # the straight run on a 1x1 mesh (NCCL, world size 1): the faulted and
+    # resumed runs, unmeshed, are held to it bit for bit
+    meshed = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+              "1", "-m", "repro_torch.launch.train"]
     final = f"step_{t['steps']:09d}"
     t_phase = time.perf_counter()
     try:
-        # 1. straight
-        a = _ft_child(stamp, "straight", train + _ft_args(t, root / "a", root / "a.json", t["every"]),
+        # 1. straight, train --mesh 1,1
+        a = _ft_child(stamp, "straight", meshed + _ft_args(t, root / "a", root / "a.json",
+                                                           t["every"]) + ["--mesh", "1,1"],
                       root / "a.log", root / "a.json")
+        check(a.get("mesh") == {"data": 1, "model": 1}, f"train_ft straight: mesh {a.get('mesh')}")
         losses = a["losses"]
         check(a["steps"] == t["steps"] and all(math.isfinite(x) for x in losses)
               and losses[-1] < losses[0], f"train_ft straight: losses {losses}")
@@ -2322,13 +2345,16 @@ def phase_train_ft(stamp) -> dict:
         k = t["kill_at"]
         digest_k = _ckpt_digest(root / "a" / f"step_{k:09d}")
         digest = _ckpt_digest(root / "a" / final)
-        # the distributed phase's --mesh 1,1 run is held to this one's step-4 checkpoint
-        digest_every = _ckpt_digest(root / "a" / f"step_{t['every']:09d}")
+        # the distributed phase's (d) restores the step-DIST_RESTORE checkpoint on its 2x2 mesh
+        shutil.rmtree(FT_KEPT, ignore_errors=True)
+        FT_KEPT.mkdir(parents=True)
+        (root / "a" / f"step_{DIST_RESTORE:09d}").rename(FT_KEPT / f"step_{DIST_RESTORE:09d}")
         shutil.rmtree(root / "a")
         steady = sorted(a["step_s"][1:])
         step_s = steady[len(steady) // 2]
         tokens = t["batch"] * t["seq"]
-        print(f"train_ft straight: {t['steps']} adamw steps of {t['batch']} x {t['seq']}, remat, "
+        print(f"train_ft straight: train --mesh 1,1 through torchrun (NCCL, world size 1), "
+              f"{t['steps']} adamw steps of {t['batch']} x {t['seq']}, remat, "
               f"kernels on, deterministic, checkpoint every {t['every']} (keep {t['keep']}); "
               f"flash_attention launches {a['launches']['flash_attention']} = {cfg.n_layers} x 2 "
               f"x {t['steps']}")
@@ -2408,6 +2434,12 @@ def phase_train_ft(stamp) -> dict:
               f"train_ft resumed: {d['launches']['flash_attention']} flash launches != {want_d}")
         check(_ckpt_digest(c_dir / final) == digest,
               "train_ft resumed: the final checkpoint differs from the straight run's")
+        mesh_s = statistics.median(a["step_s"][k + 1:])
+        plain_s = statistics.median(d["step_s"][1:])
+        print(f"time [{stamp}] train_ft --mesh 1,1 step (the straight run, median of steps "
+              f"{k + 2}-{t['steps']}): {mesh_s:.3f} s vs unmeshed {plain_s:.3f} s (the resumed "
+              f"run's same steps; {mesh_s / plain_s - 1:+.1%}); peak memory "
+              f"{a['peak_bytes'] / 2**30:.2f} GiB vs {d['peak_bytes'] / 2**30:.2f} GiB")
         print(f"train_ft resumed: a new process restored step {k} and ran steps {k + 1}-"
               f"{t['steps']}: losses {' '.join(f'{x:.6f}' for x in d['losses'])} and every leaf "
               f"of the step-{t['steps']} checkpoint equal the straight run's bit for bit; "
@@ -2424,7 +2456,7 @@ def phase_train_ft(stamp) -> dict:
     _ft_profile(stamp, cfg)
     print(f"time [{stamp}] train_ft phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": a["launches"]["flash_attention"], "step_s": step_s, "losses": losses,
-            "steps_s": a["step_s"], "digest_every": digest_every, "peak_bytes": a["peak_bytes"]}
+            "steps_s": a["step_s"], "peak_bytes": a["peak_bytes"]}
 
 
 def _ft_profile(stamp, cfg) -> None:
@@ -2595,112 +2627,48 @@ def phase_train_moe(stamp) -> dict:
 
 
 # distributed: the port's distributed layer on the card. One card
-# means world size 1 (NCCL) or ranks sharing it (gloo); nothing here measures
-# a speed-up across cards.
-# (a) qwen3-0.6b through ``torch.distributed.run --nproc-per-node 1`` and the
-#     training entry point with ``--mesh 1,1`` (NCCL), train_ft's arguments and
-#     schedule (12 steps), ended before step DIST_STOP once its step-DIST_STOP
-#     checkpoint is written: its losses and that checkpoint must be the straight
-#     run's bit for bit (the cosine schedule reads --steps, so a 4-step run
-#     would not be), then the checkpoint restored with ``shardings=`` on a 1x1
-#     mesh, every leaf bit for bit the file's.
+# means world size 1 (NCCL; train_ft's straight run is ``--mesh 1,1``) or
+# ranks sharing it (gloo); nothing here measures a speed-up across cards.
+# One ``torch.distributed.run`` launch of 4 gloo ranks sharing the card
+# runs (b), (c) and (d):
 # (b) the expert-parallel MoE layer at qwen2-moe-a2.7b's width (d 2048, 60
-#     experts top-4, d_expert 1408, 4 shared) in f32 on 4 ranks sharing the
-#     card over gloo, mesh (1, 4) ("data", "model"): 15 experts a rank, against
-#     the port's MoE at the reference test's tolerances, at the first
-#     capacity factor of DIST_EP_CF at which neither path drops an
-#     assignment (the plain MoE's from the routes and its capacity, the
-#     layer's from its own count, moe_ep.DROPPED). DIST_EP_X tokens, not the
-#     2 x 2048 of a training batch: the reference layer dispatches each
-#     sender's empty slots to local expert 0 on the owner, so a drop-free
-#     owner needs capacity_factor ~ e_loc (11 at e_loc = 15), and its
-#     (e_loc, cap_own, d) f32 buffers, activations and grads at 2 x 2048
-#     tokens would need ~25 GB a rank, 4 ranks more than the card holds; at
-#     2 x 512, ~9 GB. Fewer ranks need more: at 2 ranks, e_loc 30 wants a
-#     factor ~15 and ~4x the buffer a rank.
+#     experts top-4, d_expert 1408, 4 shared) in f32, mesh (1, 4) ("data",
+#     "model"): 15 experts a rank, against the port's MoE at the reference
+#     test's tolerances, at the first capacity factor of DIST_EP_CF at which
+#     neither path drops an assignment (the plain MoE's from the routes and
+#     its capacity, the layer's from its own count, moe_ep.DROPPED).
+#     DIST_EP_X tokens, not the 2 x 2048 of a training batch: the reference
+#     layer dispatches each sender's empty slots to local expert 0 on the
+#     owner, so a drop-free owner needs capacity_factor ~ e_loc (11 at e_loc
+#     = 15), and its (e_loc, cap_own, d) f32 buffers, activations and grads
+#     at 2 x 2048 tokens would need ~25 GB a rank, 4 ranks more than the
+#     card holds; at 2 x 512, ~9 GB.
 # (c) the int8 compressed all-reduce on the same 4 ranks over (b)'s grads
 #     (each rank's x grad and its experts' w_down grads: distinct per rank).
-DIST_STOP = 4
+# (d) qwen3-0.6b at full width and depth through the training entry point
+#     with train_ft's arguments (no checkpoints) and ``--mesh 2,2``: the
+#     partitioned step (FSDP per unit over "data", tensor and sequence
+#     parallel over "model", the vocabulary split), ended before step
+#     DIST_STOP. Its losses within DIST_LOSS_RTOL of train_ft's straight run
+#     at each step and falling, flash attention launched 28 x 2 a step at
+#     one rank's shape (2 rows, 8 q and 4 kv heads, the whole sequence),
+#     each rank's parameters, grads and moments of its ``param_specs``
+#     slice's shape, each rank's peak memory over the steps (the dryrun
+#     phase traces the same step against rank 0's). Then the ranks restore
+#     train_ft's straight-run step-DIST_RESTORE checkpoint (kept for it under
+#     FT_KEPT) with ``restore(shardings=)`` onto their 2x2 mesh as cuda
+#     DTensors and hold each rank's slice of every leaf to the file's.
+DIST_STOP = 2  # (d)'s steps: each ~30 s, every collective staged through the host
+DIST_RESTORE = 4  # train_ft's straight-run checkpoint that (d) restores on its mesh
+DIST_LOSS_RTOL = 2e-2
 DIST_EP_X = (2, 512)
 DIST_EP_CF = (8.0, 10.0, 11.0, 12.0, 14.0, 16.0)  # the first drop-free one is used
 DIST_EP_TIMED = 3  # timed forward calls of each path
 DIST_Y_TOL, DIST_AUX_RTOL, DIST_GRAD_TOL = 2e-4, 1e-5, 2e-3  # tests/test_moe_ep.py's
-DIST_TIMEOUT = 300
-# (a)'s process: train.main with a fault hook that ends the run before step
-# ``stop`` (not an Exception: the runner does not retry it); then, once rank
-# 0's writer has finished that checkpoint, restore it on a 1x1 mesh
-MESH_RUN = """
-import json, sys, time
-from pathlib import Path
-import numpy as np
-import torch
-import torch.distributed as dist
-from repro_torch.checkpoint import latest_step, restore
-from repro_torch.checkpoint.checkpoint import _from_native
-from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
-from repro_torch.launch import steps, train
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.convert import reference_leaves
-from repro_torch.optim import adamw
-from repro_torch.sharding.specs import ShardingRules, named, state_specs
-stop, out_path, argv = int(sys.argv[1]), sys.argv[2], sys.argv[3:]
-ckpt_dir = Path(argv[argv.index("--ckpt-dir") + 1])
-rec = {"losses": [], "step_s": [], "t0": time.time()}
-class Stop(BaseException):
-    pass
-run_step = train.FaultTolerantRunner.run_step
-def timed(self, state, batch, step):
-    t0 = time.perf_counter()
-    out = run_step(self, state, batch, step)  # waits for the device
-    rec["step_s"].append(time.perf_counter() - t0)
-    rec["losses"].append(float(out[1]["loss"]))
-    rec["backend"], rec["world"] = dist.get_backend(), dist.get_world_size()
-    rec["placements"] = sorted({str(tuple(p.placements)) for p in state["model"].parameters()})
-    return out
-train.FaultTolerantRunner.run_step = timed
-def fault_hook(step):
-    if step == stop:
-        rec["launches"] = flash_attention_cuda.launches
-        raise Stop
-try:
-    train.main(argv, fault_hook=fault_hook)
-except Stop:
-    pass
-rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-while latest_step(ckpt_dir) != stop:  # the writer thread finishes the checkpoint
-    time.sleep(0.05)
-dist.init_process_group("nccl", init_method="env://")
-mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
-cfg = get_config(argv[argv.index("--arch") + 1])
-meta = steps.make_init_state(cfg, adamw(1e-4), "meta")(None)
-t0 = time.perf_counter()
-state, step, _ = restore(ckpt_dir, meta, shardings=named(state_specs(meta, cfg, mesh,
-                                                                      ShardingRules()), mesh),
-                         device="cuda")
-torch.cuda.synchronize()
-rec["restore_s"] = time.perf_counter() - t0
-cdir = ckpt_dir / f"step_{step:09d}"
-files = {e["key"]: e for e in json.loads((cdir / "manifest.json").read_text())["leaves"]}
-bad, n = [], 0
-for key, _, _, ts, stacked in reference_leaves(state, cfg):
-    n += 1
-    if key == "['opt']['step']":
-        bad += [] if ts[0] == stop else [key]
-        continue
-    e = files[key]
-    arr = _from_native(np.load(cdir / e["file"], mmap_mode="c"), e["dtype"])
-    for u, t in enumerate(ts):
-        if type(t).__name__ != "DTensor" or not torch.equal(t.to_local().cpu(),
-                                                            arr[u] if stacked else arr):
-            bad.append(key)
-rec.update(restore_leaves=n, restore_bad=sorted(set(bad)), restore_step=step)
-dist.destroy_process_group()
-Path(out_path).write_text(json.dumps(rec))
-"""
+DIST_TIMEOUT = 420
 # (b) and (c): each of the 4 ranks (torchrun) on cuda:0 over gloo
 EP_RUN = """
-import json, math, sys, time
+import gc, json, math, sys, time
 from pathlib import Path
 import numpy as np
 import torch
@@ -2834,6 +2802,101 @@ dist.all_reduce(errs, op=dist.ReduceOp.MAX)
 res["max_over_ranks"] = errs.tolist()
 if rank == 0:
     Path(out_path).write_text(json.dumps(res))
+del moe, x, xd, xa, y0, y1, g0, g1, gx0, own
+gc.collect()
+torch.cuda.empty_cache()
+# (d) train --mesh 2,2 on the same ranks, ended before step d_stop
+from repro_torch.configs import get_config as config_of
+from repro_torch.kernels import flash_attention as fa_pkg
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+from repro_torch.launch import train
+from repro_torch.sharding.specs import ShardingRules, named, param_specs
+d_out, d_stop, kept, d_argv = sys.argv[7], int(sys.argv[8]), Path(sys.argv[9]), sys.argv[10:]
+rec = {"losses": [], "step_s": [], "shapes": set()}
+seen = {}
+fa = fa_pkg.flash_attention
+def fa_noted(q, k, v, **kw):  # the shapes the model's attention launches at
+    rec["shapes"].add((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+    return fa(q, k, v, **kw)
+fa_pkg.flash_attention = fa_noted
+class Stop(BaseException):
+    pass
+run_step = train.FaultTolerantRunner.run_step
+def timed(self, state, batch, step):
+    seen["state"] = state
+    t0 = time.perf_counter()
+    out = run_step(self, state, batch, step)  # waits for the device
+    rec["step_s"].append(time.perf_counter() - t0)
+    rec["losses"].append(float(out[1]["loss"]))
+    return out
+train.FaultTolerantRunner.run_step = timed
+def fault_hook(step):
+    torch.cuda.synchronize()
+    if step == 0:  # the path starts: its counts and its peak from here
+        flash_attention_cuda.launches = 0
+        moe_ep.HOST_STAGED.update(calls=0, bytes=0)
+        torch.cuda.reset_peak_memory_stats()
+    if step == d_stop:
+        rec["launches"] = flash_attention_cuda.launches
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        raise Stop
+def update_hook(n):  # the grads of the step are pending: note their shapes once
+    if n == 1 and "grads" not in seen:
+        seen["grads"] = {k: tuple(g.shape) for k, g in seen["state"]["pending"]["grads"].items()}
+try:
+    train.main(d_argv, fault_hook=fault_hook, update_hook=update_hook)
+except Stop:
+    pass
+state = seen["state"]
+mesh = next(state["model"].parameters()).device_mesh
+cfg = config_of(d_argv[d_argv.index("--arch") + 1])
+specs = named(param_specs(state["model"], cfg, mesh, ShardingRules()), mesh)
+params = dict(state["model"].named_parameters())
+want = {n: tuple(sl.stop - sl.start for sl in local_index(params[n].shape, mesh, pl))
+        for n, (_, pl) in specs.items()}
+bad = [n for n, p in params.items() if tuple(p.to_local().shape) != want[n]]
+bad += [n for n, sh in seen["grads"].items() if sh != want[n]]
+bad += [f"{k}.{n}" for k in ("m", "v", "master") for n, t in state["opt"][k].items()
+        if tuple(t.to_local().shape) != want[n]]
+rec.update(bad_shapes=bad, n_leaves=len(params), shapes=sorted(rec["shapes"]),
+           staged=dict(moe_ep.HOST_STAGED), rank=rank,
+           local_params=sum(p.to_local().numel() for p in params.values()),
+           params=sum(p.numel() for p in params.values()))
+# train_ft's straight-run checkpoint restored with shardings= onto this 2x2
+# mesh of cuda DTensors: each rank reads its slices; each equals the file's
+from repro_torch.checkpoint import restore
+from repro_torch.checkpoint.checkpoint import _from_native
+from repro_torch.launch import steps
+from repro_torch.models.convert import reference_leaves
+from repro_torch.optim import adamw
+from repro_torch.sharding.specs import state_specs
+del state, seen
+gc.collect()
+meta = steps.make_init_state(cfg, adamw(1e-4), "meta")(None)
+t0 = time.perf_counter()
+got, step, _ = restore(kept, meta, shardings=named(state_specs(meta, cfg, mesh, ShardingRules()),
+                                                   mesh), device="cuda")
+torch.cuda.synchronize()
+rec["restore_s"] = time.perf_counter() - t0
+cdir = kept / f"step_{step:09d}"
+files = {e["key"]: e for e in json.loads((cdir / "manifest.json").read_text())["leaves"]}
+bad, n, local = [], 0, 0
+for key, _, _, ts, stacked in reference_leaves(got, cfg):
+    n += 1
+    if key == "['opt']['step']":
+        bad += [] if ts[0] == step else [key]
+        continue
+    e = files[key]
+    arr = _from_native(np.load(cdir / e["file"], mmap_mode="c"), e["dtype"])
+    for u, t_ in enumerate(ts):
+        whole = arr[u] if stacked else arr
+        if type(t_).__name__ != "DTensor" or not t_.to_local().is_cuda or not torch.equal(
+                t_.to_local().cpu(), whole[local_index(whole.shape, mesh, t_.placements)]):
+            bad.append(key)
+        local += t_.to_local().numel()
+rec.update(restore_leaves=n, restore_bad=sorted(set(bad)), restore_step=step,
+           restore_local=local)
+Path(f"{d_out}.{rank}").write_text(json.dumps(rec))
 dist.destroy_process_group()
 """.replace("YTOL", repr(DIST_Y_TOL)).replace("AUXTOL", repr(DIST_AUX_RTOL)).replace(
     "GTOL", repr(DIST_GRAD_TOL))
@@ -2857,10 +2920,11 @@ def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list
 
 
 def phase_distributed(stamp, ft: dict) -> dict:
-    """(a) train --mesh 1,1 on NCCL held bit for bit to train_ft's straight
-    run, (b) the expert-parallel MoE at qwen2-moe's width on 4 gloo ranks of
-    the card against the port's MoE, (c) the compressed all-reduce on those
-    ranks. Returns (a)'s flash launches."""
+    """One launch of 4 gloo ranks sharing the card: (b) the expert-parallel
+    MoE at qwen2-moe's width against the port's MoE, (c) the compressed
+    all-reduce, (d) train --mesh 2,2 of qwen3-0.6b against train_ft's
+    straight run. Returns (d)'s flash launches (rank 0's), step time and
+    rank 0's peak memory."""
     t = TRAIN_FT
     cfg = get_config(t["arch"])
     root = ROOT / "chiprun_out" / "distributed"
@@ -2872,97 +2936,113 @@ def phase_distributed(stamp, ft: dict) -> dict:
     free_dev, _ = torch.cuda.mem_get_info()
     check(free_dev >= FT_DEVICE_NEED, f"distributed: {free_dev / 2**30:.2f} GiB free on the card, "
                                       f"{FT_DEVICE_NEED / 2**30:.0f} GiB needed")
+    B, S = DIST_EP_X
+    d_args = _ft_args(t, root, root, t["every"])
+    d_args = d_args[:d_args.index("--ckpt-dir")] + ["--mesh", "2,2"]  # no checkpoints
     try:
-        # (a) --mesh 1,1 through torchrun
-        args = _ft_args(t, root / "ckpt", root / "unused.json", DIST_STOP) + ["--mesh", "1,1"]
-        wall = _torchrun(stamp, "mesh_run", root, 1, MESH_RUN,
-                         [str(DIST_STOP), str(root / "mesh.json"), *args])
-        m = json.loads((root / "mesh.json").read_text())
-        want = cfg.n_layers * 2 * DIST_STOP
-        print(f"distributed (a) train --mesh 1,1: {m['world']} rank, backend {m['backend']}, "
-              f"torchrun --nproc-per-node 1, {t['arch']} {t['batch']} x {t['seq']}, "
-              f"--deterministic, train_ft's 12-step schedule ended before step {DIST_STOP}; "
-              f"parameter placements {m['placements']}")
-        print(f"distributed (a) losses: {' '.join(f'{x:.6f}' for x in m['losses'])}; train_ft "
-              f"straight: {' '.join(f'{x:.6f}' for x in ft['losses'][:DIST_STOP])}")
-        check(m["backend"] == "nccl" and m["world"] == 1, f"distributed (a): {m['backend']}, "
-                                                          f"world {m['world']}")
-        check(m["losses"] == ft["losses"][:DIST_STOP],
-              f"distributed (a): losses {m['losses']} != the straight run's "
-              f"{ft['losses'][:DIST_STOP]}")
-        check(m["launches"] == want, f"distributed (a): {m['launches']} flash-attention launches, "
-                                     f"not {cfg.n_layers} x 2 x {DIST_STOP} = {want}")
-        digest = _ckpt_digest(root / "ckpt" / f"step_{DIST_STOP:09d}")
-        check(digest == ft["digest_every"], f"distributed (a): the step-{DIST_STOP} checkpoint "
-                                            f"written under the mesh differs from the straight "
-                                            f"run's")
-        check(not m["restore_bad"] and m["restore_step"] == DIST_STOP,
-              f"distributed (a): restore(shardings=) leaves differ: {m['restore_bad'][:5]}")
-        step_s = statistics.median(m["step_s"][1:])
-        same = statistics.median(ft["steps_s"][1:DIST_STOP])  # the straight run's same steps
-        print(f"distributed (a): losses bit for bit the straight run's; flash_attention launches "
-              f"{m['launches']} = {cfg.n_layers} x 2 x {DIST_STOP}; the step-{DIST_STOP} "
-              f"checkpoint (written by rank 0 under the mesh) sha256 leaf for leaf the straight "
-              f"run's; restored with shardings= on a 1x1 mesh: {m['restore_leaves']} leaves, "
-              f"DTensors, bit for bit the files")
-        print(f"time [{stamp}] distributed (a) step (median of steps 2-{DIST_STOP}): {step_s:.3f} "
-              f"s ({' '.join(f'{x:.3f}' for x in m['step_s'][1:])}) vs the unmeshed straight "
-              f"run's steps 2-{DIST_STOP} {same:.3f} s ({step_s / same - 1:+.1%}; its median of "
-              f"steps 2-12 {ft['step_s']:.3f} s); peak memory {m['peak_bytes'] / 2**30:.2f} GiB vs "
-              f"{ft['peak_bytes'] / 2**30:.2f} GiB; restore with shardings {m['restore_s']:.3f} s; "
-              f"process wall {wall:.1f} s")
-
-        # (b) and (c) on 4 gloo ranks sharing the card
-        B, S = DIST_EP_X
-        wall = _torchrun(stamp, "ep_run", root, 4, EP_RUN,
+        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN,
                          [str(root / "ep.json"), str(SEED), str(B), str(S), str(DIST_EP_TIMED),
-                          ",".join(map(str, DIST_EP_CF))])
-        r = json.loads((root / "ep.json").read_text())
-        moe_cfg = get_config("qwen2-moe-a2.7b")
-        print(f"distributed (b) moe_apply_ep, qwen2-moe-a2.7b width (d {moe_cfg.d_model}, "
-              f"{moe_cfg.n_routed_experts} experts top-{moe_cfg.top_k}, d_expert "
-              f"{moe_cfg.d_expert}, {moe_cfg.n_shared_experts} shared), x ({B}, {S}, "
-              f"{moe_cfg.d_model}) f32, 4 gloo ranks on cuda:0, mesh (1, 4): {r['e_loc']} experts "
-              f"a rank; capacity_factor {r['cf']} (the first of {DIST_EP_CF} drop-free on both "
-              f"paths): cap_send {r['cap_send']}, cap_own {r['cap_own']}")
-        print(f"distributed (b) against the port's MoE: y max abs err {r['max_over_ranks'][0]:.3g} "
-              f"(rtol = atol = {DIST_Y_TOL}); aux {r['aux'][0]:.8f} vs {r['aux'][1]:.8f} (rtol "
-              f"{DIST_AUX_RTOL}); grads max abs err {r['max_over_ranks'][1]:.3g} (rtol = atol = "
-              f"{DIST_GRAD_TOL}; largest grad {r['grad_max']:.4g}); all ranks [y, aux, grads, "
-              f"residual, bound] {r['all_ranks_ok']}")
-        check(r["all_ranks_ok"][:3] == [1, 1, 1], f"distributed (b): [y, aux, grads] within "
-                                                  f"tolerance on all ranks: {r['all_ranks_ok'][:3]}")
-        print(f"distributed (b) gloo has no all-to-all for CUDA tensors: the layer copied "
-              f"{r['staged']['calls']} collectives' buffers ({r['staged']['bytes'] / 1e6:.1f} MB) "
-              f"to the host and back on rank 0")
-        print(f"time [{stamp}] distributed (b) moe_apply_ep forward: {min(r['ep_ms']):.2f} ms "
-              f"(min of {DIST_EP_TIMED}; slowest rank {r['max_over_ranks'][3]:.2f} ms; 4 ranks "
-              f"share one card and exchange through host memory), all-to-all "
-              f"{r['a2a_calls_fwd']} calls sending {r['a2a_bytes_fwd'] / 1e6:.1f} MB a rank; the "
-              f"port's MoE on the whole x on one rank {min(r['moe_ms']):.2f} ms")
-        print(f"distributed (c) make_compressed_allreduce over each rank's x grad and its "
-              f"{r['e_loc']} experts' w_down grads: |mean - plain all_reduce mean| at most "
-              f"{r['max_over_ranks'][2]:.3f} of the int8 bound (half the mean scale); residual "
-              f"= g_eff - deq bit for bit: {bool(r['all_ranks_ok'][3])}; wire bytes "
-              f"{r['wire'][0]:,} int8 + scales vs {r['wire'][1]:,} raw "
-              f"({r['wire'][0] / r['wire'][1]:.4f})")
-        check(r["all_ranks_ok"][3:] == [1, 1], f"distributed (c): [residual, bound] "
-                                               f"{r['all_ranks_ok'][3:]}")
-        print(f"time [{stamp}] distributed (b)+(c) 4 processes: {wall:.1f} s wall")
+                          ",".join(map(str, DIST_EP_CF)), str(root / "tp.json"), str(DIST_STOP),
+                          str(FT_KEPT), *d_args])
     finally:
-        shutil.rmtree(root / "ckpt", ignore_errors=True)
+        shutil.rmtree(FT_KEPT, ignore_errors=True)
+    r = json.loads((root / "ep.json").read_text())
+    moe_cfg = get_config("qwen2-moe-a2.7b")
+    print(f"distributed (b) moe_apply_ep, qwen2-moe-a2.7b width (d {moe_cfg.d_model}, "
+          f"{moe_cfg.n_routed_experts} experts top-{moe_cfg.top_k}, d_expert "
+          f"{moe_cfg.d_expert}, {moe_cfg.n_shared_experts} shared), x ({B}, {S}, "
+          f"{moe_cfg.d_model}) f32, 4 gloo ranks on cuda:0, mesh (1, 4): {r['e_loc']} experts "
+          f"a rank; capacity_factor {r['cf']} (the first of {DIST_EP_CF} drop-free on both "
+          f"paths): cap_send {r['cap_send']}, cap_own {r['cap_own']}")
+    print(f"distributed (b) against the port's MoE: y max abs err {r['max_over_ranks'][0]:.3g} "
+          f"(rtol = atol = {DIST_Y_TOL}); aux {r['aux'][0]:.8f} vs {r['aux'][1]:.8f} (rtol "
+          f"{DIST_AUX_RTOL}); grads max abs err {r['max_over_ranks'][1]:.3g} (rtol = atol = "
+          f"{DIST_GRAD_TOL}; largest grad {r['grad_max']:.4g}); all ranks [y, aux, grads, "
+          f"residual, bound] {r['all_ranks_ok']}")
+    check(r["all_ranks_ok"][:3] == [1, 1, 1], f"distributed (b): [y, aux, grads] within "
+                                              f"tolerance on all ranks: {r['all_ranks_ok'][:3]}")
+    print(f"distributed (b) gloo has no all-to-all for CUDA tensors: the layer copied "
+          f"{r['staged']['calls']} collectives' buffers ({r['staged']['bytes'] / 1e6:.1f} MB) "
+          f"to the host and back on rank 0")
+    print(f"time [{stamp}] distributed (b) moe_apply_ep forward: {min(r['ep_ms']):.2f} ms "
+          f"(min of {DIST_EP_TIMED}; slowest rank {r['max_over_ranks'][3]:.2f} ms; 4 ranks "
+          f"share one card and exchange through host memory), all-to-all "
+          f"{r['a2a_calls_fwd']} calls sending {r['a2a_bytes_fwd'] / 1e6:.1f} MB a rank; the "
+          f"port's MoE on the whole x on one rank {min(r['moe_ms']):.2f} ms")
+    print(f"distributed (c) make_compressed_allreduce over each rank's x grad and its "
+          f"{r['e_loc']} experts' w_down grads: |mean - plain all_reduce mean| at most "
+          f"{r['max_over_ranks'][2]:.3f} of the int8 bound (half the mean scale); residual "
+          f"= g_eff - deq bit for bit: {bool(r['all_ranks_ok'][3])}; wire bytes "
+          f"{r['wire'][0]:,} int8 + scales vs {r['wire'][1]:,} raw "
+          f"({r['wire'][0] / r['wire'][1]:.4f})")
+    check(r["all_ranks_ok"][3:] == [1, 1], f"distributed (c): [residual, bound] "
+                                           f"{r['all_ranks_ok'][3:]}")
+
+    # (d) train --mesh 2,2
+    ranks = [json.loads((root / f"tp.json.{k}").read_text()) for k in range(4)]
+    r0 = ranks[0]
+    want = cfg.n_layers * 2 * DIST_STOP
+    shape = (t["batch"] // 2, t["seq"], cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim)
+    ref = ft["losses"][:DIST_STOP]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref)]
+    print(f"distributed (d) train --mesh 2,2: 4 gloo ranks on cuda:0, {t['arch']} "
+          f"{t['batch']} x {t['seq']}, train_ft's arguments and 12-step schedule ended before "
+          f"step {DIST_STOP}; each rank holds {r0['local_params']:,} of {r0['params']:,} "
+          f"parameters; flash attention launched at {r0['shapes']} (rows, positions, q heads, "
+          f"kv heads, head dim)")
+    print(f"distributed (d) losses: {' '.join(f'{x:.6f}' for x in r0['losses'])}; train_ft "
+          f"straight: {' '.join(f'{x:.6f}' for x in ref)}; relative gaps "
+          f"{' '.join(f'{g:.2e}' for g in gaps)} (limit {DIST_LOSS_RTOL})")
+    check(all(r["losses"] == r0["losses"] for r in ranks) and len(r0["losses"]) == DIST_STOP,
+          f"distributed (d): losses by rank {[r['losses'] for r in ranks]}")
+    check(max(gaps) <= DIST_LOSS_RTOL and r0["losses"][-1] < r0["losses"][0],
+          f"distributed (d): losses {r0['losses']} against {ref}")
+    for r in ranks:
+        check(r["launches"] == want and r["shapes"] == [list(shape)],
+              f"distributed (d) rank {r['rank']}: {r['launches']} flash launches at "
+              f"{r['shapes']}, not {cfg.n_layers} x 2 x {DIST_STOP} = {want} at {[list(shape)]}")
+        check(not r["bad_shapes"], f"distributed (d) rank {r['rank']}: local shapes not by "
+                                   f"param_specs: {r['bad_shapes'][:5]}")
+        check(r["staged"]["calls"] > 0, f"distributed (d) rank {r['rank']}: no collective went "
+                                        f"through the host")
+    for r in ranks:
+        check(r["restore_step"] == DIST_RESTORE and not r["restore_bad"],
+              f"distributed (d) rank {r['rank']}: restore(shardings=) of train_ft's "
+              f"step-{DIST_RESTORE} checkpoint (read step {r['restore_step']}): leaves differ "
+              f"from the file's {r['restore_bad'][:5]}")
+    local = " ".join(f"{r['restore_local']:,}" for r in ranks)
+    secs = " ".join(f"{r['restore_s']:.2f}" for r in ranks)
+    print(f"distributed (d): train_ft's straight-run step-{DIST_RESTORE} checkpoint restored "
+          f"with shardings= onto the 2x2 mesh as cuda DTensors: {r0['restore_leaves']} leaves, "
+          f"each rank's slices ({local} elements by rank) equal the file's bit for bit")
+    print(f"time [{stamp}] distributed (d) restore(shardings=) by rank: {secs} s")
+    step_s = statistics.median(r0["step_s"][1:])
+    print(f"distributed (d): on every rank {want} flash launches = {cfg.n_layers} x 2 x "
+          f"{DIST_STOP} at one rank's heads; parameters, grads and m, v, master of all "
+          f"{r0['n_leaves']} leaves of its param_specs slice's shape; gloo staged "
+          f"{r0['staged']['calls']} all-gathers and reduce-scatters "
+          f"({r0['staged']['bytes'] / 1e9:.2f} GB) through host memory on rank 0")
+    print(f"time [{stamp}] distributed (d) step (median of steps 2-{DIST_STOP}, 4 ranks sharing "
+          f"the card over gloo, collectives through host memory): {step_s:.3f} s "
+          f"({' '.join(f'{x:.3f}' for x in r0['step_s'])}); peak memory by rank "
+          + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks)
+          + f" GiB (max_memory_allocated from step 0) vs train_ft's {ft['peak_bytes'] / 2**30:.2f}"
+          f" GiB on one rank")
+    print(f"time [{stamp}] distributed (b)+(c)+(d) 4 processes: {wall:.1f} s wall")
     print(f"time [{stamp}] distributed phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": m["launches"], "step_s": step_s}
+    return {"launches": r0["launches"], "step_s": step_s, "peak_bytes": r0["peak_bytes"]}
 
 
 DRYRUN_PEAK_TOL = 0.20  # the traced peak against train_ft's measured one
 DRYRUN_TIMEOUT = 300
 
 
-def phase_dryrun(stamp, ft: dict) -> dict:
+def phase_dryrun(stamp, ft: dict, dist_run: dict) -> dict:
     """(a) the dry-run's one-card trace of train_ft's step against that
-    run's measured peak and step; (b) the dry-run CLI on qwen3-0.6b
-    train_4k on both production meshes, in a process of its own."""
+    run's measured peak and step, and its trace of the distributed phase's
+    (d) step (train --mesh 2,2) for rank 0 of a fake group of 4 against
+    rank 0's measured peak; (b) the dry-run CLI on qwen3-0.6b train_4k on
+    both production meshes, in a process of its own."""
     from repro_torch.launch import dryrun
 
     t = TRAIN_FT
@@ -3002,6 +3082,25 @@ def phase_dryrun(stamp, ft: dict) -> dict:
           f"({ft['step_s'] / max(flops_s, bytes_s):.2f}x the bound; not gated); useful FLOPs "
           f"{art['model_flops'] / art['flops_per_device']:.3f}")
 
+    # (a) the distributed phase's 2x2 step, rank 0 of a fake group of 4
+    art = dryrun.run_cell(t["arch"], shape, False, out_dir=root, hbm_bytes=hbm,
+                          mesh_shape=(2, 2))
+    peak2, measured2 = art["memory"]["peak_per_device"], dist_run["peak_bytes"]
+    rel2 = peak2 / measured2 - 1
+    c = art["collectives"]
+    print(f"dryrun (a) {art['cell']}: the distributed phase's (d) step traced for rank 0 of a fake "
+          f"group of 4 in {art['lower_s']:.1f} s + {art['compile_s']:.1f} s ({art['aten_ops']} aten "
+          f"ops): traced peak {peak2 / 2**30:.2f} GiB vs rank 0's measured {measured2 / 2**30:.2f} "
+          f"GiB: {rel2:+.1%} (limit {DRYRUN_PEAK_TOL:.0%}); at the peak "
+          + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in art["memory"]["peak_by_category"].items())
+          + f" GiB; all-gathers {c['all-gather_count']}, reduce-scatters "
+          f"{c['reduce-scatter_count']}, all-reduces {c['all-reduce_count']}, "
+          f"{art['collective_bytes_per_device'] / 1e9:.3f} GB a device; useful FLOPs "
+          f"{art['model_flops'] / (art['flops_per_device'] * art['chips']):.3f}")
+    check(abs(rel2) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a) 2x2: traced peak {peak2 / 2**30:.2f} GiB is {rel2:+.1%} off rank 0's "
+          f"measured {measured2 / 2**30:.2f} GiB")
+
     # (b) the CLI on the production meshes, in a process of its own
     t_b = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", t["arch"], "--shape",
@@ -3035,7 +3134,7 @@ def phase_dryrun(stamp, ft: dict) -> dict:
     check(f2 < f1, f"dryrun (b): FLOPs per device {f1:.4e} (16x16) -> {f2:.4e} (2x16x16)")
     print(f"time [{stamp}] dryrun (b) the CLI's process: {wall_b:.1f} s wall for both meshes")
     print(f"time [{stamp}] dryrun phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"peak": peak, "measured": measured, "rel": rel}
+    return {"peak": peak, "measured": measured, "rel": rel, "rel_2x2": rel2}
 
 
 def phase_codesign(stamp, gen) -> dict:
@@ -4187,10 +4286,6 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
     for name, shape, path in FA_TRAIN_NEW:
         records.append(_time_fa_train(stamp, gen, fa, name, shape, path,
                                       new_train[path]["launches"], errs[name]))
-    # the distributed path (train --mesh 1,1) runs the train_ft shape: its own launches
-    ft_rec = next(r for r in records if r.get("path") == "train_ft")
-    records.append({**ft_rec, "path": "distributed",
-                    "launches": new_train["distributed"]["launches"]})
 
     # the SSD kernel at zamba2's training shape, B/C shared by the heads as
     # the model passes them (stride 0: the score kernel, then the main
@@ -4354,7 +4449,7 @@ def main() -> int:
     train_launches, train_step = phase_train(stamp)
     new_train = {"train_ft": phase_train_ft(stamp), "train_moe": phase_train_moe(stamp)}
     new_train["distributed"] = phase_distributed(stamp, new_train["train_ft"])
-    phase_dryrun(stamp, new_train["train_ft"])
+    phase_dryrun(stamp, new_train["train_ft"], new_train["distributed"])
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
                           fam, train_launches, errs, loop, new_train)
     report_whole_model(stamp, wm, decode_step, train_step, records)

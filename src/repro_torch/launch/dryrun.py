@@ -3,9 +3,9 @@ step of every (architecture x input-shape) cell costs a device on the
 reference's production meshes, with no device.
 
 For every cell, on the single-pod 16x16 mesh AND the 2x16x16 multi-pod
-mesh, the step the port runs (``launch/specs.build_cell``: data parallel
-with the weights gathered per step for training, data-parallel replicas
-with the whole weights for serving) is traced once for rank 0 of a fake
+mesh, the step the port runs (``launch/specs.build_cell``: partitioned
+for training, FSDP per unit and tensor parallel over "model"; data-parallel
+replicas with the whole weights for serving) is traced once for rank 0 of a fake
 process group of 256 or 512 ranks, on shape-only ``meta`` tensors, with
 the hand-written kernels switched off (their plain versions run: a kernel
 needs real device memory). One dispatch mode counts, op by op:
@@ -23,12 +23,13 @@ needs real device memory). One dispatch mode counts, op by op:
   issues, by kind, output bytes and group size, at the ring conventions;
 - memory: the live storages of the device (rounded up to the CUDA caching
   allocator's 512-byte blocks) from the step's arguments on, and their
-  peak, broken down into parameters (the state's and the gathered
-  weights), optimizer state, inputs (batch, tokens, cache), gradients
-  (each parameter's ``.grad``), activations (what the step makes outside
-  autograd's backward: the forward's activations, the update's
-  temporaries) and backward (the backward's recomputed activations and
-  temporaries). The counterpart of ``memory_analysis()``.
+  peak, broken down into parameters (the state's slices), optimizer
+  state, inputs (batch, tokens, cache), gradients (each parameter's
+  ``.grad``), activations (what the step makes outside autograd's
+  backward: the forward's activations and gathered weights, the update's
+  temporaries) and backward (the backward's recomputed activations,
+  regathered weights and temporaries). The counterpart of
+  ``memory_analysis()``.
 
 The port's blocks are a Python loop, so every unit is traced: there is no
 scan body to correct (the reference's ``corrected_costs``), and the
@@ -219,8 +220,8 @@ class StepCounter(TorchDispatchMode):
     (views zero), collectives, and the device's live storages with their
     peak by category. DTensor ops are left to DTensor, so each is counted
     as the local ops and collectives it runs. A leaf tensor that requires
-    grad and enters an op (a parameter: the state's, or a weight the step
-    gathered) is filed under parameters, and its ``.grad``, once
+    grad and enters an op (a parameter, or the step's leaf over its
+    storage) is filed under parameters, and its ``.grad``, once
     accumulated, under gradients."""
 
     def __init__(self, block: int = BLOCK) -> None:

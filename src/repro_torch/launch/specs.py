@@ -40,8 +40,8 @@ META = "meta"
 
 #: what each kind of cell's artifact describes: the port's step as it runs
 COMPUTE = {
-    "train": "dp over the batch's mesh dims, weights gathered whole per step; "
-             "the model ranks repeat the dense work",
+    "train": "FSDP per unit over the dp dims; tensor and sequence parallel over model for "
+             "attention, MLP and the vocabulary; other blocks whole over model",
     "prefill": "dp replicas over (pod, data), whole weights; the model ranks repeat",
     "decode": "dp replicas over (pod, data), whole weights; the model ranks repeat",
 }
@@ -192,8 +192,8 @@ def build_cell(
 
     - train: ``make_sharded_train_step`` on the state ``distribute_state``
       places by ``state_specs`` and the batch placed by ``batch_specs``
-      (data parallel, the weights gathered whole each step); the ranks'
-      agreement is taken as given (a shape-only flag has no value).
+      (partitioned: ``sharding/partition.py``); the ranks' agreement is
+      taken as given (a shape-only flag has no value).
     - prefill / decode: the port serves without a mesh, so each rank is a
       data-parallel replica with the whole weights holding its own batch
       rows and their cache rows (rows over the dp axes; replicated where
@@ -209,7 +209,7 @@ def build_cell(
     if shape.kind == "train":
         hints_from_mesh(mesh, rules)
         fn = steps_mod.make_sharded_train_step(
-            cfg, optimizer, mesh, agree=lambda ok: ok, remat=remat,
+            cfg, optimizer, mesh, agree=lambda ok: ok, rules=rules, remat=remat,
             microbatches=microbatches, remat_policy=rules.remat_policy,
         )
         whole = state_struct(cfg, optimizer)

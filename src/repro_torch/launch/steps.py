@@ -27,37 +27,44 @@ def make_init_state(cfg: ModelConfig, optimizer: Optimizer, device="cuda"):
     return init_state
 
 
+def _grads(loss_of, params: Dict[str, torch.Tensor], batch: Dict, microbatches: int
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, grads by name) of ``loss_of(batch)`` with respect to the
+    leaves ``params``. ``microbatches > 1`` = gradient accumulation: the
+    batch is split along axis 0 and the grads are summed into f32
+    accumulators, each microbatch's divided by the count (the ``lax.scan``
+    of JAX's train step)."""
+    for p in params.values():
+        p.grad = None
+    if microbatches == 1:
+        loss = loss_of(batch)
+        loss.backward()
+        return loss.detach(), {k: p.grad for k, p in params.items()}
+    n = next(iter(batch.values())).shape[0]
+    if n % microbatches:
+        raise ValueError(f"batch {n} % microbatches {microbatches} != 0")
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()}
+    loss_acc = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
+    for mb in zip(*(v.chunk(microbatches) for v in batch.values())):
+        loss = loss_of(dict(zip(batch, mb)))
+        loss.backward()
+        with torch.no_grad():
+            for k, p in params.items():
+                acc[k] += p.grad.float() / microbatches
+                p.grad = None
+        loss_acc = loss_acc + loss.detach() / microbatches
+    return loss_acc, acc
+
+
 def make_grads_fn(cfg: ModelConfig, *, remat: bool = True, microbatches: int = 1,
                   remat_policy: str = "full"):
-    """(model, batch) -> (loss, grads by parameter name). ``microbatches > 1``
-    = gradient accumulation: the batch is split along axis 0 and the grads
-    are summed into f32 accumulators, each microbatch's divided by the
-    count (the ``lax.scan`` of JAX's train step)."""
+    """(model, batch) -> (loss, grads by parameter name), accumulated over
+    ``microbatches`` (``_grads``)."""
 
     def grads_of(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        if microbatches == 1:
-            loss = loss_fn(cfg, model, batch, remat=remat, remat_policy=remat_policy)
-            loss.backward()
-            return loss.detach(), {k: p.grad for k, p in params.items()}
-        n = next(iter(batch.values())).shape[0]
-        if n % microbatches:
-            raise ValueError(f"batch {n} % microbatches {microbatches} != 0")
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()}
-        loss_acc = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
-        for mb in zip(*(v.chunk(microbatches) for v in batch.values())):
-            loss = loss_fn(cfg, model, dict(zip(batch, mb)), remat=remat,
-                           remat_policy=remat_policy)
-            loss.backward()
-            with torch.no_grad():
-                for k, p in params.items():
-                    acc[k] += p.grad.float() / microbatches
-                    p.grad = None
-            loss_acc = loss_acc + loss.detach() / microbatches
-        return loss_acc, acc
+        return _grads(lambda b: loss_fn(cfg, model, b, remat=remat, remat_policy=remat_policy),
+                      dict(model.named_parameters()), batch, microbatches)
 
     return grads_of
 
@@ -191,151 +198,73 @@ def make_sharded_train_step(
     mesh,
     *,
     agree: Callable[[bool], bool],
+    rules=None,
     remat: bool = True,
     microbatches: int = 1,
     remat_policy: str = "full",
     update_hook: Optional[Callable[[int], None]] = None,
 ):
     """``make_train_step`` on a mesh, for a state of DTensors placed by
-    ``state_specs`` and batches placed by ``batch_specs``.
+    ``state_specs`` (under ``rules``, default ``ShardingRules()``) and
+    batches placed by ``batch_specs``.
 
     Between steps every rank holds only its slices of the parameters,
-    moments and master weights. Compute is data parallel over the mesh
-    dims that split the batch: a step gathers the parameters whole into a
-    plain compute model (an all-gather per sharded leaf),
-    gathers the batch's sequence shards and computes this dp rank's loss
-    and grads. The ranks of a tp group compute the same ones, but for an
-    expert-parallel MoE layer (``models/moe_ep.py``), which splits its
-    tokens over them. The grads are reduced straight to this rank's slices
-    in f32 (a reduce-scatter over each dp mesh dim that shards a leaf, an
-    all-reduce over one that replicates it, this rank's part along the
-    others), averaged and rounded back to the grads' dtype; then the
-    gathered weights and the whole grads are dropped. The clip norm is the
-    whole grads', summed from the slices. Each rank updates its own slice
-    of every parameter, moment and master weight: no collective. Where a
-    mesh dim has one rank its collectives are skipped (they are the
-    identity), so at world size 1 a step is the unmeshed one bit for bit.
+    moments and master weights. A step computes partitioned
+    (``sharding/partition.py``): FSDP per unit over the dp mesh dims (a
+    unit's leaves gathered along their sharded dims before its forward and
+    its recompute, its grads reduce-scattered to this rank's slices in f32
+    when its backward ends), tensor and sequence parallelism over the tp
+    dim for attention, MLP and the vocabulary, and the expert-parallel MoE
+    where the hints ask for it (``ep_shardmap``). The rank's grads come
+    out as its slices of the dp mean's grads, rounded to the grads' dtype.
+    The clip norm is the whole grads', summed from the slices. Each rank
+    updates its own slice of every parameter, moment and master weight:
+    no collective. Where every mesh dim has one rank there is no
+    collective and nothing is divided, so at world size 1 a step is the
+    unmeshed one bit for bit.
 
     The retry contract of ``make_train_step`` holds, and the ranks agree
     (``agree``) once the update is written, before it commits: a rank whose
     update failed, or whose peer's did, raises and keeps its
     ``state["pending"]``, and every rank's retry finishes the update."""
     import torch.distributed as dist
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Shard
 
-    from repro_torch.models.model import Model
     from repro_torch.runtime import PeerStepError
-    from repro_torch.sharding.place import full_value, is_sharded
+    from repro_torch.sharding.partition import Partition
+    from repro_torch.sharding.specs import ShardingRules
 
-    grads_of = make_grads_fn(cfg, remat=remat, microbatches=microbatches,
-                             remat_policy=remat_policy)
-    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    coord = mesh.get_coordinate()
-    work: Dict = {}
-
-    def compute_model(model):
-        """The plain model of the step, with the parameters whole: a sharded
-        leaf gathered, an unsharded one (every leaf at world size 1) its
-        DTensor's local tensor itself. The module is made on the first call
-        (a few hundred ms for qwen3-0.6b) and kept; its tensors are this
-        step's (see ``release``)."""
-        with torch.no_grad():
-            if "model" not in work:
-                w = Model(cfg, generator=None, device="meta")
-                w.load_state_dict({n: full_value(p) for n, p in model.named_parameters()},
-                                  strict=True, assign=True)
-                work["model"] = w
-                return w
-            w = work["model"]
-            for dst, src in zip(w.parameters(), model.parameters()):
-                dst.data = full_value(src)  # the same storage where src is unsharded
-        return w
-
-    def release(w, model):
-        """Drop the step's grads and gathered weights from the kept module:
-        between steps a rank holds only its slices."""
-        for dst, src in zip(w.parameters(), model.parameters()):
-            dst.grad = None
-            if is_sharded(src):
-                dst.data = torch.empty(0, dtype=dst.dtype, device=dst.device)
-
-    def local_batch(batch):
-        """This dp rank's rows, whole sequences; the mesh dims that split them."""
-        out, dp_dims = {}, None
-        for k, v in batch.items():
-            # keep the rows' split, gather the rest (where a dim has > 1 rank)
-            layout = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
-                      for pl in v.placements]
-            gather = any(isinstance(pl, Shard) and pl.dim != 0 and mesh.size(i) > 1
-                         for i, pl in enumerate(v.placements))
-            out[k] = (v.redistribute(mesh, layout) if gather else v).to_local()
-            dims = tuple(i for i, pl in enumerate(layout)
-                         if isinstance(pl, Shard) and mesh.size(i) > 1)
-            if dp_dims is not None and dims != dp_dims:
-                raise ValueError(f"batch key {k}: rows split over mesh dims {dims}, "
-                                 f"the others' over {dp_dims}")
-            dp_dims = dims
-        return out, dp_dims or ()
-
-    def to_slices(grads, layouts, dp_dims):
-        """Whole grads of this dp rank -> this rank's slices of their dp
-        mean. Mesh dims are taken in order (DTensor's order of splits):
-        on a dp dim, one all-reduce of the leaves it replicates and one
-        reduce-scatter of those it shards, each through one f32 buffer;
-        on another dim, this rank's chunk of the leaves it shards."""
-        x = dict(grads)
-        for i in range(mesh.ndim):
-            n = mesh.size(i)
-            if n == 1:
-                continue
-            split = {k: pl[i].dim for k, pl in layouts.items() if isinstance(pl[i], Shard)}
-            if i not in dp_dims:
-                x.update({k: x[k].chunk(n, dim=d)[coord[i]].clone() for k, d in split.items()})
-                continue
-            group = mesh.get_group(i)
-            rest = [k for k in x if k not in split]
-            if rest:
-                shapes = [x[k].shape for k in rest]
-                flat = torch.cat([x[k].float().reshape(-1) for k in rest])
-                dist.all_reduce(flat, group=group)
-                parts = flat.split([math.prod(sh) for sh in shapes])
-                x.update({k: v.view(sh) for k, v, sh in zip(rest, parts, shapes)})
-            if split:  # each leaf's rank chunks side by side: (n, sum of chunk sizes)
-                moved = [x[k].float().movedim(d, 0) for k, d in split.items()]
-                flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
-                out = flat.new_empty(flat.shape[1])
-                reduce_scatter(out, flat.reshape(-1), group=group)
-                parts = out.split([m.numel() // n for m in moved])
-                for (k, d), m, v in zip(split.items(), moved, parts):
-                    x[k] = v.view((m.shape[0] // n,) + tuple(m.shape[1:])).movedim(0, d)
-        n_dp = math.prod(mesh.size(i) for i in dp_dims)
-        return {k: (v / n_dp if n_dp > 1 else v).to(grads[k].dtype).contiguous()
-                for k, v in x.items()}
+    rules = rules or ShardingRules()
 
     def grads_phase(model, batch):
-        local, dp_dims = local_batch(batch)
-        w = compute_model(model)
-        loss, grads = grads_of(w, local)
-        release(w, model)
-        if dp_dims:
+        part = getattr(train_step, "partition", None)
+        if part is None:  # the plan is the state's placements': made once
+            part = train_step.partition = Partition(cfg, model, mesh, rules)
+        # this rank's slices as leaves of the step (the state's storage)
+        shards = {k: p.to_local().detach().requires_grad_(True)
+                  for k, p in model.named_parameters()}
+        loss, grads = _grads(lambda b: part.loss(model, shards, b, remat=remat,
+                                                 remat_policy=remat_policy),
+                             shards, part.local_batch(batch), microbatches)
+        # the loss of the dp groups' mean: the ranks of a tp group hold the same
+        rest = [i for i in range(mesh.ndim) if mesh.size(i) > 1 and i != part.tp_dim]
+        if rest:
             flat = loss.float().reshape(1)
-            for i in dp_dims:
+            for i in rest:
                 dist.all_reduce(flat, group=mesh.get_group(i))
-            loss = flat[0] / math.prod(mesh.size(i) for i in dp_dims)
-        layouts = {k: tuple(p.placements) for k, p in model.named_parameters()}
-        shards = to_slices(grads, layouts, dp_dims)
-        del grads
+            loss = flat[0] / math.prod(mesh.size(i) for i in rest)
         # the whole grads' norm: each slice's squares over the ranks that hold it
+        layouts = {k: tuple(p.placements) for k, p in model.named_parameters()}
         reps = {k: mesh.size() // math.prod(mesh.size(i) for i, pl in enumerate(layouts[k])
-                                             if isinstance(pl, Shard)) for k in shards}
-        sq = sum(torch.sum(torch.square(g.float())) / reps[k] for k, g in shards.items())
+                                             if isinstance(pl, Shard)) for k in grads}
+        sq = sum(torch.sum(torch.square(g.float())) / reps[k] for k, g in grads.items())
         if mesh.size() > 1:
             sq = sq.reshape(1)
             for i in range(mesh.ndim):
                 if mesh.size(i) > 1:
                     dist.all_reduce(sq, group=mesh.get_group(i))
             sq = sq[0]
-        return loss, shards, torch.sqrt(sq)
+        return loss, grads, torch.sqrt(sq)
 
     def train_step(state: Dict, batch: Dict):
         model = state["model"]
@@ -360,7 +289,7 @@ def make_sharded_train_step(
         new_opt = {k: (new["step"] if k == "step" else opt[k]) for k in opt}
         return {"model": model, "opt": new_opt}, {"loss": pending["loss"], "step": new["step"]}
 
-    # (model, batch) -> (loss, this rank's grad shards, the whole grads' norm)
+    # (model, batch) -> (loss, this rank's grad shards, the whole grads' norm);
+    # ``train_step.partition`` is the plan once a step has run
     train_step.grads = grads_phase
     return train_step
-

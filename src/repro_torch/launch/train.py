@@ -18,11 +18,14 @@ Run the same command again and it resumes from the latest checkpoint in
 ``--mesh a,b[,c]`` trains on a ``DeviceMesh`` over ``("pod", "data",
 "model")[-len(dims):]``, one rank per process, the process group from
 torchrun's environment (NCCL on ``--device cuda``, gloo on ``--device
-cpu``); the world size must equal the mesh's. Parameters, moments and
+cpu``; gloo on cuda where the caller initialised it, for ranks sharing a
+card); the world size must equal the mesh's. Parameters, moments and
 master weights are DTensors placed by the reference's sharding rules
 (``sharding.specs.state_specs``), batches by ``batch_specs``; the step is
-``steps.make_sharded_train_step``. Checkpoints keep the reference's format
-(rank 0 writes) and a resume re-places them on the mesh.
+``steps.make_sharded_train_step``, partitioned: FSDP per unit over "data"
+(and "pod"), tensor and sequence parallelism over "model". Checkpoints
+keep the reference's format (rank 0 writes) and a resume re-places them
+on the mesh.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
         --arch qwen3-0.6b_smoke --mesh 2,2 --steps 8 --batch 4 --seq 64
@@ -106,7 +109,9 @@ def main(argv=None, *, fault_hook: Optional[Callable[[int], None]] = None,
 def build_mesh(spec: str, device: str):
     """``--mesh`` -> a DeviceMesh over ("pod", "data", "model")[-len(dims):],
     on the process group of torchrun's environment (initialised here unless
-    the caller has): NCCL for cuda, gloo for cpu, nothing else."""
+    the caller has): NCCL for cuda, gloo for cpu. A caller may initialise
+    gloo for cuda: ranks sharing a card (NCCL refuses two ranks on one
+    device), rank ``LOCAL_RANK`` on card ``LOCAL_RANK % device_count``."""
     from repro_torch.launch.mesh import make_mesh
 
     dims = [int(x) for x in spec.split(",")]
@@ -114,14 +119,16 @@ def build_mesh(spec: str, device: str):
     backend = {"cuda": "nccl", "cpu": "gloo"}[device]
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method="env://")
-    if dist.get_backend() != backend:
+    allowed = {backend, "gloo"} if device == "cuda" else {backend}
+    if dist.get_backend() not in allowed:
         raise RuntimeError(f"--mesh on {device} needs the {backend} backend; the process group "
                            f"is {dist.get_backend()}")
     if dist.get_world_size() != math.prod(dims):
         raise RuntimeError(f"--mesh {spec} needs {math.prod(dims)} ranks; the world has "
                            f"{dist.get_world_size()}")
     if device == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", dist.get_rank())))
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
     return make_mesh(dims, names, device_type=device)
 
 
@@ -148,7 +155,7 @@ def _main(args, t_main, fault_hook, update_hook) -> dict:
     else:
         agree = steps_mod.make_agree(args.device)
         step_fn = steps_mod.make_sharded_train_step(
-            cfg, optimizer, mesh, agree=agree, remat=not args.no_remat,
+            cfg, optimizer, mesh, agree=agree, rules=rules, remat=not args.no_remat,
             microbatches=args.microbatches, update_hook=update_hook)
 
     # ---- init / restore ------------------------------------------------ #

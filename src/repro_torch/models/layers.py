@@ -38,10 +38,15 @@ def _ones(n: int, device) -> nn.Parameter:
 # --------------------------------------------------------------------- #
 # primitives
 # --------------------------------------------------------------------- #
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def normed(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` before its weight."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return normed(x, eps) * w
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -73,6 +78,31 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def act_fn(name: str):
     return {"silu": silu, "gelu": gelu}[name]
+
+
+class Products:
+    """How a module computes its column products (``x`` through several
+    weights split by output features), its row product (a weight split by
+    input features) and its norms: whole, as here. ``Attention`` and ``MLP``
+    take one; the partitioned train step gives them its tensor-parallel
+    products (``sharding/partition.py``), which take this rank's sequence
+    shard in and give this rank's shard of the residual back, and whose
+    norms sum their weights' grads over the ranks' heads or tokens."""
+
+    @staticmethod
+    def norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+        return rms_norm(x, w, eps)
+
+    @staticmethod
+    def columns(x: torch.Tensor, mods) -> list:
+        return [m(x) for m in mods]
+
+    @staticmethod
+    def rows(y: torch.Tensor, mod: "Dense") -> torch.Tensor:
+        return mod(y)
+
+
+WHOLE = Products()
 
 
 class Dense(nn.Module):
@@ -119,8 +149,8 @@ def _auto_q_chunk(B: int, Sq: int, Skv: int, hq: int, budget: int = 1 << 31) -> 
     chunk of one rank's batch and heads fits ``budget`` bytes inside a hint
     context (the reference's rule); 1024 outside one. The reference takes
     the global batch and divides it over dp, and the heads over tp; the
-    port's ``mha`` is given one rank's tensors (the sharded train step
-    computes on this dp rank's rows with every head), so B and hq are
+    port's ``mha`` is given one rank's tensors (the partitioned train step
+    computes this dp rank's rows on this tp rank's heads), so B and hq are
     taken as they are."""
     from repro_torch.sharding import hints as _h
 
@@ -207,16 +237,21 @@ class Attention(nn.Module):
         positions: torch.Tensor,  # (S,) global positions of x
         cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"}: (b, Smax, hkv, hd)
         cache_len: Optional[int] = None,  # filled length of the cache before this call
+        products: Products = WHOLE,
     ) -> torch.Tensor:
         cfg = self.cfg
-        b, S, _ = x.shape
-        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = self.wq(x).reshape(b, S, hq, hd)
-        k = self.wk(x).reshape(b, S, hkv, hd)
-        v = self.wv(x).reshape(b, S, hkv, hd)
+        # the head counts of the weights this call is given: the config's, or
+        # one rank's under tensor parallelism (``sharding/partition.py``)
+        hd = cfg.head_dim
+        hq, hkv = self.wq.w.shape[1] // hd, self.wk.w.shape[1] // hd
+        q, k, v = products.columns(x, (self.wq, self.wk, self.wv))
+        b, S = q.shape[:2]
+        q = q.reshape(b, S, hq, hd)
+        k = k.reshape(b, S, hkv, hd)
+        v = v.reshape(b, S, hkv, hd)
         if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm, cfg.rms_eps)
-            k = rms_norm(k, self.k_norm, cfg.rms_eps)
+            q = products.norm(q, self.q_norm, cfg.rms_eps)
+            k = products.norm(k, self.k_norm, cfg.rms_eps)
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
         if not cfg.encoder_only:
             q = apply_rope(q, cos, sin)
@@ -234,7 +269,7 @@ class Attention(nn.Module):
                       kv_len=cache_len + S)
         else:
             out = mha(q, k, v, causal=not cfg.encoder_only, q_offset=0)
-        return self.wo(out.reshape(b, S, hq * hd))
+        return products.rows(out.reshape(b, S, hq * hd), self.wo)
 
 
 # --------------------------------------------------------------------- #
@@ -316,8 +351,9 @@ class MLP(nn.Module):
         self.up = Dense(d, ff, **kw)
         self.down = Dense(ff, d, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, products: Products = WHOLE) -> torch.Tensor:
         f = act_fn(self.act)
         if self.gate is not None:
-            return self.down(f(self.gate(x)) * self.up(x))
-        return self.down(f(self.up(x)))
+            g, u = products.columns(x, (self.gate, self.up))
+            return products.rows(f(g) * u, self.down)
+        return products.rows(f(*products.columns(x, (self.up,))), self.down)

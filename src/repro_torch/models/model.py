@@ -78,6 +78,16 @@ def _branch(fn, x: torch.Tensor, remat: bool):
     return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
 
 
+def _whole(name: str, fn, h: torch.Tensor, w: torch.Tensor, eps: float):
+    """A block's branch ``fn`` applied to its input ``h`` normed by ``w``,
+    as it is: the default ``split`` of ``Block`` and ``_CoreBlock``. The
+    partitioned train step passes its own (``sharding/partition.py``),
+    which takes the branch's ``name`` ("attn", "ffn", "moe", "core") and
+    this rank's sequence shard ``h``, and may give ``fn`` its
+    tensor-parallel ``products`` by keyword."""
+    return fn(rms_norm(h, w, eps))
+
+
 class Block(nn.Module):
     """Pre-norm attention block (GQA or MLA): x + attn(ln1(x)), then
     x + ffn(ln2(x)) with a MoE FFN where the config has routed experts and
@@ -98,16 +108,19 @@ class Block(nn.Module):
             self.ln2 = _ones(cfg.d_model, device)
             self.ffn = MLP(cfg, **kw)
 
-    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False) -> BlockOut:
-        x = x + _branch(lambda h: self.attn(rms_norm(h, self.ln1, self.rms_eps), positions,
-                                            cache, cache_len), x, remat)
+    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False,
+                split=_whole) -> BlockOut:
+        x = x + _branch(lambda h: split(
+            "attn", lambda a, **kw: self.attn(a, positions, cache, cache_len, **kw),
+            h, self.ln1, self.rms_eps), x, remat)
         aux = 0.0
         if self.moe is not None:
-            y, aux = _branch(lambda h: self._moe(rms_norm(h, self.ln2, self.rms_eps), cache),
-                             x, remat)
+            y, aux = _branch(lambda h: split("moe", lambda a: self._moe(a, cache),
+                                             h, self.ln2, self.rms_eps), x, remat)
             x = x + y
         elif self.ffn is not None:
-            x = x + _branch(lambda h: self.ffn(rms_norm(h, self.ln2, self.rms_eps)), x, remat)
+            x = x + _branch(lambda h: split("ffn", lambda a, **kw: self.ffn(a, **kw),
+                                            h, self.ln2, self.rms_eps), x, remat)
         return x, aux
 
     def _moe(self, h: torch.Tensor, cache) -> BlockOut:
@@ -134,8 +147,10 @@ class _CoreBlock(nn.Module):
         self.ln = _ones(cfg.d_model, device)
         self.core = self.core_cls(cfg, generator=generator, device=device)
 
-    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False) -> BlockOut:
-        y = _branch(lambda h: self.core(rms_norm(h, self.ln, self.cfg.rms_eps), cache)[0], x, remat)
+    def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False,
+                split=_whole) -> BlockOut:
+        y = _branch(lambda h: split("core", lambda a: self.core(a, cache)[0],
+                                    h, self.ln, self.cfg.rms_eps), x, remat)
         return x + y, 0.0
 
 
@@ -263,6 +278,11 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
     every position for the audio / encoder-only configs, else next-token
     over the text positions (after any image prefix)."""
     logits, aux = forward(cfg, model, batch, remat=remat, remat_policy=remat_policy)
+    return cross_entropy(cfg, logits, batch) + aux
+
+
+def cross_entropy(cfg: ModelConfig, logits: torch.Tensor, batch: Dict) -> torch.Tensor:
+    """``loss_fn``'s cross-entropy of the whole logits (b, S, vocab)."""
     if cfg.frontend == "audio_stub" or cfg.encoder_only:
         lg32, labels = logits.float(), batch["labels"].long()
     else:
@@ -271,7 +291,7 @@ def loss_fn(cfg: ModelConfig, model: Model, batch: Dict, *, remat: bool = True,
     lg32 = shard_hint(lg32, "dp", None, "tp")
     lse = torch.logsumexp(lg32, dim=-1)
     tgt = torch.gather(lg32, -1, labels[..., None])[..., 0]
-    return (lse - tgt).mean() + aux
+    return (lse - tgt).mean()
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):

@@ -14,19 +14,14 @@ is the mean of the routing statistics over every rank of the mesh; the
 shared experts run outside the exchange.
 
 ``moe_apply_ep(moe, cfg, x)`` takes the port's ``MoE`` (plain, replicated
-parameters) and either
-  * a ``DTensor`` laid out by the contract (each rank's block is its
-    tokens), returning ``y`` alike, or
-  * a plain tensor holding this rank's dp share of the rows with the whole
-    sequence, identical on the ranks of its tp group (the train step's
-    layout, ``launch/train.py``): each rank takes its sequence chunk, and
-    ``y`` comes back whole on every rank of the group.
-Gradients: the router and expert weights' grads are summed over the tp
-group (each rank's grads then cover its tp group's tokens; the caller
-averages over dp, as the train step does for every parameter); the aux
-loss back-propagates 1/tp_n of its gradient on each rank, which is exact
-when each dp rank's objective adds the aux once and the objectives are
-averaged over dp.
+parameters) and a ``DTensor`` ``x`` laid out by the contract (each rank's
+block is its tokens), returning ``y`` alike. Its gradients: the router and
+expert weights' grads are summed over the tp group (each rank's grads then
+cover its tp group's tokens); the aux loss back-propagates 1/tp_n of its
+gradient on each rank. The partitioned train step
+(``sharding/partition.py``) calls ``moe_ep_local`` instead, on its own
+token block with its own expert slices, under its own gradient
+convention: each rank's share, summed over the ranks by the step.
 
 The exchange is ``all_to_all_single`` over the tp group's process group,
 differentiable (its backward is the inverse exchange). gloo has no
@@ -51,8 +46,9 @@ from repro_torch.sharding import hints as hints_mod
 from repro_torch.sharding.specs import P, placements
 
 # collectives of this module: all-to-all calls and the bytes each rank sent,
-# and the all-to-all and all-gather calls that went through host memory (a
-# gloo group given CUDA tensors)
+# and the collectives that went through host memory (a gloo group given CUDA
+# tensors): this module's all-to-alls and all-gathers, and the partitioned
+# train step's all-gathers and reduce-scatters (``sharding/partition.py``)
 EXCHANGE = {"calls": 0, "bytes": 0}
 HOST_STAGED = {"calls": 0, "bytes": 0}
 # this rank's routed assignments dropped by either capacity (at the sender's
@@ -68,8 +64,8 @@ def _dp_tuple(st) -> tuple:
 
 def ep_available(cfg: ModelConfig, x: torch.Tensor) -> bool:
     """The reference's guards on the global (b, s): a mesh with tp > 1, b
-    divisible by the dp ranks and s by tp. A plain tensor holds one dp
-    rank's rows, so its batch divides by construction."""
+    divisible by the dp ranks and s by tp. A plain tensor is taken as one
+    dp rank's rows (``moe_apply_ep`` itself takes a DTensor only)."""
     st = hints_mod._STATE
     if not (st.get("enabled") and st.get("tp") and st.get("mesh") is not None):
         return False
@@ -116,15 +112,6 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    n = dist.get_world_size(group)
-    x = x.contiguous()
-    src = x.cpu() if _staged(group, x) else x
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(x.device)
-
-
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -147,33 +134,6 @@ class _ToTpRegion(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.group), None
-
-
-class _Chunk(torch.autograd.Function):
-    """This rank's chunk of ``dim``; the backward gathers the chunks' grads."""
-
-    @staticmethod
-    def forward(ctx, x, group, rank, n, dim):
-        ctx.group, ctx.dim = group, dim
-        return x.chunk(n, dim=dim)[rank].contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_gather(g, ctx.group, ctx.dim), None, None, None, None
-
-
-class _Gather(torch.autograd.Function):
-    """The chunks of every rank along ``dim``; the backward keeps this
-    rank's chunk (the ranks' grads are identical)."""
-
-    @staticmethod
-    def forward(ctx, x, group, rank, n, dim):
-        ctx.rank, ctx.n, ctx.dim = rank, n, dim
-        return _all_gather(x, group, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.chunk(ctx.n, dim=ctx.dim)[ctx.rank].contiguous(), None, None, None, None
 
 
 class _MeshMean(torch.autograd.Function):
@@ -218,31 +178,34 @@ def _capacities(cfg: ModelConfig, t_loc: int, tp_n: int, e_loc: int) -> Tuple[in
     return cap_send, cap_own
 
 
-def _ep_block(moe: MoE, cfg: ModelConfig, x_blk: torch.Tensor, group, tp_rank: int, tp_n: int,
-              mesh_groups, t_loc: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's shard_map body on this rank's token block."""
-    e, k = cfg.n_routed_experts, cfg.top_k
+def _local_bank(w: torch.Tensor, tp_rank: int, tp_n: int) -> torch.Tensor:
+    """This rank's e_loc experts of a whole bank, zero-padded to a multiple of tp_n."""
+    e = w.shape[0]
     e_pad = (e + tp_n - 1) // tp_n * tp_n
     e_loc = e_pad // tp_n
+    w = nn.functional.pad(w, (0, 0) * (w.dim() - 1) + (0, e_pad - e))
+    return w[tp_rank * e_loc:(tp_rank + 1) * e_loc]
+
+
+def _ep_block(cfg: ModelConfig, x_blk: torch.Tensor, banks, router: torch.Tensor, group,
+              tp_n: int, mesh_groups, t_loc: int, aux_div: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's shard_map body on this rank's token block; ``banks``
+    this rank's (w_gate, w_up, w_down) experts, ``router`` the whole router;
+    the aux statistics' mean back-propagates 1/``aux_div`` of its gradient."""
+    e, k = cfg.n_routed_experts, cfg.top_k
+    e_loc = (e + tp_n - 1) // tp_n
     cap_send, cap_own = _capacities(cfg, t_loc, tp_n, e_loc)
     f = act_fn(cfg.act)
     b_l, s_l, d = x_blk.shape
     T = b_l * s_l
     xt = x_blk.reshape(T, d)
-
-    def local_experts(w):  # this rank's e_loc experts of the zero-padded bank
-        w = _ToTpRegion.apply(w, group)
-        w = nn.functional.pad(w, (0, 0) * (w.dim() - 1) + (0, e_pad - e))
-        return w[tp_rank * e_loc:(tp_rank + 1) * e_loc]
-
-    wg, wu, wd = (local_experts(w) for w in (moe.w_gate, moe.w_up, moe.w_down))
-    router = _ToTpRegion.apply(moe.router.w, group)
+    wg, wu, wd = banks
     gates, eidx, probs = top_k_gates(dense(xt, router).float(), k)  # real experts only
 
     # aux loss over the global batch
     f_e = nn.functional.one_hot(eidx[:, 0], e).float().mean(dim=0)
     p_e = probs.mean(dim=0)
-    f_e, p_e = _MeshMean.apply(torch.stack([f_e, p_e]), mesh_groups, tp_n).unbind(0)
+    f_e, p_e = _MeshMean.apply(torch.stack([f_e, p_e]), mesh_groups, aux_div).unbind(0)
     aux = e * torch.sum(f_e * p_e) * cfg.router_aux_coef
 
     flat_e = eidx.reshape(T * k)
@@ -287,11 +250,9 @@ def _ep_block(moe: MoE, cfg: ModelConfig, x_blk: torch.Tensor, group, tp_rank: i
     return y.reshape(b_l, s_l, d), aux
 
 
-def _shared(moe: MoE, cfg: ModelConfig, x: torch.Tensor, group=None) -> torch.Tensor:
-    sh, f = moe.shared, act_fn(cfg.act)
-    wts = [sh.gate.w, sh.up.w, sh.down.w]
-    if group is not None:
-        wts = [_ToTpRegion.apply(w, group) for w in wts]
+def _shared(cfg: ModelConfig, x: torch.Tensor, wts) -> torch.Tensor:
+    """The shared experts (gate, up, down weights) on x's tokens."""
+    f = act_fn(cfg.act)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     return dense(f(dense(xt, wts[0])) * dense(xt, wts[1]), wts[2]).reshape(b, s, d)
@@ -304,6 +265,8 @@ def moe_apply_ep(moe: MoE, cfg: ModelConfig, x: torch.Tensor
 
     if any(isinstance(p_, DTensor) for p_ in moe.parameters()):
         raise ValueError("moe_apply_ep takes a MoE with plain (replicated) parameters")
+    if not isinstance(x, DTensor):
+        raise TypeError("moe_apply_ep takes x as a DTensor laid out by the contract")
     st = hints_mod._STATE
     mesh, tp, sizes = st["mesh"], st["tp"], st["sizes"]
     tp_n = sizes[tp]
@@ -311,22 +274,35 @@ def moe_apply_ep(moe: MoE, cfg: ModelConfig, x: torch.Tensor
     tp_rank = mesh.get_local_rank(tp)
     mesh_groups = [mesh.get_group(a) for a in mesh.mesh_dim_names]
     dp = tuple(a for a in _dp_tuple(st) if a in sizes)
-    b, s, d = x.shape
+    router = _ToTpRegion.apply(moe.router.w, group)
+    banks = [_local_bank(_ToTpRegion.apply(w, group), tp_rank, tp_n)
+             for w in (moe.w_gate, moe.w_up, moe.w_down)]
+    shared = [] if moe.shared is None else [moe.shared.gate.w, moe.shared.up.w, moe.shared.down.w]
+    spec = P(dp if dp else None, tp, None)  # the contract's layout: this rank's block
+    layout = placements(spec, x.device_mesh)
+    x_blk = x.redistribute(x.device_mesh, layout).to_local()
+    t_loc = x_blk.shape[0] * x_blk.shape[1]
+    y, aux = _ep_block(cfg, x_blk, banks, router, group, tp_n, mesh_groups, t_loc, tp_n)
+    if shared:
+        y = y + _shared(cfg, x_blk, [_ToTpRegion.apply(w, group) for w in shared])
+    return DTensor.from_local(y, x.device_mesh, layout, run_check=False), aux
 
-    if isinstance(x, DTensor):  # the contract's layout: this rank's block
-        spec = P(dp if dp else None, tp, None)
-        layout = placements(spec, x.device_mesh)
-        x_blk = x.redistribute(x.device_mesh, layout).to_local()
-        t_loc = x_blk.shape[0] * x_blk.shape[1]
-        y, aux = _ep_block(moe, cfg, x_blk, group, tp_rank, tp_n, mesh_groups, t_loc)
-        if moe.shared is not None:
-            y = y + _shared(moe, cfg, x_blk, group)
-        return DTensor.from_local(y, x.device_mesh, layout, run_check=False), aux
 
-    # this dp rank's rows with the whole sequence, replicated over the tp group
-    x_blk = _Chunk.apply(x, group, tp_rank, tp_n, 1)
-    y, aux = _ep_block(moe, cfg, x_blk, group, tp_rank, tp_n, mesh_groups, b * (s // tp_n))
-    y = _Gather.apply(y, group, tp_rank, tp_n, 1)
-    if moe.shared is not None:
-        y = y + _shared(moe, cfg, x)
+def moe_ep_local(cfg: ModelConfig, x: torch.Tensor, w, group, tp_rank: int, tp_n: int,
+                 mesh_groups) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer inside the partitioned train step (``sharding/partition.py``):
+    ``x`` is this rank's token block (its dp rows, its sequence shard) and
+    ``w`` the layer's compute weights by name: each expert bank this rank's
+    experts where its placement splits them over the tp group, else whole
+    (padded and sliced here); the router and shared experts whole. The
+    gradients follow the step's convention (each rank's share, which the
+    step sums over the ranks), so nothing is summed here and the aux
+    statistics' mean back-propagates its whole gradient."""
+    e = cfg.n_routed_experts
+    banks = [w[k] if w[k].shape[0] != e else _local_bank(w[k], tp_rank, tp_n)
+             for k in ("w_gate", "w_up", "w_down")]
+    b, s, _ = x.shape
+    y, aux = _ep_block(cfg, x, banks, w["router.w"], group, tp_n, mesh_groups, b * s, 1)
+    if cfg.n_shared_experts:
+        y = y + _shared(cfg, x, [w[f"shared.{k}.w"] for k in ("gate", "up", "down")])
     return y, aux

@@ -1,0 +1,669 @@
+"""Partitioned compute of the mesh train step (``launch/steps.py``
+``make_sharded_train_step``): the port's counterpart of GSPMD partitioning
+the reference's jitted step by its ``in_shardings``.
+
+The state keeps ``state_specs``' placements at rest. A rank computes on
+explicit local tensors with explicit collectives:
+
+- **FSDP per unit** (ZeRO-3 over the dp mesh dims, HSDP over "pod"): the
+  leaves of a unit (``n_units(cfg)`` groups of ``len(block_pattern)``
+  blocks; the prefix blocks, ``embed``, ``final_norm``, ``lm_head`` and
+  ``frontend_proj`` form one root group) are all-gathered along the dims
+  their placements shard, one coalesced all-gather per mesh dim, just
+  before the unit's forward, and freed after it; the remat recompute
+  gathers them again (without a unit checkpoint, under ``--no-remat`` or
+  ``save_block_outputs``, autograd keeps them for the backward). When the
+  unit's backward ends, its grads are
+  reduce-scattered back to each rank's slices (all-reduced over the mesh
+  dims that replicate a leaf), in f32, one buffer per mesh dim: no buffer
+  holds more than one unit's grads.
+- **Tensor parallelism over "model"**, Megatron style with sequence
+  parallelism: the residual stream holds this rank's sequence shard (the
+  batch's layout, ``batch_specs``). Before a TP'd branch the normed
+  sequence is all-gathered; column weights (``wq``, ``wk``, ``wv``,
+  ``gate``, ``up``) keep their output-feature split and row weights
+  (``wo``, ``down``) their input-feature split, and the row product's
+  partial sums are reduce-scattered along the sequence into the residual.
+  Attention runs on this rank's heads; where ``wk``/``wv`` split a kv head
+  (fewer kv heads than ranks) the whole columns are gathered and this rank
+  takes the kv heads its q heads read. The model's own ``Block.forward``
+  and ``Attention``/``MLP`` run the branches: the step passes them a
+  ``split`` and its ``layers.Products``.
+- **Rounded as the unmeshed step rounds.** A sum that the split spreads
+  over the ranks is reduced in f32 and rounded to bf16 once, where the
+  unmeshed step rounds it once: the row product's partial sums, each
+  column product's input grad (each product's reduce-scattered and
+  rounded, then added in autograd's order) and each norm weight's grad.
+  A rank's bf16 values then differ from the unmeshed step's only where
+  two orders of the same f32 sum round to different bf16 values, and the
+  dp dims add the dp mean's own rounding, as before tensor parallelism.
+- **The vocabulary over "model"**: the embedding is looked up per vocab
+  shard (masked) and reduce-scattered into the residual; the logits stay
+  vocab-sharded and the loss's logsumexp and target logit are summed over
+  the shards, so the whole logits are never made.
+- Where a module has no TP here (``n_heads`` that does not divide, MLA,
+  Mamba-2, mLSTM/sLSTM, a non-EP MoE, the frontends, a vocabulary that
+  does not divide) its leaves are gathered whole over "model" too, and it
+  computes the whole gathered sequence and keeps this rank's shard (a
+  per-token frontend or head computes its shard alone). The
+  expert-parallel MoE (``ep_shardmap``) takes this rank's tokens as they
+  are, with this rank's experts.
+
+Gradient convention: every rank back-propagates its own copy of its dp
+group's loss, and each collective's backward is its transpose
+(all-gather <-> reduce-scatter, all-reduce -> all-reduce). Each rank's
+gradient of a leaf is then its share of ``world`` times the gradient of
+the mean loss over the dp groups; the per-unit reduction sums the shares
+and divides by the world size in f32. Where no mesh dim has more than one
+rank there is no collective and nothing is divided: the step is the
+unmeshed one op for op.
+
+A group of ranks sharing a card over gloo exchanges CUDA buffers through
+host memory for the all-gathers and reduce-scatters
+(``moe_ep.HOST_STAGED`` counts them with the expert-parallel layer's).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import DTYPE, dense, gelu, normed, rms_norm
+from repro_torch.models.model import Block, cross_entropy, n_units
+from repro_torch.models.moe_ep import _staged, moe_ep_local
+from repro_torch.sharding import hints as hints_mod
+
+_AG = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_RS = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+# ------------------------------------------------------------------ #
+# collectives on flat buffers (a gloo group's CUDA buffers through host
+# memory, counted in ``moe_ep.HOST_STAGED``)
+# ------------------------------------------------------------------ #
+def _host(x: torch.Tensor, group) -> torch.Tensor:
+    return x.cpu() if _staged(group, x) else x
+
+
+def _gather_flat(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' flat ``x`` side by side, rank order."""
+    src = _host(x.contiguous(), group)
+    out = src.new_empty(n * src.numel())
+    _AG(out, src, group=group)
+    return out.to(x.device)
+
+
+def _scatter_flat(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This rank's 1/n chunk of the sum of the ranks' flat ``x``."""
+    src = _host(x.contiguous(), group)
+    out = src.new_empty(src.numel() // n)
+    _RS(out, src, group=group)
+    return out.to(x.device)
+
+
+def _sum_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """All-reduce in place (gloo reduces CUDA tensors itself)."""
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    m = x.movedim(dim, 0)
+    return _gather_flat(m.reshape(-1), group, n).view(n * m.shape[0], *m.shape[1:]).movedim(0, dim)
+
+
+def _scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    m = x.movedim(dim, 0)
+    return _scatter_flat(m.reshape(-1), group, n).view(m.shape[0] // n, *m.shape[1:]).movedim(0, dim)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim``; the backward reduce-scatters the ranks'
+    partial grads in f32 and rounds their sum once."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = dim, group, n
+        return _gather_dim(x, dim, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.args
+        return _scatter_dim(g.float(), dim, group, n).to(g.dtype).contiguous(), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` in ``x``'s dtype, rounded to ``dtype``
+    after; the backward all-gathers in ``dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, dtype):
+        ctx.args = dim, group, n, x.dtype
+        return _scatter_dim(x, dim, group, n).to(dtype).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, dtype = ctx.args
+        return _gather_dim(g, dim, group, n).to(dtype).contiguous(), None, None, None, None
+
+
+def _mm_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight grad of ``x @ w`` as autograd computes it (one mm of the
+    folded rows)."""
+    return x.reshape(-1, x.shape[-1]).t().mm(g.reshape(-1, g.shape[-1]))
+
+
+class _Columns(torch.autograd.Function):
+    """(this rank's sequence shard ``x``, group, n, w0, b0, w1, b1, ...) ->
+    ``dense(x_whole, w_i, b_i)`` for each column-split weight, on the whole
+    gathered sequence. The backward gives each weight its grad as the
+    unmeshed step does, and the input its grad rounded as the unmeshed
+    step rounds it: each product's input grad is this rank's partial sum
+    in f32, reduce-scattered in f32 (one product after another: one f32
+    partial lives at a time) and rounded once, as one bf16 dot over all
+    the features rounds it, and the products' grads are added in the order
+    autograd adds them."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, *wb):
+        xw = _gather_dim(x, 1, group, n)
+        ws, bs = wb[0::2], wb[1::2]
+        ctx.args = group, n, x.dtype, [b is not None for b in bs]
+        ctx.save_for_backward(xw, *ws)
+        return tuple(dense(xw, w, b) for w, b in zip(ws, bs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, n, dtype, biased = ctx.args
+        xw, *ws = ctx.saved_tensors
+        b, s, _ = xw.shape
+        shards = []
+        for g, w in zip(gs, ws):  # the partial sequence-major: each rank's chunk contiguous
+            part = g.transpose(0, 1).float() @ w.float().t()
+            out = _scatter_flat(part.reshape(-1), group, n)
+            shards.append(out.view(s // n, b, -1).transpose(0, 1).to(dtype))
+        gx = shards[-1]
+        for t in reversed(shards[:-1]):  # the last product's grad arrives first
+            gx = gx + t
+        grads = []
+        for g, w, has_b in zip(gs, ws, biased):
+            grads += [_mm_grads(xw.to(w.dtype), w, g.to(w.dtype)),
+                      g.sum((0, 1)) if has_b else None]
+        return (gx.contiguous(), None, None, *grads)
+
+
+class _RowPartial(torch.autograd.Function):
+    """``y @ w`` with its f32 sums kept (a row-split weight: this rank's
+    partial sums, reduced across the ranks before their one rounding); the
+    backward computes both grads as autograd computes those of the bf16
+    product. Its own function, apart from the reduction, so that a unit's
+    recompute stops at it (it saves its inputs) before the collective."""
+
+    @staticmethod
+    def forward(ctx, y, w):  # sequence-major (s, b, d): each rank's chunk contiguous
+        ctx.save_for_backward(y, w)
+        return y.transpose(0, 1).float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g = g.transpose(0, 1).to(w.dtype)
+        gy = g.reshape(-1, g.shape[-1]).mm(w.t()).view(*y.shape[:-1], w.shape[0])
+        return gy.to(y.dtype), _mm_grads(y.to(w.dtype), w, g)
+
+
+class _Scale(torch.autograd.Function):
+    """``x * w`` of a norm weight ``w`` that each rank of a group holds
+    whole, applied to this rank's tokens or heads. The backward sums the
+    weight's grad (the products of ``g`` and ``x`` rounded as autograd
+    rounds them) over the ranks in f32 and rounds it once, as the unmeshed
+    step's one sum over every token and head does: each rank gets the
+    group's sum, which the step's grad reduction then sums over the other
+    mesh dims only (``Partition.summed``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.group = group
+        ctx.save_for_backward(x, w)
+        return x * w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        part = (g * x).float().sum(dim=tuple(range(g.dim() - 1)))
+        return g * w, _sum_(part, ctx.group).to(w.dtype), None
+
+
+class _TensorParallel:
+    """``layers.Products`` over the tp group: the columns gather this
+    rank's sequence shard and compute its heads / features; the row product
+    reduce-scatters its partial sums into this rank's shard."""
+
+    def __init__(self, group, n: int) -> None:
+        self.group, self.n = group, n
+
+    def norm(self, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+        return _Scale.apply(normed(x, eps), w, self.group)
+
+    def columns(self, x: torch.Tensor, mods) -> list:
+        wb = [t for m in mods for t in (m.w, m.b)]
+        return list(_Columns.apply(x, self.group, self.n, *wb))
+
+    def rows(self, y: torch.Tensor, mod) -> torch.Tensor:
+        if mod.b is not None:
+            raise ValueError("a row-split weight with a bias")
+        return _ScatterSeq.apply(_RowPartial.apply(y, mod.w), 0, self.group, self.n,
+                                 torch.promote_types(y.dtype, mod.w.dtype)).transpose(0, 1)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce sum (in f32); the backward all-reduces too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_(x.float().clone(), group).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g.float().clone(), ctx.group).to(g.dtype), None
+
+
+# ------------------------------------------------------------------ #
+# per-unit gathers
+# ------------------------------------------------------------------ #
+@dataclass(frozen=True)
+class Leaf:
+    """How one parameter enters the compute: ``gather`` the (mesh dim,
+    tensor dim) pairs it is all-gathered along (its grad reduce-scattered
+    back), ``reduce`` the mesh dims whose ranks hold it whole (its grad
+    all-reduced over them), ``cols`` the columns of the gathered tensor
+    this rank computes with (kv heads; None: all)."""
+
+    name: str
+    gather: Tuple[Tuple[int, int], ...]
+    reduce: Tuple[int, ...]
+    cols: Optional[Tuple[int, int]] = None
+
+
+@dataclass(frozen=True)
+class Group:
+    """A unit's (or the root's) leaves and the mesh's groups and sizes."""
+
+    leaves: Tuple[Leaf, ...]
+    pgs: Tuple
+    sizes: Tuple[int, ...]
+    scale: float  # the grads' divisor: the world size
+
+    @property
+    def collective(self) -> bool:
+        """More than one rank (else a group's compute tensors are its slices)."""
+        return self.scale > 1
+
+
+class _GroupGather(torch.autograd.Function):
+    """(group, *local slices) -> the group's compute tensors. Forward: one
+    all-gather per mesh dim of the leaves it shards, minor dims first
+    (DTensor splits a dim over several mesh dims major to minor); backward:
+    per mesh dim in order one reduce-scatter of those leaves' grads and one
+    all-reduce of the leaves it replicates, in f32, then the divisor."""
+
+    @staticmethod
+    def forward(ctx, group: Group, *shards):
+        outs = list(shards)
+        for i in reversed(range(len(group.sizes))):
+            todo = [(k, d) for k, leaf in enumerate(group.leaves) for (mi, d) in leaf.gather
+                    if mi == i]
+            for dtype in dict.fromkeys(outs[k].dtype for k, _ in todo):  # a fixed order
+                part = [(k, d) for k, d in todo if outs[k].dtype == dtype]
+                moved = [outs[k].movedim(d, 0) for k, d in part]
+                n = group.sizes[i]
+                full = _gather_flat(torch.cat([m.reshape(-1) for m in moved]), group.pgs[i],
+                                    n).view(n, -1)
+                off = 0
+                for (k, d), m in zip(part, moved):
+                    block = full[:, off:off + m.numel()]
+                    off += m.numel()
+                    outs[k] = block.reshape(n * m.shape[0], *m.shape[1:]).movedim(0, d).contiguous()
+        ctx.group = group
+        ctx.meta = [(o.shape, o.dtype, o.device) for o in outs]
+        return tuple(o.view_as(o) if o is s else o for o, s in zip(outs, shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        group = ctx.group
+        g = [gr.float() if gr is not None else torch.zeros(sh, dtype=torch.float32, device=dev)
+             for gr, (sh, _, dev) in zip(grads, ctx.meta)]
+        for i, n in enumerate(group.sizes):
+            todo = [(k, d) for k, leaf in enumerate(group.leaves) for (mi, d) in leaf.gather
+                    if mi == i]
+            if todo:  # each leaf's rank chunks side by side: (n, sum of chunk sizes)
+                moved = [g[k].movedim(d, 0) for k, d in todo]
+                flat = torch.cat([m.reshape(n, -1) for m in moved], dim=1)
+                out = _scatter_flat(flat.reshape(-1), group.pgs[i], n)
+                off = 0
+                for (k, d), m in zip(todo, moved):
+                    size = m.numel() // n
+                    g[k] = out[off:off + size].view(m.shape[0] // n, *m.shape[1:]).movedim(0, d)
+                    off += size
+            rest = [k for k, leaf in enumerate(group.leaves) if i in leaf.reduce]
+            if rest:
+                flat = _sum_(torch.cat([g[k].reshape(-1) for k in rest]), group.pgs[i])
+                off = 0
+                for k in rest:
+                    size = g[k].numel()
+                    g[k] = flat[off:off + size].view(g[k].shape)
+                    off += size
+        return (None, *((x / group.scale if group.scale != 1 else x).to(dt).contiguous()
+                        for x, (_, dt, _) in zip(g, ctx.meta)))
+
+
+def gather_group(group: Group, shards: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{name: local slice} -> {name: compute tensor} for one group."""
+    if not group.collective:
+        outs = [shards[leaf.name] for leaf in group.leaves]
+    else:
+        outs = _GroupGather.apply(group, *(shards[leaf.name] for leaf in group.leaves))
+    res = {}
+    for leaf, t in zip(group.leaves, outs):
+        if leaf.cols is not None:
+            t = t.narrow(-1, leaf.cols[0], leaf.cols[1] - leaf.cols[0])
+        res[leaf.name] = t
+    return res
+
+
+# ------------------------------------------------------------------ #
+# the plan of a step
+# ------------------------------------------------------------------ #
+def _sub(weights: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    n = len(prefix)
+    return {k[n:]: v for k, v in weights.items() if k.startswith(prefix)}
+
+
+class Partition:
+    """The partitioned compute of one model on one mesh, made from the
+    parameters' placements (``state_specs``) and the rules' tp axis:
+    which branches are TP'd, each leaf's gathers and reductions, the
+    groups. ``loss(model, shards, batch)`` is this rank's loss of its dp
+    group's rows (the same on the ranks of its tp group), computed from
+    its parameter slices ``shards`` and its block of the batch."""
+
+    def __init__(self, cfg: ModelConfig, model, mesh, rules) -> None:
+        from torch.distributed.tensor import Shard
+
+        self.cfg = cfg
+        names = tuple(mesh.mesh_dim_names)
+        self.sizes = tuple(mesh.size(i) for i in range(mesh.ndim))
+        self.pgs = tuple(mesh.get_group(i) if n > 1 else None for i, n in enumerate(self.sizes))
+        self.world = math.prod(self.sizes)
+        tp_dim = None
+        if not rules.fsdp_only and rules.tp_axis in names:
+            tp_dim = names.index(rules.tp_axis)
+        if tp_dim is not None and self.sizes[tp_dim] == 1:
+            tp_dim = None
+        self.tp_dim = tp_dim
+        self.tp = self.sizes[tp_dim] if tp_dim is not None else 1
+        self.tp_rank = mesh.get_coordinate()[tp_dim] if tp_dim is not None else 0
+        self.tp_pg = self.pgs[tp_dim] if tp_dim is not None else None
+        self.products = _TensorParallel(self.tp_pg, self.tp)
+        self.mesh_pgs = [pg for pg in self.pgs if pg is not None]
+        self.ep = bool(self.tp > 1 and hints_mod._STATE.get("ep_shardmap"))
+
+        params = dict(model.named_parameters())
+        place = {k: tuple(p.placements) for k, p in params.items()}
+
+        def on_tp(name: str, dim: int) -> bool:  # split along ``dim`` over the tp dim at rest
+            pl = place[name][tp_dim] if tp_dim is not None else None
+            return isinstance(pl, Shard) and pl.dim == dim % params[name].dim()
+
+        # the modes: "local" (tp == 1), "tp", "ep", "vocab", "whole"
+        self.modes: Dict[str, str] = {}
+        keep: set = set()  # leaves whose tp split the compute keeps
+        cols: Dict[str, Tuple[int, int]] = {}
+        blocks = [(f"prefix.{j}", b) for j, b in enumerate(model.prefix)]
+        blocks += [(f"blocks.{j}", b) for j, b in enumerate(model.blocks)]
+        for pre, blk in blocks:
+            for part in ("attn", "ffn", "moe", "core"):
+                if getattr(blk, part, None) is not None:
+                    self.modes[f"{pre}.{part}"] = "local" if self.tp == 1 else "whole"
+            if self.tp == 1 or not isinstance(blk, Block):
+                continue
+            if not cfg.use_mla and cfg.n_heads % self.tp == 0 and on_tp(f"{pre}.attn.wq.w", -1) \
+                    and on_tp(f"{pre}.attn.wo.w", 0):
+                self.modes[f"{pre}.attn"] = "tp"
+                keep.update(k for k in params if k.startswith(f"{pre}.attn.w")
+                            and not k.startswith((f"{pre}.attn.wk", f"{pre}.attn.wv")))
+                hd, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+                hq = cfg.n_heads // self.tp
+                kv = [q // g for q in range(self.tp_rank * hq, (self.tp_rank + 1) * hq)]
+                if cfg.n_kv_heads % self.tp == 0:  # each rank's kv columns are its heads'
+                    keep.update(k for k in params if k.startswith((f"{pre}.attn.wk",
+                                                                     f"{pre}.attn.wv")))
+                else:  # the kv heads this rank's q heads read, from the whole columns
+                    if len({kv.count(h) for h in kv}) > 1:
+                        raise ValueError(f"{cfg.name}: a rank's {hq} q heads do not group "
+                                         f"evenly over kv heads {sorted(set(kv))}")
+                    for k in params:
+                        if k.startswith((f"{pre}.attn.wk", f"{pre}.attn.wv")):
+                            cols[k] = (kv[0] * hd, (kv[-1] + 1) * hd)
+            if blk.ffn is not None and all(on_tp(f"{pre}.ffn.{w}.w", -1)
+                                           for w in ("gate", "up") if getattr(blk.ffn, w)) \
+                    and on_tp(f"{pre}.ffn.down.w", 0):
+                self.modes[f"{pre}.ffn"] = "tp"
+                keep.update(k for k in params if k.startswith(f"{pre}.ffn."))
+            if blk.moe is not None and self.ep:
+                self.modes[f"{pre}.moe"] = "ep"
+                keep.update(f"{pre}.moe.{w}" for w in ("w_gate", "w_up", "w_down")
+                            if on_tp(f"{pre}.moe.{w}", 0))
+        embed = "embed" in params
+        self.modes["embed"] = "local" if self.tp == 1 else (
+            "vocab" if embed and on_tp("embed", 0) else "whole")
+        head = "embed" if cfg.tie_embeddings else "lm_head.w"
+        self.modes["head"] = "local" if self.tp == 1 else (
+            "vocab" if on_tp(head, 0 if cfg.tie_embeddings else -1) else "whole")
+        for name, mode in (("embed", self.modes["embed"]), (head, self.modes["head"])):
+            if mode == "vocab" and name in params:
+                keep.add(name)
+        # the norm weights whose grads ``_Scale`` sums over the tp group itself
+        self.summed = set()
+        if self.tp > 1:
+            self.summed = {k for k in params if k.rsplit(".", 1)[-1] in ("ln", "ln1", "ln2")
+                           or k == "final_norm"}
+            self.summed.update(k for k in params if k.endswith((".attn.q_norm", ".attn.k_norm"))
+                               and self.modes[k.rsplit(".", 2)[0] + ".attn"] == "tp")
+
+        def leaf(name: str) -> Leaf:
+            gather, reduce = [], []
+            for i, pl in enumerate(place[name]):
+                if self.sizes[i] == 1:
+                    continue
+                if isinstance(pl, Shard):
+                    if i == tp_dim and name in self.summed:
+                        raise ValueError(f"{name}: a norm weight split over the tp axis")
+                    if not (i == tp_dim and name in keep):
+                        gather.append((i, pl.dim))
+                elif not (i == tp_dim and name in self.summed):
+                    reduce.append(i)
+            return Leaf(name, tuple(gather), tuple(reduce), cols.get(name))
+
+        scale = float(self.world)
+        P = len(cfg.block_pattern)
+
+        def group(names) -> Group:
+            return Group(tuple(leaf(k) for k in names), self.pgs, self.sizes, scale)
+
+        self.root = group([k for k in params if not k.startswith("blocks.")])
+        self.units = [group([k for k in params if k.startswith("blocks.")
+                             and i * P <= int(k.split(".")[1]) < (i + 1) * P])
+                      for i in range(n_units(cfg))]
+
+    # -------------------------------------------------------------- #
+    def local_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """This rank's block of each batch DTensor: its dp group's rows and,
+        where tp > 1, its tp rank's sequence shard (dim 1)."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        out = {}
+        for k, v in batch.items():
+            want = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                    for pl in v.placements]
+            if self.tp_dim is not None:
+                want[self.tp_dim] = Shard(1)
+            out[k] = (v if tuple(want) == tuple(v.placements)
+                      else v.redistribute(v.device_mesh, want)).to_local()
+        return out
+
+    def _gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return _GatherSeq.apply(x, dim, self.tp_pg, self.tp)
+
+
+    def _shard(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.shape[1] // self.tp
+        return x.narrow(1, self.tp_rank * s, s)
+
+    def _ids(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence of this rank's rows of a batch tensor (an
+        input: no autograd)."""
+        return _gather_dim(x, 1, self.tp_pg, self.tp) if self.tp > 1 else x
+
+    def split(self, pre: str, w: Dict[str, torch.Tensor]):
+        """The ``split`` of block ``pre`` (``models.model.Block``): each
+        branch ``fn`` applied to this rank's sequence shard ``h`` of its
+        normed input by the branch's mode; returns this rank's shard of the
+        branch's output. ``w`` the block's group's compute weights."""
+
+        def run(name: str, fn, h: torch.Tensor, ln: torch.Tensor, eps: float):
+            mode = self.modes[f"{pre}.{name}"]
+            if mode == "local":
+                return fn(rms_norm(h, ln, eps))
+            h = self.products.norm(h, ln, eps)
+            if mode == "tp":  # this rank's heads / features, partial sums reduced
+                return fn(h, products=self.products)
+            if mode == "ep":  # this rank's tokens, with this rank's experts
+                return moe_ep_local(self.cfg, h, _sub(w, f"{pre}.moe."), self.tp_pg,
+                                    self.tp_rank, self.tp, self.mesh_pgs)
+            out = fn(self._gather_seq(h))  # whole; this rank's shard kept
+            if name == "moe":
+                return self._shard(out[0]), out[1]
+            return self._shard(out)
+
+        return run
+
+    # -------------------------------------------------------------- #
+    def embed(self, w, batch) -> Tuple[torch.Tensor, int]:
+        """(this rank's sequence shard of the embedded inputs, text start):
+        ``models.model.embed_inputs`` partitioned."""
+        cfg, mode = self.cfg, self.modes["embed"]
+        if cfg.frontend == "audio_stub":  # per token: this rank's frames alone
+            return dense(batch["frames"].to(DTYPE), w["frontend_proj.w"]), 0
+        vision = cfg.frontend == "vision_stub" and "patch_embeds" in batch
+        if mode == "local":
+            tok = w["embed"][batch["tokens"]]
+        elif mode == "vocab":  # this rank's vocab rows: partial sums over the tp group
+            ids = self._ids(batch["tokens"]) - self.tp_rank * w["embed"].shape[0]
+            inside = (ids >= 0) & (ids < w["embed"].shape[0])
+            tok = torch.where(inside[..., None], w["embed"][ids.clamp(0, w["embed"].shape[0] - 1)],
+                              0.0)
+            if not vision:
+                # one rank's term is nonzero at each element: exact in bf16
+                return _ScatterSeq.apply(tok, 1, self.tp_pg, self.tp, tok.dtype), 0
+            tok = _Sum.apply(tok, self.tp_pg)
+        else:
+            tok = w["embed"][self._ids(batch["tokens"]) if vision else batch["tokens"]]
+        if not vision:
+            return tok, 0
+        p = batch["patch_embeds"]
+        p = self._ids(p) if mode != "local" else p
+        img = dense(gelu(dense(p.to(DTYPE), w["frontend_proj.l1.w"])), w["frontend_proj.l2.w"])
+        x = torch.cat([img, tok], dim=1)
+        return (x if mode == "local" else self._shard(x)), img.shape[1]
+
+    def ce(self, w, x, x0: int, batch) -> torch.Tensor:
+        """The cross-entropy of ``models.model.loss_fn`` from this rank's
+        sequence shard of the final residual; the same on every rank of its
+        tp group."""
+        cfg, mode = self.cfg, self.modes["head"]
+        h = (rms_norm if mode == "local" else self.products.norm)(x, w["final_norm"], cfg.rms_eps)
+        head = (lambda a: a @ w["embed"].T) if cfg.tie_embeddings else (
+            lambda a: dense(a, w["lm_head.w"]))
+        per_position = cfg.frontend == "audio_stub" or cfg.encoder_only
+        if mode == "local":
+            return cross_entropy(cfg, head(h), batch)
+        if per_position:
+            labels = self._ids(batch["labels"]).long()
+        else:
+            labels = self._ids(batch["tokens"])[:, 1:].long()
+        if mode == "vocab":  # every position, this rank's vocab shard
+            w_head = w["embed"].T if cfg.tie_embeddings else w["lm_head.w"]
+            lg = _Columns.apply(h, self.tp_pg, self.tp, w_head, None)[0]
+            return self._vocab_ce((lg if per_position else lg[:, x0:-1]).float(), labels)
+        # the whole vocabulary at this rank's positions
+        lg = head(h).float()
+        s = h.shape[1]
+        pos = torch.arange(self.tp_rank * s, (self.tp_rank + 1) * s, device=h.device)
+        if per_position:
+            lab, valid = labels[:, pos], pos >= 0
+        else:  # position p predicts text token p - x0 + 1
+            lab = labels[:, (pos - x0).clamp(0, labels.shape[1] - 1)]
+            valid = (pos >= x0) & (pos < s * self.tp - 1)
+        lse = torch.logsumexp(lg, dim=-1)
+        tgt = torch.gather(lg, -1, lab[..., None])[..., 0]
+        return _Sum.apply(torch.where(valid, lse - tgt, 0.0).sum(), self.tp_pg) / labels.numel()
+
+    def _vocab_ce(self, lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy of vocab-sharded f32 logits (b, n, V / tp)."""
+        v = lg.shape[-1]
+        with torch.no_grad():  # the max cancels out of the gradient
+            m = _sum_(lg.amax(dim=-1), self.tp_pg, dist.ReduceOp.MAX)
+        se = _Sum.apply(torch.exp(lg - m[..., None]).sum(dim=-1), self.tp_pg)
+        ids = labels - self.tp_rank * v
+        inside = (ids >= 0) & (ids < v)
+        tgt = torch.gather(lg, -1, ids.clamp(0, v - 1)[..., None])[..., 0]
+        tgt = _Sum.apply(torch.where(inside, tgt, 0.0), self.tp_pg)
+        return (m + torch.log(se) - tgt).mean()
+
+    def _block(self, blk, pre: str, w, x, positions, remat: bool):
+        """Block ``pre``'s own ``forward`` on this rank's sequence shard, with
+        its group's compute weights and its split."""
+        return functional_call(blk, _sub(w, pre + "."), (x, positions),
+                               {"remat": remat, "split": self.split(pre, w)})
+
+    # -------------------------------------------------------------- #
+    def loss(self, model, shards: Dict[str, torch.Tensor], batch: Dict, *, remat: bool = True,
+             remat_policy: str = "full") -> torch.Tensor:
+        """``models.model.loss_fn`` partitioned: ``shards`` {name: this
+        rank's slice} (leaves that require grad), ``batch`` this rank's
+        block (``local_batch``)."""
+        cfg = self.cfg
+        root = gather_group(self.root, shards)
+        x, x0 = self.embed(root, batch)
+        positions = torch.arange(x.shape[1] * self.tp, device=x.device)
+        aux = 0.0
+        for j, blk in enumerate(model.prefix):  # no remat, as in the reference
+            x, a = self._block(blk, f"prefix.{j}", root, x, positions, False)
+            aux = aux + a
+        remat = remat and torch.is_grad_enabled()
+        per_branch = remat and remat_policy == "save_block_outputs"
+        P = len(cfg.block_pattern)
+
+        def unit_fn(x: torch.Tensor, aux, i: int):
+            w = gather_group(self.units[i], shards)
+            for j in range(i * P, (i + 1) * P):
+                x, a = self._block(model.blocks[j], f"blocks.{j}", w, x, positions, per_branch)
+                aux = aux + a
+            return x, aux
+
+        for i in range(n_units(cfg)):
+            if remat and not per_branch:
+                x, aux = checkpoint(unit_fn, x, aux, i, use_reentrant=False)
+            else:
+                x, aux = unit_fn(x, aux, i)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        return self.ce(root, x, x0, batch) + aux

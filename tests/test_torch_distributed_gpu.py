@@ -16,6 +16,13 @@ neither JAX nor the JAX package, so it runs where JAX is not installed:
   on the whole x, at tests/test_moe_ep.py's tolerances: y rtol = atol =
   2e-4, aux rtol 1e-5, grads rtol = atol = 2e-3. gloo exchanges CUDA
   buffers through host memory (``moe_ep.HOST_STAGED``).
+* The partitioned step's tensor-parallel attention on 2 gloo ranks sharing
+  cuda:0 (mesh (1, 2)): qwen3-0.6b's attention layer at full width (16/8
+  heads of 128, d 1024) in f32, each rank its 8 q and 4 kv heads through
+  the flash kernel over the gathered sequence (1 x 512), its sequence
+  shard of the output, of the input's grad and its shares of the weights'
+  grads against the unsharded layer on the CPU (plain attention), within
+  tests/test_kernels.py's f32 flash bound (2e-4 of the largest entry).
 """
 
 import dataclasses
@@ -28,6 +35,7 @@ import torch.multiprocessing as mp
 ARGS = ["--device", "cuda", "--arch", "qwen3-0.6b_smoke", "--steps", "4", "--batch", "2",
         "--seq", "128", "--warmup", "1", "--deterministic", "--log-every", "1"]
 Y_TOL, AUX_RTOL, GRAD_TOL = 2e-4, 1e-5, 2e-3
+TP_TOL = 2e-4
 
 
 @pytest.fixture
@@ -115,3 +123,73 @@ def test_ep_on_4_ranks_sharing_the_card(card, tmp_path):
         assert r["staged"]["calls"] > 0  # gloo: the exchanges went through host memory
         # neither path dropped an assignment: the layer's count, the plain MoE's load
         assert r["dropped"][0] == 0 and r["dropped"][1] <= 0
+
+
+def _tp_worker(rank, world, init, out):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    torch.cuda.set_device(0)
+    from torch.func import functional_call
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe_ep
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.place import local_index
+    from repro_torch.sharding.specs import ShardingRules
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=1)
+    mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+    rules = ShardingRules()
+    whole = Model(cfg, generator=torch.Generator().manual_seed(0), device="cpu").float()
+    gen = torch.Generator().manual_seed(1)
+    h = torch.randn((1, 512, cfg.d_model), generator=gen).requires_grad_(True)
+    c = torch.randn((1, 512, cfg.d_model), generator=gen)
+    pos = torch.arange(512)
+    blk = whole.blocks[0]  # the CPU, kernels off: the plain attention
+    y = blk.attn(rms_norm(h, blk.ln1, cfg.rms_eps), pos)
+    (y * c).sum().backward()
+    model = Model(cfg, generator=torch.Generator().manual_seed(0), device="cpu").float().cuda()
+    state = steps.distribute_state({"model": model, "opt": {"step": 0}}, cfg, mesh, rules)
+    part = partition.Partition(cfg, state["model"], mesh, rules)
+    shards = {k: p.to_local().detach().requires_grad_(True)
+              for k, p in state["model"].named_parameters()}
+    w = partition.gather_group(part.units[0], shards)
+    sub = {k[len("blocks.0.attn."):]: v for k, v in w.items() if k.startswith("blocks.0.attn.")}
+    attn = state["model"].blocks[0].attn
+    h_loc = part._shard(h.detach()).cuda().requires_grad_(True)
+    kernels.enable_kernels(True)
+    launches = flash_attention_cuda.launches
+    y_loc = part.split("blocks.0", w)(
+        "attn", lambda a, **kw: functional_call(attn, sub, (a, pos.cuda()), kw), h_loc,
+        w["blocks.0.ln1"], cfg.rms_eps)
+    (y_loc * part._shard(c).cuda()).sum().backward()
+    torch.cuda.synchronize()
+    params = dict(state["model"].named_parameters())
+    grads = {k: (shards[k].grad.cpu() * world,
+                 p.grad[local_index(params[k].shape, mesh, params[k].placements)])
+             for k, p in whole.named_parameters()
+             if k.startswith("blocks.0.attn.") or k == "blocks.0.ln1"}
+    torch.save({"mode": part.modes["blocks.0.attn"], "launches": flash_attention_cuda.launches - launches,
+                "heads": (sub["wq.w"].shape[1] // cfg.head_dim, sub["wk.w"].shape[1] // cfg.head_dim),
+                "y": (y_loc.detach().cpu(), part._shard(y).detach()),
+                "dx": (h_loc.grad.cpu(), part._shard(h.grad)), "grads": grads,
+                "staged": dict(moe_ep.HOST_STAGED)}, f"{out}/tp{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_tp_attention_on_2_ranks_sharing_the_card(card, tmp_path):
+    mp.spawn(_tp_worker, args=(2, tmp_path / "init", tmp_path), nprocs=2)
+    for rank in range(2):
+        r = torch.load(tmp_path / f"tp{rank}.pt")
+        assert r["mode"] == "tp" and r["heads"] == (8, 4)
+        assert r["launches"] > 0 and r["staged"]["calls"] > 0
+        for name, (got, want) in [("y", r["y"]), ("dx", r["dx"]), *r["grads"].items()]:
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= TP_TOL, (name, err)

@@ -10,10 +10,13 @@ hands over its f32 weights, x (4, 8, 32), y, aux and the grads of
 ``y.sum()``. Tolerances are the reference test's: y rtol = atol = 2e-4,
 aux rtol 1e-5, grads rtol = atol = 2e-3.
 
-Both layouts of the port's input are checked: a DTensor laid out by the
-contract (batch over "data", sequence over "model") and the train step's
-plain tensor (a dp rank's rows, whole sequences). Weight grads are summed
-over "data" by the test (the layer sums them over "model").
+Both entry points are checked: ``moe_apply_ep`` on a DTensor laid out by
+the contract (batch over "data", sequence over "model"; weight grads
+summed over "data" by the test, the layer sums them over "model") and the
+partitioned train step's ``moe_ep_local`` on each rank's token block (a
+dp rank's rows, its sequence shard) with the whole weights (each rank's
+grads its share: summed over every rank by the test, as the step sums
+them).
 """
 
 import subprocess
@@ -119,15 +122,19 @@ def _worker(rank, world, init, ref_path, out):
     idx = local_index(x.shape, mesh, xd.placements)
     res["dtensor"] = {"y": y.to_local().detach(), "aux": aux.item(), "idx": idx,
                       "gx": xd.grad.to_local(), "grads": wgrads(moe)}
-    # the train step's layout: this dp rank's rows, replicated over "model"
+    # the partitioned train step's layout: this rank's token block, the whole weights
     moe = fresh()
-    rows = local_index(x.shape, mesh, (torch.distributed.tensor.Shard(0),
-                                       torch.distributed.tensor.Replicate()))[0]
-    xr = x[rows].clone().requires_grad_(True)
-    y, aux = moe_ep.moe_apply_ep(moe, cfg, xr)
+    xb = x[idx].clone().requires_grad_(True)
+    y, aux = moe_ep.moe_ep_local(cfg, xb, dict(moe.named_parameters()), mesh.get_group("model"),
+                                 mesh.get_local_rank("model"), MESH[1],
+                                 [mesh.get_group(a) for a in mesh.mesh_dim_names])
     y.sum().backward()
-    res["rows"] = {"y": y.detach(), "aux": aux.item(), "rows": rows, "gx": xr.grad,
-                   "grads": wgrads(moe)}
+    grads = {}
+    for n, p_ in moe.named_parameters():  # each rank's share, summed over the mesh
+        grads[n] = p_.grad.clone()
+        dist.all_reduce(grads[n])
+    res["rows"] = {"y": y.detach(), "aux": aux.item(), "idx": idx, "gx": xb.grad,
+                   "grads": grads}
     # the port's own MoE on the whole x, on every rank
     moe = fresh()
     xa = x.clone().requires_grad_(True)
@@ -187,9 +194,9 @@ def test_ep_dtensor_layout_matches_the_reference(runs, rank):
 def test_ep_train_layout_matches_the_reference(runs, rank):
     ref, res = runs
     r = res[rank]["rows"]
-    np.testing.assert_allclose(r["y"].numpy(), ref["y"][r["rows"]], rtol=Y_TOL, atol=Y_TOL)
+    np.testing.assert_allclose(r["y"].numpy(), ref["y"][r["idx"]], rtol=Y_TOL, atol=Y_TOL)
     np.testing.assert_allclose(r["aux"], float(ref["aux"]), rtol=AUX_RTOL)
-    np.testing.assert_allclose(r["gx"].numpy(), ref["gx"][r["rows"]], rtol=GRAD_TOL,
+    np.testing.assert_allclose(r["gx"].numpy(), ref["gx"][r["idx"]], rtol=GRAD_TOL,
                                atol=GRAD_TOL)
     for n, want in _ref_grads(ref).items():
         np.testing.assert_allclose(r["grads"][n].numpy(), want, rtol=GRAD_TOL, atol=GRAD_TOL,

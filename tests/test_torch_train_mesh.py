@@ -14,13 +14,16 @@ reference's, on gloo ranks of the CPU.
   0.077): an update that is missing (1.0), of the wrong sign (2.0) or on
   another rank's slice fails.
 * The same meshed run against the port's own unmeshed run on the same
-  batches (rank 0): the same bf16 compute, but the dp mean of two
-  half-batch grads in f32 against the whole batch's grads. Losses within
-  rtol 1e-4, each master weight's move within 0.05 of the unmeshed move
-  (all together within 0.04; measured 0.024 and 0.019): this holds the
-  world > 1 path (the dp reduce-scatter and all-reduce of the grads, each
-  rank's slices, the update written into the DTensors' storage) to the
-  unmeshed step.
+  batches (rank 0): the partitioned step reduces each sum it spreads over
+  "model" in f32 and rounds it once where the unmeshed step does, so
+  what remains is the dp mean of two half-batch grads in f32 against the
+  whole batch's grads. Losses within rtol 1e-4, each master weight's move
+  within 0.05 of the unmeshed move (all together within 0.04; measured
+  0.027 and 0.019): this holds the world > 1 path (the per-unit gathers
+  and grad reductions, the tensor-parallel branches, each rank's slices,
+  the update written into the DTensors' storage) to the unmeshed step.
+  The same comparison in f32 (the two step functions from the same
+  initial weights, on the same batches and schedule) at the same limits.
   The state's placements are the specs'; each batch is the unsharded one.
 * The train step of deepseek-v2-lite's smoke config in f32 under
   ``hints_from_mesh(mesh, ShardingRules(ep_shardmap=True))`` on the same
@@ -219,6 +222,8 @@ def _worker(rank, world, d):
     b = seen["batch"]["tokens"]
     res["batch_ok"] = bool(np.array_equal(
         b.to_local().numpy(), toks[local_index(toks.shape, mesh, b.placements)]))
+    # ---- the partitioned step against the unmeshed step, in f32 ---------- #
+    res["f32"] = _f32_runs(d, mesh, rank)
     # ---- restore(shardings=) of the final checkpoint --------------------- #
     sh = named(state_specs(meta, cfg, mesh, ShardingRules()), mesh)
     got, step, _ = restore(d / "port", meta, shardings=sh, device="cpu")
@@ -271,6 +276,65 @@ def _worker(rank, world, d):
         clear_hints()
     torch.save(res, d / f"{rank}.pt")
     dist.destroy_process_group()
+
+
+def _f32_runs(d: Path, mesh, rank: int) -> dict:
+    """The CLI's run in f32 through the step functions: the reference's
+    initial weights (the step-0 checkpoint) cast to f32, AdamW on the CLI's
+    cosine schedule, the CLI's batches; the partitioned step on ``mesh``
+    and, on rank 0, the unmeshed step. Rank 0 gets both runs' losses and
+    each master weight's move against the other's."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.data.pipeline import _place
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.sharding.hints import clear_hints, hints_from_mesh
+    from repro_torch.sharding.specs import ShardingRules, batch_specs
+
+    cfg = get_config(ARCH)
+    arg = dict(zip(ARGS[::2], ARGS[1::2]))
+    batch, seq = int(arg["--batch"]), int(arg["--seq"])
+    opt = adamw(cosine_schedule(float(arg["--lr"]), int(arg["--warmup"]), STEPS))
+
+    def fresh():
+        st, _, _ = restore(d / "init", steps.make_init_state(cfg, opt, "meta")(None),
+                           device="cpu")
+        model = st["model"].float()
+        return {"model": model, "opt": opt.init(dict(model.named_parameters()))}
+
+    source = SyntheticLM(cfg.vocab, seed=0)
+    rules = ShardingRules()
+    hints_from_mesh(mesh, rules)
+    try:
+        state = steps.distribute_state(fresh(), cfg, mesh, rules)
+        step_fn = steps.make_sharded_train_step(cfg, opt, mesh, agree=steps.make_agree("cpu"))
+        specs = batch_specs(cfg, ShapeConfig("cli", seq, batch, "train"), mesh, rules)
+        mesh_losses = []
+        for i in range(STEPS):
+            state, m = step_fn(state, _place(source.batch(i, batch, seq), mesh, specs, "cpu"))
+            mesh_losses.append(float(m["loss"]))
+        masters = {n: t.full_tensor() for n, t in state["opt"]["master"].items()}
+    finally:
+        clear_hints()
+    if rank:
+        return {}
+    init = fresh()["opt"]["master"]
+    plain, step_fn = fresh(), steps.make_train_step(cfg, opt)
+    plain_losses = []
+    for i in range(STEPS):
+        batch_i = {k: torch.from_numpy(v) for k, v in source.batch(i, batch, seq).items()}
+        plain, m = step_fn(plain, batch_i)
+        plain_losses.append(float(m["loss"]))
+    moves, num, den = {}, 0.0, 0.0
+    for n, t in plain["opt"]["master"].items():
+        da, db = masters[n] - init[n], t - init[n]
+        moves[n] = float(torch.linalg.norm(da - db) / torch.linalg.norm(db))
+        num += float(torch.sum((da - db) ** 2))
+        den += float(torch.sum(db ** 2))
+    moves["all"] = (num / den) ** 0.5
+    return {"mesh": mesh_losses, "plain": plain_losses, "moves": moves}
 
 
 @pytest.fixture(scope="module")
@@ -339,13 +403,24 @@ def test_train_mesh_final_parameters_match_the_reference(runs):
 
 def test_train_mesh_matches_the_unmeshed_run(runs):
     """The meshed run against the port's own unmeshed one on the same
-    batches: the same bf16 compute, the dp mean of two half-batch grads
-    against the whole batch's."""
+    batches, in bf16: every step's loss and the master weights' moves."""
     d, _, res = runs
     np.testing.assert_allclose(res[0]["losses"], res[0]["plain_losses"], rtol=SELF_LOSS_RTOL)
     rel = _moves(d, "port", "plain")
     assert rel["all"] <= SELF_MOVE_REL_ALL, rel["all"]
     bad = {k: v for k, v in rel.items() if v > SELF_MOVE_REL}
+    assert not bad, bad
+
+
+def test_train_mesh_matches_the_unmeshed_run_in_f32(runs):
+    """The partitioned and unmeshed step functions in f32 from the same
+    initial weights: every step's loss and the master weights' moves."""
+    _, _, res = runs
+    f32 = res[0]["f32"]
+    assert len(f32["mesh"]) == STEPS
+    np.testing.assert_allclose(f32["mesh"], f32["plain"], rtol=SELF_LOSS_RTOL)
+    assert f32["moves"]["all"] <= SELF_MOVE_REL_ALL, f32["moves"]["all"]
+    bad = {k: v for k, v in f32["moves"].items() if v > SELF_MOVE_REL}
     assert not bad, bad
 
 
