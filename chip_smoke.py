@@ -245,6 +245,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -338,7 +339,7 @@ from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.models import decode_step, forward, init_cache, init_params, loss_fn  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import Model, n_units  # noqa: E402
 from repro_torch.models.moe import MoE  # noqa: E402
 from repro_torch.models.ssm import _heads  # noqa: E402
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
@@ -361,6 +362,9 @@ SSD_TOL = 1e-4
 SSD_SHAPES = [(2, 128, 3, 16, 8, 32), (1, 64, 2, 8, 4, 64), (2, 96, 1, 32, 16, 16),
               (2, 2048, 80, 64, 64, 256)]
 SSD_TRAIN = SSD_SHAPES[-1]
+# distributed (e)'s: zamba2-2.7b under train --mesh 2,2, one rank's row and
+# its 40 of 80 heads over the whole sequence, B/C shared (stride 0)
+SSD_MESH = (1, 2048, 40, 64, 64, 256)
 # head and state dims of 128, the kernel's widest (two 64-column hp slices)
 SSD_WIDE = (2, 512, 8, 128, 128, 256)
 FA_SWEEP = [  # (b, sq, skv, hq, hkv, d, causal): test_flash_attention_sweep's shapes
@@ -750,13 +754,15 @@ def phase_kernels() -> dict:
     print(f"kernel flash_attention grads (2, 64, 64, 4, 2, 80) float32: max abs err {err:.3g} "
           f"(tol {TOL[torch.float32]})")
 
-    for shape in SSD_SHAPES + [SSD_WIDE]:
+    for shape in SSD_SHAPES + [SSD_WIDE, SSD_MESH]:
         for shared in (False, True):
             x, dA, B, C = _ssd_inputs(gen, *shape[:5], shared)
             got = ssd_intra_chunk_cuda(x, dA, B, C, shape[5])
             want = ssd_intra_chunk_ref(x, dA, B, C, shape[5])
             torch.cuda.synchronize()
             err, ok = _allclose(got, want, SSD_TOL)
+            if shape == SSD_MESH and shared:
+                errs["ssd_mesh"] = err
             if shape == SSD_TRAIN:
                 errs["ssd_train"] = max(errs.get("ssd_train", 0.0), err)
                 # both f32 versions against the exact answer: how much of the
@@ -2224,6 +2230,11 @@ FA_TRAIN_NEW = [
     # the distributed phase's (d): train --mesh 2,2, one rank's 2 rows and its
     # 8 of 16 q heads, 4 of 8 kv heads, over the gathered sequence
     ("qwen3 train --mesh 2,2, one rank's heads", (2, 2048, 2048, 8, 4, 128), "distributed"),
+    # (e): one rank's row; zamba2's 16 of 32 heads of 80, MLA's 8 of 16
+    ("zamba2 train --mesh 2,2, one rank's heads", (1, 2048, 2048, 16, 16, 80),
+     "distributed (e) zamba2"),
+    ("MLA train --mesh 2,2, one rank's heads d=192 dv=128", (1, 2048, 2048, 8, 8, 192, 128),
+     "distributed (e) deepseek"),
 ]
 
 
@@ -2666,6 +2677,22 @@ DIST_EP_CF = (8.0, 10.0, 11.0, 12.0, 14.0, 16.0)  # the first drop-free one is u
 DIST_EP_TIMED = 3  # timed forward calls of each path
 DIST_Y_TOL, DIST_AUX_RTOL, DIST_GRAD_TOL = 2e-4, 1e-5, 2e-3  # tests/test_moe_ep.py's
 DIST_TIMEOUT = 420
+# (e): zamba2-2.7b cut to one unit (5 Mamba-2 blocks and 1 attention
+# block) and deepseek-v2-lite cut to its dense prefix layer and 3 MoE
+# layers, at full width; train_moe's 2 x 2048 batch, one step through the
+# training entry point on --mesh 2,2 and unmeshed. train_moe's 6 layers
+# (3.4 B parameters, 16.6 GiB a rank on an H100 80GB in processes of
+# their own) ran out of the card's memory on two ranks after (b)-(d) in
+# the same processes; 4 layers (2.2 B) leave room
+DIST_E = [dict(arch="zamba2-2.7b", n_layers=6), dict(arch="deepseek-v2-lite-16b", n_layers=4)]
+DIST_E_ARGS = ["--steps", "1", "--batch", "2", "--seq", "2048", "--lr", "3e-4", "--warmup", "2",
+               "--optimizer", "adamw", "--seed", str(SEED), "--log-every", "1", "--deterministic"]
+# (b)-(d) take ~100-110 s and (e) ~60-100 s on a normal host; a rank that
+# fails inside a collective leaves the others waiting until this limit
+DIST_E_TIMEOUT = 240
+# (e)'s unmeshed deepseek step on rank 0 (~40 GiB at 4 layers; 57.4 GiB
+# at 6 on an H100 80GB), beside the other ranks' contexts
+DIST_DEVICE_NEED = 48 * 2**30
 # (b) and (c): each of the 4 ranks (torchrun) on cuda:0 over gloo
 EP_RUN = """
 import gc, json, math, sys, time
@@ -2897,12 +2924,106 @@ for key, _, _, ts, stacked in reference_leaves(got, cfg):
 rec.update(restore_leaves=n, restore_bad=sorted(set(bad)), restore_step=step,
            restore_local=local)
 Path(f"{d_out}.{rank}").write_text(json.dumps(rec))
-dist.destroy_process_group()
+fa_pkg.flash_attention, train.FaultTolerantRunner.run_step = fa, run_step
+del got
+gc.collect()
+torch.cuda.empty_cache()
 """.replace("YTOL", repr(DIST_Y_TOL)).replace("AUXTOL", repr(DIST_AUX_RTOL)).replace(
     "GTOL", repr(DIST_GRAD_TOL))
+# (e) on the same ranks after (d), or on its own: each run of e_spec.json
+# (beside the script) through the training entry point on --mesh 2,2, one
+# step, then rank 0 alone (the others wait) the unmeshed step of the same
+# cut from the same seed; each run's loss, the grads' global norm, its
+# flash and SSD launches by local shape, its peak memory
+E_RUN = """
+import dataclasses, gc, json, time
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config as e_config
+from repro_torch.configs.base import register as e_register
+from repro_torch.kernels import flash_attention as e_fa
+from repro_torch.kernels.flash_attention.flash_attention import (flash_attention_cuda as e_fa_cuda,
+                                                              reset_launches as e_fa_reset)
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_cuda as e_ssd_cuda
+from repro_torch.launch import train as e_train
+from repro_torch.models import moe as e_moe, moe_ep as e_ep, ssm as e_ssm
+from repro_torch.optim.optimizers import global_norm
+from repro_torch.sharding.hints import clear_hints
+if not dist.is_initialized():  # on its own
+    dist.init_process_group("gloo", init_method="env://")
+    torch.cuda.set_device(0)
+e_rank = dist.get_rank()
+e_spec = json.loads(Path(__file__).with_name("e_spec.json").read_text())
+e_fa0, e_ssd0, e_run0 = e_fa.flash_attention, e_ssm._ssd_fast, e_train.FaultTolerantRunner.run_step
+e_res = []
+for e_run in e_spec["runs"]:
+    e_full = e_config(e_run["arch"])
+    e_cfg = e_register(dataclasses.replace(e_full, name=f"{e_full.name}-{e_run['n_layers']}l",
+                                           n_layers=e_run["n_layers"]))
+    for meshed in (True, False):
+        if meshed or e_rank == 0:
+            note, seen = {"fa": {}, "ssd": {}}, {}
+            def fa_e(q, k, v, **kw):  # the shapes the model's attention launches at
+                key = str((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3]))
+                note["fa"][key] = note["fa"].get(key, 0) + 1
+                return e_fa0(q, k, v, **kw)
+            def ssd_e(x, dA, B, C, chunk):  # (b, l, heads, hp, n, chunk, B's head stride)
+                key = str((x.shape[0], x.shape[1], x.shape[2], x.shape[3], B.shape[3], chunk,
+                           B.stride(2)))
+                note["ssd"][key] = note["ssd"].get(key, 0) + 1
+                return e_ssd0(x, dA, B, C, chunk=chunk)
+            def run_e(self, state, batch, step):
+                seen["state"] = state
+                t0 = time.perf_counter()
+                out = e_run0(self, state, batch, step)  # waits for the device
+                seen["step_s"] = time.perf_counter() - t0
+                return out
+            def fault_e(step):
+                torch.cuda.synchronize()
+                if step == 0:  # the step starts: its counts and its peak from here
+                    e_fa_reset()
+                    e_ssd_cuda.launches = 0
+                    e_ep.HOST_STAGED.update(calls=0, bytes=0)
+                    seen["dropped"] = e_moe.DROPPED["assignments"]
+                    torch.cuda.reset_peak_memory_stats()
+            def hook_e(n):  # the grads are pending: their global norm, once
+                if n == 1 and "norm" not in seen:
+                    p = seen["state"]["pending"]
+                    seen["norm"] = float(p["norm"] if "norm" in p else global_norm(p["grads"]))
+            e_fa.flash_attention, e_ssm._ssd_fast = fa_e, ssd_e
+            e_train.FaultTolerantRunner.run_step = run_e
+            clear_hints()
+            t_run = time.perf_counter()
+            try:
+                e_out = e_train.main(["--arch", e_cfg.name, *(["--mesh", "2,2"] if meshed else []),
+                                      *e_spec["args"]], fault_hook=fault_e, update_hook=hook_e)
+            finally:
+                e_fa.flash_attention, e_ssm._ssd_fast = e_fa0, e_ssd0
+                e_train.FaultTolerantRunner.run_step = e_run0
+            params = list(seen["state"]["model"].parameters())
+            e_res.append({
+                "arch": e_run["arch"], "meshed": meshed, "rank": e_rank, "losses": e_out["losses"],
+                "norm": seen["norm"], "step_s": seen["step_s"],
+                "run_s": time.perf_counter() - t_run, "fa": note["fa"], "ssd": note["ssd"],
+                "fa_launches": e_fa_cuda.launches,
+                "fa_by_dim": {str(k): v for k, v in e_fa_cuda.launches_by_dim.items()},
+                "ssd_launches": e_ssd_cuda.launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "staged": dict(e_ep.HOST_STAGED),
+                "dropped": e_moe.DROPPED["assignments"] - seen["dropped"],
+                "params": sum(p.numel() for p in params),
+                "local_params": sum((p.to_local() if meshed else p).numel() for p in params)})
+            del e_out, seen, params
+            gc.collect()
+            torch.cuda.empty_cache()
+            Path(f"{e_spec['out']}.{e_rank}").write_text(json.dumps(e_res))
+        dist.barrier()  # every rank's memory freed before the next run
+dist.destroy_process_group()
+"""
 
 
-def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list) -> float:
+def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list,
+              timeout: float = DIST_TIMEOUT) -> float:
     """Run ``script`` (written under ``root``) on ``nproc`` ranks through
     ``python -m torch.distributed.run --standalone``; its wall seconds."""
     path = root / f"{label}.py"
@@ -2910,10 +3031,20 @@ def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list
     log = root / f"{label}.log"
     t0 = time.time()
     with open(log, "w") as f:
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                               "--nproc-per-node", str(nproc), str(path), *args],
-                              cwd=ROOT, env=_child_env(), stdout=f, stderr=subprocess.STDOUT,
-                              timeout=DIST_TIMEOUT)
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc-per-node", str(nproc), str(path), *args],
+                                cwd=ROOT, env=_child_env(), stdout=f, stderr=subprocess.STDOUT)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:  # SIGTERM: the launcher stops its ranks (each a
+            proc.send_signal(signal.SIGTERM)  # session of its own), then exits
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            raise RuntimeError(f"distributed {label}: stopped with its ranks after {timeout} s; "
+                               f"its log ends:\n{log.read_text()[-3000:]}") from None
     check(proc.returncode == 0, f"distributed {label}: exit {proc.returncode}; its log ends:\n"
                                 f"{log.read_text()[-3000:]}")
     return time.time() - t0
@@ -2923,8 +3054,10 @@ def phase_distributed(stamp, ft: dict) -> dict:
     """One launch of 4 gloo ranks sharing the card: (b) the expert-parallel
     MoE at qwen2-moe's width against the port's MoE, (c) the compressed
     all-reduce, (d) train --mesh 2,2 of qwen3-0.6b against train_ft's
-    straight run. Returns (d)'s flash launches (rank 0's), step time and
-    rank 0's peak memory."""
+    straight run, (e) train --mesh 2,2 of zamba2-2.7b and deepseek-v2-lite
+    cut in depth against their unmeshed steps. Returns (d)'s flash launches
+    (rank 0's), step time and rank 0's peak memory, and under "e" each
+    (e) run's launches at its local shapes (rank 0's)."""
     t = TRAIN_FT
     cfg = get_config(t["arch"])
     root = ROOT / "chiprun_out" / "distributed"
@@ -2934,16 +3067,19 @@ def phase_distributed(stamp, ft: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     free_dev, _ = torch.cuda.mem_get_info()
-    check(free_dev >= FT_DEVICE_NEED, f"distributed: {free_dev / 2**30:.2f} GiB free on the card, "
-                                      f"{FT_DEVICE_NEED / 2**30:.0f} GiB needed")
+    check(free_dev >= DIST_DEVICE_NEED, f"distributed: {free_dev / 2**30:.2f} GiB free on the "
+                                        f"card, {DIST_DEVICE_NEED / 2**30:.0f} GiB needed")
+    print(f"distributed: {free_dev / 2**30:.2f} GiB free on the card at the start")
     B, S = DIST_EP_X
     d_args = _ft_args(t, root, root, t["every"])
     d_args = d_args[:d_args.index("--ckpt-dir")] + ["--mesh", "2,2"]  # no checkpoints
+    (root / "e_spec.json").write_text(json.dumps(
+        {"runs": DIST_E, "args": DIST_E_ARGS, "out": str(root / "e.json")}))
     try:
-        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN,
+        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN + E_RUN,
                          [str(root / "ep.json"), str(SEED), str(B), str(S), str(DIST_EP_TIMED),
                           ",".join(map(str, DIST_EP_CF)), str(root / "tp.json"), str(DIST_STOP),
-                          str(FT_KEPT), *d_args])
+                          str(FT_KEPT), *d_args], timeout=DIST_TIMEOUT + DIST_E_TIMEOUT)
     finally:
         shutil.rmtree(FT_KEPT, ignore_errors=True)
     r = json.loads((root / "ep.json").read_text())
@@ -3028,9 +3164,92 @@ def phase_distributed(stamp, ft: dict) -> dict:
           + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in ranks)
           + f" GiB (max_memory_allocated from step 0) vs train_ft's {ft['peak_bytes'] / 2**30:.2f}"
           f" GiB on one rank")
-    print(f"time [{stamp}] distributed (b)+(c)+(d) 4 processes: {wall:.1f} s wall")
+    e = report_e(stamp, [json.loads((root / f"e.json.{k}").read_text()) for k in range(4)])
+    print(f"time [{stamp}] distributed (b)+(c)+(d)+(e) 4 processes: {wall:.1f} s wall")
     print(f"time [{stamp}] distributed phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": r0["launches"], "step_s": step_s, "peak_bytes": r0["peak_bytes"]}
+    return {"launches": r0["launches"], "step_s": step_s, "peak_bytes": r0["peak_bytes"], "e": e}
+
+
+def report_e(stamp, ranks: list) -> dict:
+    """(e)'s checks: each model's --mesh 2,2 step against its unmeshed step
+    on the card (loss and the grads' global norm within DIST_LOSS_RTOL),
+    every rank's flash and SSD calls at its local shapes (this rank's heads
+    of the whole sequence of its dp group's row) and the kernels' launch
+    counts. Returns {path: launches} of rank 0 for the kernels records."""
+    t = dict(zip(DIST_E_ARGS[::2], DIST_E_ARGS[1::2]))
+    rows, seq = int(t["--batch"]) // 2, int(t["--seq"])
+    out = {}
+    for run in DIST_E:
+        full = get_config(run["arch"])
+        cfg = dataclasses.replace(full, n_layers=run["n_layers"])
+        mesh = [r for rk in ranks for r in rk if r["arch"] == run["arch"] and r["meshed"]]
+        plain = next(r for r in ranks[0] if r["arch"] == run["arch"] and not r["meshed"])
+        check(len(mesh) == 4 and all(r["losses"] == mesh[0]["losses"] and r["norm"] == mesh[0]["norm"]
+                                     for r in mesh),
+              f"distributed (e) {run['arch']}: losses / norms by rank "
+              f"{[(r['losses'], r['norm']) for r in mesh]}")
+        m0 = mesh[0]
+        loss_gap = abs(m0["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+        norm_gap = abs(m0["norm"] - plain["norm"]) / abs(plain["norm"])
+        # one remat step: the prefix layers' attention once, each unit layer
+        # in its forward and its recompute
+        units = n_units(cfg)
+        n_fa = cfg.first_k_dense + 2 * units * cfg.block_pattern.count("attn")
+        n_ssd = 2 * units * cfg.block_pattern.count("mamba2")
+        D = compiled_dim(cfg.nope_head_dim + cfg.rope_head_dim if cfg.use_mla else cfg.head_dim,
+                         cfg.v_head_dim if cfg.use_mla else cfg.head_dim)
+        if cfg.use_mla:
+            fa_shape = (rows, seq, cfg.n_heads // 2, cfg.n_heads // 2,
+                        cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim)
+        else:
+            fa_shape = (rows, seq, cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim, cfg.head_dim)
+        want_fa = {str(fa_shape): n_fa}
+        # this rank's heads, B/C of the one group shared by them (head stride 0)
+        ssd_shape = (rows, seq, cfg.n_ssm_heads // 2, cfg.ssm_head_dim, cfg.ssm_state,
+                     min(256, seq), 0)
+        want_ssd = {str(ssd_shape): n_ssd} if n_ssd else {}
+        for r in mesh:
+            check(r["fa"] == want_fa and r["fa_launches"] == n_fa == r["fa_by_dim"][str(D)],
+                  f"distributed (e) {run['arch']} rank {r['rank']}: flash calls {r['fa']} "
+                  f"({r['fa_launches']} launches, by D {r['fa_by_dim']}), not {want_fa} at D = {D}")
+            check(r["ssd"] == want_ssd and r["ssd_launches"] == 2 * n_ssd,
+                  f"distributed (e) {run['arch']} rank {r['rank']}: SSD calls {r['ssd']} "
+                  f"({r['ssd_launches']} launches), not {want_ssd}: a score and a main kernel each")
+            check(r["staged"]["calls"] > 0, f"distributed (e) {run['arch']} rank {r['rank']}: no "
+                                            f"collective went through the host")
+        check(plain["fa_launches"] == n_fa and plain["ssd_launches"] == 2 * n_ssd,
+              f"distributed (e) {run['arch']} unmeshed: {plain['fa_launches']} flash, "
+              f"{plain['ssd_launches']} SSD launches")
+        what = (f"{cfg.n_layers} layers ({cfg.first_k_dense} dense MLA + {cfg.n_layers - cfg.first_k_dense} "
+                f"MLA + MoE of {cfg.n_routed_experts} experts: {cfg.n_routed_experts // 2} a rank)"
+                if cfg.use_mla else f"{cfg.n_layers} layers ({cfg.block_pattern.count('mamba2')} "
+                f"Mamba-2 of {cfg.n_ssm_heads} heads: {cfg.n_ssm_heads // 2} a rank, "
+                f"{cfg.block_pattern.count('attn')} attention of {cfg.n_heads} heads)")
+        print(f"distributed (e) train --mesh 2,2 {run['arch']} at full width cut to {what}, "
+              f"{t['--batch']} x {seq}, one step: {m0['local_params']:,} of {m0['params']:,} "
+              f"parameters a rank; flash attention {want_fa} (rows, positions, q heads, kv heads, "
+              f"d, dv: calls) on the D = {D} instance"
+              + (f", SSD {want_ssd} (rows, positions, heads, hp, n, chunk, B/C head stride: calls; "
+                 f"{2 * n_ssd} launches, a score and a main kernel a call)" if n_ssd else "")
+              + " on every rank"
+              + (f"; {m0['dropped']} assignments dropped past the capacity of the global batch "
+                 f"(forward and recompute)" if cfg.n_routed_experts else ""))
+        print(f"distributed (e) {run['arch']}: loss {m0['losses'][0]:.6f} against the unmeshed "
+              f"step's {plain['losses'][0]:.6f} (gap {loss_gap:.2e}), grads' global norm "
+              f"{m0['norm']:.6f} against {plain['norm']:.6f} (gap {norm_gap:.2e}); limit "
+              f"{DIST_LOSS_RTOL}")
+        check(loss_gap <= DIST_LOSS_RTOL and norm_gap <= DIST_LOSS_RTOL,
+              f"distributed (e) {run['arch']}: loss gap {loss_gap:.3g}, norm gap {norm_gap:.3g}")
+        print(f"time [{stamp}] distributed (e) {run['arch']} step: --mesh 2,2 {m0['step_s']:.3f} s "
+              f"(4 ranks sharing the card over gloo; {m0['staged']['calls']} collectives, "
+              f"{m0['staged']['bytes'] / 1e9:.2f} GB through host memory on rank 0), the run "
+              f"{max(r['run_s'] for r in mesh):.1f} s with start-up; unmeshed {plain['step_s']:.3f} "
+              f"s, the run {plain['run_s']:.1f} s; peak memory by rank "
+              + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in mesh)
+              + f" GiB, unmeshed {plain['peak_bytes'] / 2**30:.2f} GiB")
+        out[run["arch"]] = {"flash": m0["fa_launches"], "ssd": m0["ssd_launches"],
+                            "loss_gap": loss_gap, "norm_gap": norm_gap}
+    return out
 
 
 DRYRUN_PEAK_TOL = 0.20  # the traced peak against train_ft's measured one
@@ -4330,6 +4549,8 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
                     "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
                     "bound_by": bound_by, "library_ms": None, "per_head_bc_ms": ms["per_head"],
                     "registers_spills": {k: list(v) for k, v in regs.items()}})
+    records.append(_time_ssd_mesh(stamp, gen, new_train["distributed (e) zamba2"]["ssd"],
+                                  errs["ssd_mesh"]))
 
     # the matmul kernel with its planned tile, beside torch.matmul (TF32 off):
     # f32 on the FMA instance, bf16 on the wgmma instance
@@ -4394,6 +4615,27 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
     return records
 
 
+def _time_ssd_mesh(stamp, gen, launches, err) -> dict:
+    """The SSD kernel at distributed (e)'s local shape (one rank's heads,
+    B/C shared) beside its bound and its plain version; the kernels-line
+    record with (e)'s launches on rank 0."""
+    b, l, nh, hp, n, cl = SSD_MESH
+    pick = _rotating([_ssd_inputs(gen, b, l, nh, hp, n, True) for _ in range(6)])
+    ms = _interleaved_ms({"plain": lambda: ssd_intra_chunk_ref(*pick(), cl),
+                          "kernel": lambda: ssd_intra_chunk_cuda(*pick(), cl)}, n=20)
+    bytes_, flops = _ssd_work(b, l, nh, hp, n, cl)
+    bound, bound_by = _bound(bytes_, 3 * flops, TF32_FLOP_PER_S)
+    label = f"train --mesh 2,2 b={b} l={l} nh={nh} hp={hp} n={n} cl={cl} f32"
+    print(f"time [{stamp}] ssd_scan {label}, B/C stride 0 (the score kernel, then the main "
+          f"kernel): {ms['kernel']:.4f} ms; plain {ms['plain']:.4f} ms; bound {bound:.4f} ms "
+          f"({bound_by}: {bytes_ / 1e6:.1f} MB at 3.35 TB/s, 3xTF32 {3 * flops / 1e9:.2f} GFLOP "
+          f"at 495 TFLOP/s; {bound / ms['kernel']:.1%} of it); {launches} launches on "
+          f"distributed (e)'s rank 0; no single PyTorch call computes it")
+    return {**_kernel_keys(SSD_SCAN_H100), "path": "distributed (e)", "shape": label,
+            "launches": launches, "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+
+
 def _matmul_host_costs(stamp, gen) -> None:
     """Host time one matmul call costs: the op's eager call and a direct
     launch of each instance at 64x64x64 (the host's work bounds them), and
@@ -4449,6 +4691,10 @@ def main() -> int:
     train_launches, train_step = phase_train(stamp)
     new_train = {"train_ft": phase_train_ft(stamp), "train_moe": phase_train_moe(stamp)}
     new_train["distributed"] = phase_distributed(stamp, new_train["train_ft"])
+    e = new_train["distributed"]["e"]
+    new_train["distributed (e) zamba2"] = {"launches": e["zamba2-2.7b"]["flash"],
+                                           "ssd": e["zamba2-2.7b"]["ssd"]}
+    new_train["distributed (e) deepseek"] = {"launches": e["deepseek-v2-lite-16b"]["flash"]}
     phase_dryrun(stamp, new_train["train_ft"], new_train["distributed"])
     records = phase_times(stamp, plans, serve_launches, moe["deepseek-v2-lite-16b"]["launches"],
                           fam, train_launches, errs, loop, new_train)

@@ -41,7 +41,8 @@ META = "meta"
 #: what each kind of cell's artifact describes: the port's step as it runs
 COMPUTE = {
     "train": "FSDP per unit over the dp dims; tensor and sequence parallel over model for "
-             "attention, MLP and the vocabulary; other blocks whole over model",
+             "attention, MLA, Mamba-2, the MLP, the expert banks and the vocabulary; other "
+             "blocks whole over model; the MoE over the global batch",
     "prefill": "dp replicas over (pod, data), whole weights; the model ranks repeat",
     "decode": "dp replicas over (pod, data), whole weights; the model ranks repeat",
 }

@@ -171,6 +171,27 @@ def distribute_state(state: Dict, cfg: ModelConfig, mesh, rules) -> Dict:
     return {"model": model, "opt": opt}
 
 
+def init_distributed_state(cfg: ModelConfig, optimizer: Optimizer, generator: torch.Generator,
+                           mesh, rules, device="cuda") -> Dict:
+    """``make_init_state`` on a mesh, as ``distribute_state`` of it places
+    it: the whole weights drawn on every rank from the same generator, each
+    rank keeping its slices, and the optimizer state made from those
+    slices (the same values; no rank holds the whole moments or master
+    weights, which at 12 bytes a parameter would not fit several ranks on
+    one card)."""
+    from torch.distributed.tensor import DTensor
+
+    state = distribute_state({"model": init_params(cfg, generator, device),
+                              "opt": optimizer.init({})}, cfg, mesh, rules)
+    params = dict(state["model"].named_parameters())
+    local = optimizer.init({k: p.to_local() for k, p in params.items()})
+    state["opt"] = {k: (v if k == "step" else {
+        n: DTensor.from_local(t, mesh, params[n].placements, run_check=False,
+                              shape=params[n].shape, stride=params[n].stride())
+        for n, t in v.items()}) for k, v in local.items()}
+    return state
+
+
 class _InPlace(dict):
     """{name: tensor} whose assignments copy into the tensors it holds: the
     optimizer's new moments land in the DTensors' local storage."""

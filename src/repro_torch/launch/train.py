@@ -175,9 +175,10 @@ def _main(args, t_main, fault_hook, update_hook) -> dict:
             log.info("restored checkpoint at step %d (%.2f s)", start_step, restore_s)
     if state is None:
         gen = torch.Generator(device=args.device).manual_seed(args.seed)
-        state = steps_mod.make_init_state(cfg, optimizer, args.device)(gen)
-        if mesh is not None:  # the same whole state on every rank; each keeps its slice
-            state = steps_mod.distribute_state(state, cfg, mesh, rules)
+        if mesh is None:
+            state = steps_mod.make_init_state(cfg, optimizer, args.device)(gen)
+        else:  # the same whole weights on every rank; each keeps its slices
+            state = steps_mod.init_distributed_state(cfg, optimizer, gen, mesh, rules, args.device)
 
     # ---- data ----------------------------------------------------------- #
     if args.data == "synthetic":

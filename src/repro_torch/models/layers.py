@@ -83,14 +83,25 @@ def act_fn(name: str):
 class Products:
     """How a module computes its column products (``x`` through several
     weights split by output features), its row product (a weight split by
-    input features) and its norms: whole, as here. ``Attention`` and ``MLP``
-    take one; the partitioned train step gives them its tensor-parallel
-    products (``sharding/partition.py``), which take this rank's sequence
-    shard in and give this rank's shard of the residual back, and whose
-    norms sum their weights' grads over the ranks' heads or tokens."""
+    input features) and its norms: whole, as here. ``Attention``, ``MLA``,
+    ``MLP``, ``MoE`` and ``Mamba2`` take one; the partitioned train step
+    gives them its tensor-parallel products (``sharding/partition.py``),
+    which take this rank's sequence shard in and give this rank's shard of
+    the residual back, and whose norms sum their weights' grads over the
+    ranks' heads or tokens. The MoE also takes the whole sequence of a
+    shard (``whole``), the offset of this rank's experts (``first``), every
+    rank's expert outputs (``experts``) and this rank's shard of a whole
+    sequence (``shard``); Mamba-2's gated norm sums its squares over the
+    ranks' channels (``wide_norm``)."""
 
     @staticmethod
     def norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+        return rms_norm(x, w, eps)
+
+    @staticmethod
+    def wide_norm(x: torch.Tensor, w: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+        """``rms_norm`` over ``width`` features, of which ``x`` (and ``w``)
+        hold this rank's."""
         return rms_norm(x, w, eps)
 
     @staticmethod
@@ -100,6 +111,22 @@ class Products:
     @staticmethod
     def rows(y: torch.Tensor, mod: "Dense") -> torch.Tensor:
         return mod(y)
+
+    @staticmethod
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def shard(y: torch.Tensor) -> torch.Tensor:
+        return y
+
+    @staticmethod
+    def first(n_local: int) -> int:
+        return 0
+
+    @staticmethod
+    def experts(out: torch.Tensor) -> torch.Tensor:
+        return out
 
 
 WHOLE = Products()
@@ -299,15 +326,19 @@ class MLA(nn.Module):
         positions: torch.Tensor,  # (S,) global positions of x
         cache: Optional[Dict[str, torch.Tensor]] = None,  # {"ckv", "krope"}: (b, Smax, r | dr)
         cache_len: Optional[int] = None,  # filled length of the cache before this call
+        products: Products = WHOLE,
     ) -> torch.Tensor:
         cfg = self.cfg
-        b, S, _ = x.shape
-        h = cfg.n_heads
         r, dr, dn, dv = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.nope_head_dim, cfg.v_head_dim
-        q = self.wq(x).reshape(b, S, h, dn + dr)
+        # under tensor parallelism ``wq``, ``kv_up`` and ``wo`` hold this
+        # rank's heads, ``kv_down`` is whole: the latent and the rope key are
+        # computed whole on every rank, from the whole sequence
+        q, down = products.columns(x, (self.wq, self.kv_down))
+        b, S = q.shape[:2]
+        h = self.wq.w.shape[1] // (dn + dr)
+        q = q.reshape(b, S, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
-        down = self.kv_down(x)
-        ckv = rms_norm(down[..., :r], self.latent_norm, cfg.rms_eps)
+        ckv = products.norm(down[..., :r], self.latent_norm, cfg.rms_eps)
         cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
         q_rope = apply_rope(q_rope, cos, sin)
         k_rope = apply_rope(down[..., r:].reshape(b, S, 1, dr), cos, sin)
@@ -331,7 +362,7 @@ class MLA(nn.Module):
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         out = mha(q_full, k_full, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
                   sm_scale=1.0 / math.sqrt(dn + dr))
-        return self.wo(out.reshape(b, S, h * dv))
+        return products.rows(out.reshape(b, S, h * dv), self.wo)
 
 
 # --------------------------------------------------------------------- #

@@ -115,7 +115,7 @@ class Block(nn.Module):
             h, self.ln1, self.rms_eps), x, remat)
         aux = 0.0
         if self.moe is not None:
-            y, aux = _branch(lambda h: split("moe", lambda a: self._moe(a, cache),
+            y, aux = _branch(lambda h: split("moe", lambda a, **kw: self._moe(a, cache, **kw),
                                              h, self.ln2, self.rms_eps), x, remat)
             x = x + y
         elif self.ffn is not None:
@@ -123,16 +123,18 @@ class Block(nn.Module):
                                             h, self.ln2, self.rms_eps), x, remat)
         return x, aux
 
-    def _moe(self, h: torch.Tensor, cache) -> BlockOut:
+    def _moe(self, h: torch.Tensor, cache, **kw) -> BlockOut:
         """The expert-parallel layer under a mesh with ``ep_shardmap`` (no
-        cache; ``moe_ep.ep_available``), else the MoE FFN; decode (cache
-        present) routes droplessly, as the reference does."""
+        cache; ``moe_ep.ep_available``), else the MoE FFN (given the
+        partitioned step's ``products`` and global batch ``over`` by
+        keyword); decode (cache present) routes droplessly, as the
+        reference does."""
         from repro_torch.models import moe_ep
 
         if (cache is None and hints_mod._STATE.get("ep_shardmap")
                 and moe_ep.ep_available(self.moe.cfg, h)):
             return moe_ep.moe_apply_ep(self.moe, self.moe.cfg, h)
-        return self.moe(h, dropless=cache is not None)
+        return self.moe(h, dropless=cache is not None, **kw)
 
 
 class _CoreBlock(nn.Module):
@@ -149,7 +151,7 @@ class _CoreBlock(nn.Module):
 
     def forward(self, x, positions, cache=None, cache_len=None, remat: bool = False,
                 split=_whole) -> BlockOut:
-        y = _branch(lambda h: split("core", lambda a: self.core(a, cache)[0],
+        y = _branch(lambda h: split("core", lambda a, **kw: self.core(a, cache, **kw)[0],
                                     h, self.ln, self.cfg.rms_eps), x, remat)
         return x + y, 0.0
 

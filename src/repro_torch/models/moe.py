@@ -8,6 +8,13 @@ combine adds each token's k weighted expert outputs left to right over
 its k slots, in the activation dtype: the order in which the reference's
 ``.at[tok_of].add`` applies its row-major updates, and the same bits on
 every device (``index_add_`` on CUDA adds in no fixed order).
+
+Under the partitioned train step (``sharding/partition.py``) a call sees
+one dp group's rows; the reference's jitted step counts over the global
+batch, and so does the layer given that batch (``Batch``): the capacity
+of all the groups' tokens, each assignment's slot in global row-major
+order, f_e and P_e over all tokens. With tensor-parallel ``Products`` it
+also runs only this rank's experts (see ``MoE.forward``).
 """
 
 from __future__ import annotations
@@ -19,8 +26,34 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import DTYPE, Dense, act_fn
+from repro_torch.models.layers import DTYPE, WHOLE, Dense, Products, act_fn
 from repro_torch.sharding.hints import shard_hint
+
+# assignments past the capacity, summed over the calls that count over a
+# global batch (their counts reach the host there anyway)
+DROPPED = {"assignments": 0}
+
+
+class Batch:
+    """The tokens over which a MoE call counts its capacity, its slot order
+    and its load-balance terms: the call's own, here (one group). The
+    partitioned train step passes its dp groups' global batch: ``groups``
+    equal blocks of rows, this call's at ``index`` in row-major order,
+    ``sum_counts`` summing integer counts over the groups and ``sum``
+    summing an f32 tensor over them with an all-reduce as its backward."""
+
+    groups, index = 1, 0
+
+    @staticmethod
+    def sum_counts(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def sum(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+ONE = Batch()
 
 
 def top_k_gates(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -77,36 +110,55 @@ class MoE(nn.Module):
         k, e = self.cfg.top_k, self.cfg.n_routed_experts
         return T * k if dropless else max(1, int(math.ceil(T * k * self.cfg.capacity_factor / e)))
 
-    def forward(self, x: torch.Tensor, dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, dropless: bool = False, products: Products = WHOLE,
+                over: Batch = ONE) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (b, s, d) -> (y, aux_loss). ``dropless=True`` sizes the expert
-        buffers at T*k so no assignment is dropped (the decode path)."""
+        buffers at T*k so no assignment is dropped (the decode path).
+
+        ``over`` with more than one group: the capacity, slots and aux of
+        the global batch (``_global``); the expert buffers hold this group's
+        kept assignments at their positions among its own. Tensor-parallel
+        ``products``: ``x`` is this rank's sequence shard and the banks hold
+        this rank's experts; every rank routes the whole sequence, runs its
+        experts, and the gathered outputs of all experts combine as above;
+        the shared experts are a column / row split MLP."""
         cfg = self.cfg
-        b, s, d = x.shape
         e, k = cfg.n_routed_experts, cfg.top_k
+        xw = products.whole(x)
+        b, s, d = xw.shape
         T = b * s
-        xt = x.reshape(T, d)
+        xt = xw.reshape(T, d)
         gates, eidx, probs = self.route(xt)
-
-        # load-balance auxiliary loss (Switch): E * sum_e f_e * P_e
-        f_e = nn.functional.one_hot(eidx[:, 0], e).float().mean(dim=0)
-        aux = e * torch.sum(f_e * probs.mean(dim=0)) * cfg.router_aux_coef
-
-        # capacity-based dispatch: each assignment's position within its
-        # expert, in row-major (token, slot) order; overflow parks in slot C
-        C = self.capacity(T, dropless)
         flat_e = eidx.reshape(T * k)
+        # each assignment's position within its expert, in row-major (token,
+        # slot) order; overflow parks in slot C
         pos = torch.cumsum(nn.functional.one_hot(flat_e, e), dim=0) - 1  # (T*k, E)
         slot = torch.gather(pos, 1, flat_e[:, None])[:, 0]
-        keep = slot < C
+        if over.groups == 1:
+            # load-balance auxiliary loss (Switch): E * sum_e f_e * P_e
+            f_e = nn.functional.one_hot(eidx[:, 0], e).float().mean(dim=0)
+            aux = e * torch.sum(f_e * probs.mean(dim=0)) * cfg.router_aux_coef
+            C = self.capacity(T, dropless)
+            keep = slot < C
+        else:
+            aux, cap, C, first = self._global(eidx, probs, pos[-1] + 1, over, dropless)
+            keep = slot + first[flat_e] < cap  # the global slot within the global capacity
         slot_c = torch.where(keep, slot, C)
         tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
-        buf = torch.zeros((e, C + 1, d), dtype=x.dtype, device=x.device)
-        buf[flat_e, slot_c] = xt[tok_of]  # kept (expert, slot) pairs are unique
+        n_loc = self.w_gate.shape[0]
+        if n_loc == e:
+            buf = torch.zeros((e, C + 1, d), dtype=x.dtype, device=x.device)
+            buf[flat_e, slot_c] = xt[tok_of]  # kept (expert, slot) pairs are unique
+        else:  # this rank's experts; the other assignments park
+            lo = products.first(n_loc)
+            mine = (flat_e >= lo) & (flat_e < lo + n_loc)
+            buf = torch.zeros((n_loc, C + 1, d), dtype=x.dtype, device=x.device)
+            buf[torch.where(mine, flat_e - lo, 0), torch.where(mine, slot_c, C)] = xt[tok_of]
         buf = shard_hint(buf[:, :C], "tp", None, None)  # expert-parallel dispatch buffer
 
         f = act_fn(cfg.act)
         h = f(torch.bmm(buf, self.w_gate)) * torch.bmm(buf, self.w_up)
-        out = torch.bmm(h, self.w_down)  # (E, C, d)
+        out = products.experts(torch.bmm(h, self.w_down))  # (E, C, d)
 
         # combine: the parked slot reads zeros
         out = torch.cat([out, torch.zeros((e, 1, d), dtype=out.dtype, device=out.device)], dim=1)
@@ -116,8 +168,40 @@ class MoE(nn.Module):
         y = weighted[:, 0]
         for j in range(1, k):
             y = y + weighted[:, j]
+        split = xw is not x  # a shard in: the shard of the routed sum out
+        if split:
+            y = products.shard(y.reshape(b, s, d))
 
-        if self.shared is not None:
+        if self.shared is not None:  # on this rank's shard, or the folded tokens
             sh = self.shared
-            y = y + sh.down(f(sh.gate(xt)) * sh.up(xt))
-        return y.reshape(b, s, d), aux
+            gs, us = products.columns(x if split else xt, (sh.gate, sh.up))
+            y = y + products.rows(f(gs) * us, sh.down)
+        return y.reshape(x.shape), aux
+
+    def _global(self, eidx: torch.Tensor, probs: torch.Tensor, counts: torch.Tensor,
+                over: Batch, dropless: bool) -> Tuple[torch.Tensor, int, int, torch.Tensor]:
+        """The global batch's aux loss (f_e and P_e means over all tokens,
+        summed over the groups in f32 before their product), this group's
+        buffer slots and each expert's first global slot for this group.
+        ``counts``: (E,) this group's assignments per expert. Returns (aux,
+        the capacity of all tokens, slots: the most this group keeps on one
+        expert under it, a host int, at least 1, first (E,))."""
+        cfg = self.cfg
+        e, G = cfg.n_routed_experts, over.groups
+        T = eidx.shape[0]
+        table = torch.zeros((G + 1, e), dtype=torch.int64, device=eidx.device)
+        table[over.index] = counts  # each group's counts; the last row: top-1 counts
+        table[G] = nn.functional.one_hot(eidx[:, 0], e).sum(dim=0)
+        table = over.sum_counts(table)
+        f_e = table[G].float() / (T * G)
+        P_e = over.sum(probs.sum(dim=0)) / (T * G)
+        aux = e * torch.sum(f_e * P_e) * cfg.router_aux_coef
+        C = self.capacity(T * G, dropless)
+        first = table[:over.index].sum(dim=0)
+        kept = torch.clamp(torch.minimum(counts, C - first), min=0)
+        if kept.is_meta:  # no values (the dry-run): a group within the capacity factor
+            return aux, C, min(C, self.capacity(T, dropless)), first
+        most, dropped = torch.stack([kept.max(), (table[:G].sum(dim=0) - C).clamp(min=0).sum()]
+                                    ).tolist()
+        DROPPED["assignments"] += dropped
+        return aux, C, max(1, most), first

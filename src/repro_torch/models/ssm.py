@@ -24,7 +24,7 @@ from torch import nn
 from repro_torch import kernels as _kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked as _ssd_fast
-from repro_torch.models.layers import DTYPE, Dense, _ones, gelu, rms_norm, silu
+from repro_torch.models.layers import DTYPE, WHOLE, Dense, Products, _ones, gelu, rms_norm, silu
 
 Cache = Dict[str, torch.Tensor]
 
@@ -104,8 +104,9 @@ class Mamba2(nn.Module):
         self.gate_norm = _ones(di, device)
         self.out_proj = Dense(di, d, **kw)
 
-    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, chunk: int = 256):
-        return mamba2_apply(self, self.cfg, u, cache, chunk)
+    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, chunk: int = 256,
+                products: Products = WHOLE):
+        return mamba2_apply(self, self.cfg, u, cache, chunk, products)
 
 
 def _ssd_chunked(
@@ -166,17 +167,22 @@ def mamba2_apply(
     u: torch.Tensor,  # (b, L, d)
     cache: Optional[Cache] = None,  # {"conv_x", "conv_B", "conv_C": (b, W-1, c), "state": (b, nh, hp, n)}
     chunk: int = 256,
+    products: Products = WHOLE,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (y (b, L, d), new cache or None). With a cache, L == 1 and the
-    cache dict is updated in place (JAX returns a new one)."""
-    b, L, d = u.shape
-    di, g, nh = cfg.d_inner, cfg.ssm_groups, cfg.n_ssm_heads
+    cache dict is updated in place (JAX returns a new one).
+
+    Under tensor parallelism (``products`` of ``sharding/partition.py``; no
+    cache) the leaves hold this rank's heads: ``in_z``/``in_x``/``in_dt``
+    columns, the x conv's channels, ``A_log``/``D``/``dt_bias``, the
+    ``gate_norm`` slice and ``out_proj`` rows; ``in_B``/``in_C`` and their
+    convs hold the groups those heads read. The head and group counts are
+    the weights'."""
     hp = cfg.ssm_head_dim
-    z = p.in_z(u)
-    xs_r = p.in_x(u)
-    B_r = p.in_B(u)
-    C_r = p.in_C(u)
-    dt_raw = p.in_dt(u)
+    z, xs_r, B_r, C_r, dt_raw = products.columns(u, (p.in_z, p.in_x, p.in_B, p.in_C, p.in_dt))
+    b, L = z.shape[:2]
+    nh = dt_raw.shape[-1]
+    di, g = nh * hp, B_r.shape[-1] // cfg.ssm_state
     A = -torch.exp(p.A_log)  # (nh,)
 
     if cache is None:
@@ -207,10 +213,10 @@ def mamba2_apply(
         y = torch.einsum("bhpn,bhn->bhp", state, Ch) + xh * p.D[None, :, None]
         y = y[:, None]  # (b, 1, nh, hp)
         cache.update(conv_x=conv_x, conv_B=conv_B, conv_C=conv_C, state=state)
-    # gated RMSNorm + out projection
+    # gated RMSNorm (over the whole d_inner) + out projection
     y = y.reshape(b, L, di).to(u.dtype)
-    y = rms_norm(y, p.gate_norm, cfg.rms_eps) * silu(z)
-    return p.out_proj(y), cache
+    y = products.wide_norm(y, p.gate_norm, cfg.rms_eps, cfg.d_inner) * silu(z)
+    return products.rows(y, p.out_proj), cache
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:

@@ -26,9 +26,28 @@ explicit local tensors with explicit collectives:
   partial sums are reduce-scattered along the sequence into the residual.
   Attention runs on this rank's heads; where ``wk``/``wv`` split a kv head
   (fewer kv heads than ranks) the whole columns are gathered and this rank
-  takes the kv heads its q heads read. The model's own ``Block.forward``
-  and ``Attention``/``MLP`` run the branches: the step passes them a
-  ``split`` and its ``layers.Products``.
+  takes the kv heads its q heads read. MLA runs on this rank's heads too
+  (``wq``, ``kv_up`` columns, ``wo`` rows); ``kv_down`` is gathered whole
+  and the latent and the shared rope key are computed whole on each rank.
+  Mamba-2 runs on this rank's SSD heads (``in_z``/``in_x``/``in_dt``
+  columns, the x conv's channels, ``A_log``/``D``/``dt_bias``,
+  ``out_proj`` rows; ``in_B``/``in_C`` and their convs whole, or the
+  groups its heads read), its gated norm's sum of squares summed over
+  "model" in f32 and its weight this rank's slice. The non-EP MoE routes
+  the whole sequence on every rank, runs this rank's experts (the banks'
+  split at rest), gathers every rank's expert outputs for the unmeshed
+  combine, and keeps its shard; its shared experts are a column / row
+  MLP. The model's own ``Block.forward``, ``_CoreBlock.forward`` and
+  modules run the branches: the step passes them a ``split`` and its
+  ``layers.Products``.
+- **The MoE over the global batch**: a non-EP MoE counts its capacity,
+  each assignment's slot (in the global batch's row-major order: a dp
+  group's per-expert offsets are the earlier groups' counts) and its
+  load-balance terms over all the dp groups' tokens, as the reference's
+  jitted step does (``_GlobalBatch``; the counts all-reduced over the dp
+  dims, P_e summed over them in f32 with an all-reduce as its backward:
+  every dp group back-propagates the global aux of its own copy of the
+  loss, and the sum of those shares is the gradient of the mean).
 - **Rounded as the unmeshed step rounds.** A sum that the split spreads
   over the ranks is reduced in f32 and rounded to bf16 once, where the
   unmeshed step rounds it once: the row product's partial sums, each
@@ -41,13 +60,13 @@ explicit local tensors with explicit collectives:
   shard (masked) and reduce-scattered into the residual; the logits stay
   vocab-sharded and the loss's logsumexp and target logit are summed over
   the shards, so the whole logits are never made.
-- Where a module has no TP here (``n_heads`` that does not divide, MLA,
-  Mamba-2, mLSTM/sLSTM, a non-EP MoE, the frontends, a vocabulary that
-  does not divide) its leaves are gathered whole over "model" too, and it
-  computes the whole gathered sequence and keeps this rank's shard (a
-  per-token frontend or head computes its shard alone). The
-  expert-parallel MoE (``ep_shardmap``) takes this rank's tokens as they
-  are, with this rank's experts.
+- Where a module has no TP here (``n_heads`` or SSD heads that do not
+  divide, mLSTM/sLSTM, a MoE whose experts do not divide over "model",
+  the frontends, a vocabulary that does not divide) its leaves are
+  gathered whole over "model" too, and it computes the whole gathered
+  sequence and keeps this rank's shard (a per-token frontend or head
+  computes its shard alone). The expert-parallel MoE (``ep_shardmap``)
+  takes this rank's tokens as they are, with this rank's experts.
 
 Gradient convention: every rank back-propagates its own copy of its dp
 group's loss, and each collective's backward is its transpose
@@ -76,7 +95,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DTYPE, dense, gelu, normed, rms_norm
-from repro_torch.models.model import Block, cross_entropy, n_units
+from repro_torch.models.model import Block, Mamba2Block, cross_entropy, n_units
+from repro_torch.models.moe import Batch
 from repro_torch.models.moe_ep import _staged, moe_ep_local
 from repro_torch.sharding import hints as hints_mod
 
@@ -246,11 +266,34 @@ class _TensorParallel:
     rank's sequence shard and compute its heads / features; the row product
     reduce-scatters its partial sums into this rank's shard."""
 
-    def __init__(self, group, n: int) -> None:
-        self.group, self.n = group, n
+    def __init__(self, group, n: int, rank: int) -> None:
+        self.group, self.n, self.rank = group, n, rank
 
     def norm(self, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
         return _Scale.apply(normed(x, eps), w, self.group)
+
+    def wide_norm(self, x: torch.Tensor, w: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+        """The RMS norm over all the ranks' features (``width``): each
+        token's sum of squares summed over the tp group in f32; ``w`` is
+        this rank's slice of the weight (its grad complete here)."""
+        xf = x.float()
+        var = _Sum.apply((xf * xf).sum(dim=-1, keepdim=True), self.group) / width
+        return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherSeq.apply(x, 1, self.group, self.n)
+
+    def shard(self, y: torch.Tensor) -> torch.Tensor:
+        s = y.shape[1] // self.n
+        return y.narrow(1, self.rank * s, s)
+
+    def first(self, n_local: int) -> int:
+        return self.rank * n_local
+
+    def experts(self, out: torch.Tensor) -> torch.Tensor:
+        """Every rank's expert outputs side by side (dim 0, rank order); the
+        backward reduce-scatters their grads in f32."""
+        return _GatherSeq.apply(out, 0, self.group, self.n)
 
     def columns(self, x: torch.Tensor, mods) -> list:
         wb = [t for m in mods for t in (m.w, m.b)]
@@ -274,6 +317,29 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum_(g.float().clone(), ctx.group).to(g.dtype), None
+
+
+class _GlobalBatch(Batch):
+    """``moe.Batch`` of the dp groups: the rows are split over mesh dims
+    ``dims`` (major to minor), this rank's group at ``index``; the counts and
+    sums are all-reduced over each of those dims' groups in turn."""
+
+    def __init__(self, pgs, sizes, coord, dims) -> None:
+        self.pgs = [pgs[i] for i in dims]
+        self.groups = math.prod(sizes[i] for i in dims)
+        self.index = 0
+        for i in dims:
+            self.index = self.index * sizes[i] + coord[i]
+
+    def sum_counts(self, x: torch.Tensor) -> torch.Tensor:
+        for pg in self.pgs:
+            _sum_(x, pg)
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        for pg in self.pgs:
+            x = _Sum.apply(x, pg)
+        return x
 
 
 # ------------------------------------------------------------------ #
@@ -412,8 +478,13 @@ class Partition:
         self.tp = self.sizes[tp_dim] if tp_dim is not None else 1
         self.tp_rank = mesh.get_coordinate()[tp_dim] if tp_dim is not None else 0
         self.tp_pg = self.pgs[tp_dim] if tp_dim is not None else None
-        self.products = _TensorParallel(self.tp_pg, self.tp)
+        self.products = _TensorParallel(self.tp_pg, self.tp, self.tp_rank)
         self.mesh_pgs = [pg for pg in self.pgs if pg is not None]
+        self.coord = tuple(mesh.get_coordinate())
+        # the MoE's global batch: the rows split over the other dims (the
+        # batch's placements refine it, ``local_batch``)
+        self.over = _GlobalBatch(self.pgs, self.sizes, self.coord,
+                                 [i for i, n in enumerate(self.sizes) if n > 1 and i != tp_dim])
         self.ep = bool(self.tp > 1 and hints_mod._STATE.get("ep_shardmap"))
 
         params = dict(model.named_parameters())
@@ -433,8 +504,15 @@ class Partition:
             for part in ("attn", "ffn", "moe", "core"):
                 if getattr(blk, part, None) is not None:
                     self.modes[f"{pre}.{part}"] = "local" if self.tp == 1 else "whole"
+            if self.tp > 1 and isinstance(blk, Mamba2Block):
+                self._mamba2(pre, params, on_tp, keep, cols)
             if self.tp == 1 or not isinstance(blk, Block):
                 continue
+            if cfg.use_mla and cfg.n_heads % self.tp == 0 and all(
+                    on_tp(f"{pre}.attn.{w}.w", -1) for w in ("wq", "kv_up")) \
+                    and on_tp(f"{pre}.attn.wo.w", 0):  # heads; kv_down and the latent whole
+                self.modes[f"{pre}.attn"] = "tp"
+                keep.update(f"{pre}.attn.{w}.w" for w in ("wq", "kv_up", "wo"))
             if not cfg.use_mla and cfg.n_heads % self.tp == 0 and on_tp(f"{pre}.attn.wq.w", -1) \
                     and on_tp(f"{pre}.attn.wo.w", 0):
                 self.modes[f"{pre}.attn"] = "tp"
@@ -462,6 +540,15 @@ class Partition:
                 self.modes[f"{pre}.moe"] = "ep"
                 keep.update(f"{pre}.moe.{w}" for w in ("w_gate", "w_up", "w_down")
                             if on_tp(f"{pre}.moe.{w}", 0))
+            elif blk.moe is not None and all(on_tp(f"{pre}.moe.{w}", 0)
+                                             for w in ("w_gate", "w_up", "w_down")) and (
+                    blk.moe.shared is None or (all(on_tp(f"{pre}.moe.shared.{w}.w", -1)
+                                                   for w in ("gate", "up"))
+                                               and on_tp(f"{pre}.moe.shared.down.w", 0))):
+                # this rank's experts (the banks' split at rest) and shared columns / rows
+                self.modes[f"{pre}.moe"] = "tp"
+                keep.update(k for k in params if k.startswith(f"{pre}.moe.")
+                            and not k.startswith(f"{pre}.moe.router"))
         embed = "embed" in params
         self.modes["embed"] = "local" if self.tp == 1 else (
             "vocab" if embed and on_tp("embed", 0) else "whole")
@@ -476,7 +563,8 @@ class Partition:
         if self.tp > 1:
             self.summed = {k for k in params if k.rsplit(".", 1)[-1] in ("ln", "ln1", "ln2")
                            or k == "final_norm"}
-            self.summed.update(k for k in params if k.endswith((".attn.q_norm", ".attn.k_norm"))
+            self.summed.update(k for k in params if k.endswith((".attn.q_norm", ".attn.k_norm",
+                                                                 ".attn.latent_norm"))
                                and self.modes[k.rsplit(".", 2)[0] + ".attn"] == "tp")
 
         def leaf(name: str) -> Leaf:
@@ -504,6 +592,31 @@ class Partition:
                              and i * P <= int(k.split(".")[1]) < (i + 1) * P])
                       for i in range(n_units(cfg))]
 
+    def _mamba2(self, pre: str, params, on_tp, keep: set, cols: dict) -> None:
+        """Mode "tp" for the Mamba-2 core of block ``pre`` where its SSD heads
+        divide over the ranks, each rank's heads read whole B/C groups or
+        share one, and the leaves split by head are split so at rest."""
+        cfg, c = self.cfg, f"{pre}.core."
+        nh, g, n = cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_state
+        if nh % self.tp:
+            return
+        hl, per = nh // self.tp, nh // g  # this rank's heads; heads per group
+        if hl % per and per % hl:
+            return
+        split = {f"{c}{w}.w": -1 for w in ("in_z", "in_x", "in_dt")}
+        split.update({f"{c}out_proj.w": 0, f"{c}conv_x_w": -1, f"{c}conv_x_b": 0,
+                      f"{c}A_log": 0, f"{c}D": 0, f"{c}dt_bias": 0})
+        if not all(on_tp(k, dim) for k, dim in split.items()):
+            return
+        self.modes[f"{pre}.core"] = "tp"
+        keep.update(split)
+        r, di = self.tp_rank, cfg.d_inner // self.tp
+        cols[f"{c}gate_norm"] = (r * di, (r + 1) * di)
+        if g > 1:  # the groups this rank's heads read
+            g0, g1 = r * hl // per, ((r + 1) * hl - 1) // per + 1
+            for w in ("in_B.w", "in_C.w", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b"):
+                cols[c + w] = (g0 * n, g1 * n)
+
     # -------------------------------------------------------------- #
     def local_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """This rank's block of each batch DTensor: its dp group's rows and,
@@ -518,6 +631,10 @@ class Partition:
                 want[self.tp_dim] = Shard(1)
             out[k] = (v if tuple(want) == tuple(v.placements)
                       else v.redistribute(v.device_mesh, want)).to_local()
+            rows = [i for i, pl in enumerate(want)
+                    if i != self.tp_dim and isinstance(pl, Shard) and self.sizes[i] > 1]
+        if batch:  # the dims that split the rows (not all of them where the batch does not divide)
+            self.over = _GlobalBatch(self.pgs, self.sizes, self.coord, rows)
         return out
 
     def _gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -541,15 +658,17 @@ class Partition:
 
         def run(name: str, fn, h: torch.Tensor, ln: torch.Tensor, eps: float):
             mode = self.modes[f"{pre}.{name}"]
+            # a MoE counts over the dp groups' global batch
+            kw = {"over": self.over} if name == "moe" and self.over.groups > 1 else {}
             if mode == "local":
-                return fn(rms_norm(h, ln, eps))
+                return fn(rms_norm(h, ln, eps), **kw)
             h = self.products.norm(h, ln, eps)
-            if mode == "tp":  # this rank's heads / features, partial sums reduced
-                return fn(h, products=self.products)
+            if mode == "tp":  # this rank's heads / features / experts, partial sums reduced
+                return fn(h, products=self.products, **kw)
             if mode == "ep":  # this rank's tokens, with this rank's experts
                 return moe_ep_local(self.cfg, h, _sub(w, f"{pre}.moe."), self.tp_pg,
                                     self.tp_rank, self.tp, self.mesh_pgs)
-            out = fn(self._gather_seq(h))  # whole; this rank's shard kept
+            out = fn(self._gather_seq(h), **kw)  # whole; this rank's shard kept
             if name == "moe":
                 return self._shard(out[0]), out[1]
             return self._shard(out)

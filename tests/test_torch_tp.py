@@ -12,23 +12,34 @@ only; measured under 5e-6), the whole model's grads within 1e-4 of it
 * Module by module on (1, 2) and (1, 4): qwen3-0.6b_smoke's attention (4 q
   heads, 2 kv heads: on 4 ranks one q head a rank and each kv head read by
   two, as qwen3 at 16-way) and MLP, starcoder2-15b_smoke's attention (q/k/v
-  bias, 4/2 heads), the vocab-parallel embedding and loss (tied and untied
-  heads), each rank's sequence shard of the output and of the input's grad,
-  and each weight's grad (the shares summed over the ranks, times the
-  world: the step divides by it) against the unsharded module's. A head
-  count and a vocabulary that do not divide (6 heads, vocab 510 on 4
-  ranks) are computed whole; that config's attention is checked too.
+  bias, 4/2 heads), deepseek-v2-lite-16b_smoke's MLA (this rank's heads,
+  the latent whole) and expert banks (this rank's of 8 experts, their
+  outputs gathered; the aux too), zamba2-2.7b_smoke's Mamba-2 (this
+  rank's of 8 SSD heads; also with 2 B/C groups, whole on 2 ranks and
+  shared by two ranks on 4), the vocab-parallel embedding and loss (tied
+  and untied heads), each rank's sequence shard of the output and of the
+  input's grad, and each weight's grad (the shares summed over the ranks,
+  times the world: the step divides by it) against the unsharded
+  module's. A head count and a vocabulary that do not divide (6 heads,
+  vocab 510 on 4 ranks) are computed whole; that config's attention is
+  checked too.
 * The whole model through ``make_sharded_train_step(...).grads`` on all
   three meshes against ``loss_fn`` on the whole batch: qwen3 (FSDP on,
   ``fsdp_min_elems`` 256 at these widths), the non-dividing config,
   llava-next-34b_smoke (vision), hubert-xlarge_smoke (audio; also with
   510 labels, which do not divide over 4 ranks: the head on each rank's
-  positions),
-  zamba2-2.7b_smoke (Mamba-2 whole over "model"), deepseek-v2-lite-16b_smoke
-  (MLA and MoE whole; (1, 4) only: capacity counts per dp group).
+  positions), zamba2-2.7b_smoke and deepseek-v2-lite-16b_smoke (Mamba-2,
+  MLA and the expert banks in mode "tp"), qwen2-moe-a2.7b_smoke on (2,
+  2); the two MoE configs on (2, 1) too, and deepseek and qwen3 on (2, 2)
+  with ``fsdp_only`` (4 dp groups of one row, nothing TP'd). Where there
+  are several dp groups the MoE counts capacity and aux over the global
+  batch, as ``loss_fn`` on the whole batch does, and drops assignments.
 * On mesh (2, 1), no tensor parallelism, each of the ten smoke configs in
   bf16: ``Partition.loss`` of a rank's rows is ``loss_fn``'s bit for bit
-  (the model's own blocks, embedding and cross-entropy).
+  (the model's own blocks, embedding and cross-entropy); for the two MoE
+  configs, which count over both ranks' rows, the cross-entropy of its
+  rows of ``forward`` on the whole batch plus that batch's aux, bit for
+  bit, with assignments dropped.
 * Each rank's local parameter, grad and moment shapes after a step equal
   its slice by ``param_specs`` (qwen3, (2, 2), FSDP on).
 * Collectives of one step counted by the dry-run's ``StepCounter``: the
@@ -44,7 +55,9 @@ only; measured under 5e-6), the whole model's grads within 1e-4 of it
   outputs more than one unit's (or the root group's) weights, and no grad
   reduce-scatter takes more than one unit's grads.
 * Teeth: with one TP reduce-scatter skipped (the MLP's row partial sums
-  kept unreduced), the MLP output is off by far more than the bound.
+  kept unreduced), the MLP output is off by far more than the bound; so
+  is Mamba-2's with its gated norm's sum-of-squares all-reduce skipped,
+  and the MoE's with the expert outputs' all-gather skipped.
 """
 
 import dataclasses
@@ -58,6 +71,7 @@ import torch.multiprocessing as mp
 
 OUT_TOL, GRAD_REL, LOSS_RTOL = 1e-5, 1e-4, 1e-6
 MESHES = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}
+MOE = "deepseek-v2-lite-16b_smoke"
 B, S = 2, 16
 FSDP_ON = 256  # fsdp_min_elems at which the smoke widths' matrices are FSDP-sharded
 
@@ -70,6 +84,8 @@ def _cfg(name):
                                    n_kv_heads=2, vocab=510)
     if name == "hubert-odd":  # per-position labels, a head that does not divide over 4
         return dataclasses.replace(get_config("hubert-xlarge_smoke"), name=name, vocab=510)
+    if name == "zamba2-g2":  # two B/C groups of 4 heads: whole groups on 2 ranks, shared on 4
+        return dataclasses.replace(get_config("zamba2-2.7b_smoke"), name=name, ssm_groups=2)
     return get_config(name)
 
 
@@ -97,9 +113,25 @@ def _setup(cfg, mesh, rules):
     return whole, state, part, shards
 
 
+LN = {"attn": "ln1", "ffn": "ln2", "moe": "ln2", "core": "ln"}
+
+
+def _call(which: str, mod, a, pos, kw=None):
+    """Branch ``which`` of block 0 -> (output, aux loss or 0)."""
+    kw = kw or {}
+    if which == "attn":
+        return mod(a, pos, **kw), 0.0
+    if which == "core":
+        return mod(a, **kw)[0], 0.0
+    if which == "moe":
+        return mod(a, **kw)
+    return mod(a, **kw), 0.0
+
+
 def _branch_case(cfg, mesh, which: str, seed: int) -> dict:
-    """Block 0's attention or MLP branch on this rank's sequence shard
-    against the unsharded module: output, input grad and weight grads."""
+    """Block 0's attention, MLP, MoE or Mamba-2 branch on this rank's
+    sequence shard against the unsharded module: output (and MoE aux),
+    input grad and weight grads."""
     from torch.func import functional_call
 
     from repro_torch.models.layers import rms_norm
@@ -113,21 +145,25 @@ def _branch_case(cfg, mesh, which: str, seed: int) -> dict:
     c = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))).float()
     pos = torch.arange(S)
     mod = getattr(whole.blocks[0], which)
-    ln = "ln1" if which == "attn" else "ln2"
+    ln = LN[which]
     hn = rms_norm(h, getattr(whole.blocks[0], ln), cfg.rms_eps)
-    y = mod(hn, pos) if which == "attn" else mod(hn)
-    (y * c).sum().backward()
+    y, aux = _call(which, mod, hn, pos)
+    ((y * c).sum() + aux).backward()
     w = gather_group(part.units[0], shards)
     pre = f"blocks.0.{which}."
     sub = {k[len(pre):]: v for k, v in w.items() if k.startswith(pre)}
     dmod = getattr(state["model"].blocks[0], which)
     h_loc = part._shard(h.detach()).clone().requires_grad_(True)
-    args = (pos,) if which == "attn" else ()
     mode = part.modes[f"blocks.0.{which}"]
-    y_loc = part.split("blocks.0", w)(
-        which, lambda a, **kw: functional_call(dmod, sub, (a, *args), kw), h_loc,
-        w[f"blocks.0.{ln}"], cfg.rms_eps)
-    (y_loc * part._shard(c)).sum().backward()
+
+    def fn(a, **kw):  # the branch as the block passes it: MoE (y, aux), else y
+        out = _call(which, lambda *x, **k: functional_call(dmod, sub, x, k), a, pos, kw)
+        return out if which == "moe" else out[0]
+
+    out = part.split("blocks.0", w)(which, fn, h_loc, w[f"blocks.0.{ln}"], cfg.rms_eps)
+    y_loc, aux_loc = out if which == "moe" else (out, 0.0)
+    # each rank's share of the objective: its shard's products, 1/tp of the aux
+    ((y_loc * part._shard(c)).sum() + aux_loc / part.tp).backward()
     params = dict(state["model"].named_parameters())
     grads = {}
     for k, p in whole.named_parameters():
@@ -135,6 +171,7 @@ def _branch_case(cfg, mesh, which: str, seed: int) -> dict:
             idx = local_index(params[k].shape, mesh, params[k].placements)
             grads[k] = _rel(shards[k].grad * part.world, p.grad[idx])
     return {"mode": mode, "y": _rel(y_loc, part._shard(y)), "dx": _rel(h_loc.grad, part._shard(h.grad)),
+            "aux": abs(float(aux_loc) - float(aux)) / max(abs(float(aux)), 1e-30),
             "grads": grads, "shapes": {k: tuple(v.shape) for k, v in sub.items()}}
 
 
@@ -177,9 +214,14 @@ def _vocab_case(cfg, mesh, seed: int) -> dict:
 def _local_case(cfg, mesh, seed: int) -> bool:
     """On a mesh with no tensor parallelism, ``Partition.loss`` of this
     rank's rows in bf16 against ``loss_fn`` of the same rows: bit for bit
-    (the same forward, embedding and cross-entropy)."""
+    (the same forward, embedding and cross-entropy). A MoE counts its
+    capacity and aux over the global batch (both ranks' rows, as the
+    reference's step does): against the cross-entropy of this rank's rows
+    of ``forward`` on the whole batch plus its aux, bit for bit, with some
+    assignment dropped."""
     from repro_torch.launch import steps
-    from repro_torch.models.model import Model, loss_fn
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, cross_entropy, forward, loss_fn
     from repro_torch.optim import adamw
     from repro_torch.sharding.partition import Partition
     from repro_torch.sharding.specs import ShardingRules
@@ -194,10 +236,16 @@ def _local_case(cfg, mesh, seed: int) -> bool:
               for k, p in state["model"].named_parameters()}
     n = 4 // mesh.size(0)
     r = mesh.get_coordinate()[0]
-    rows = {k: torch.from_numpy(v[r * n:(r + 1) * n]) for k, v in
-            _batch(cfg, np.random.default_rng(seed)).items()}
+    full = {k: torch.from_numpy(v) for k, v in _batch(cfg, np.random.default_rng(seed)).items()}
+    rows = {k: v[r * n:(r + 1) * n] for k, v in full.items()}
     assert set(part.modes.values()) == {"local"}
-    return bool(torch.equal(part.loss(state["model"], shards, rows), loss_fn(cfg, whole, rows)))
+    before = moe.DROPPED["assignments"]
+    got = part.loss(state["model"], shards, rows)
+    if not cfg.n_routed_experts:
+        return bool(torch.equal(got, loss_fn(cfg, whole, rows)))
+    logits, aux = forward(cfg, whole, full)
+    want = cross_entropy(cfg, logits[r * n:(r + 1) * n], rows) + aux
+    return bool(torch.equal(got, want)) and moe.DROPPED["assignments"] > before
 
 
 def _batch(cfg, rng):
@@ -217,6 +265,7 @@ def _model_case(cfg, mesh, rules, seed: int, count: bool = False) -> dict:
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import _place
     from repro_torch.launch import dryrun, steps
+    from repro_torch.models import moe
     from repro_torch.models.model import loss_fn
     from repro_torch.optim import adamw
     from repro_torch.sharding import partition
@@ -242,6 +291,7 @@ def _model_case(cfg, mesh, rules, seed: int, count: bool = False) -> dict:
         flat_g, flat_s = partition._gather_flat, partition._scatter_flat
         partition._gather_flat = lambda x, g, n: gathers.append(n * x.numel()) or flat_g(x, g, n)
         partition._scatter_flat = lambda x, g, n: scatters.append(x.numel()) or flat_s(x, g, n)
+        before = moe.DROPPED["assignments"]
         try:
             if count:
                 with dryrun.StepCounter() as c:
@@ -256,7 +306,8 @@ def _model_case(cfg, mesh, rules, seed: int, count: bool = False) -> dict:
                "grads": {k: _rel(g, whole_grads[k].grad[local_index(params[k].shape, mesh,
                                                                        params[k].placements)])
                          for k, g in grads.items()},
-               "modes": dict(fn.partition.modes)}
+               "modes": dict(fn.partition.modes), "groups": fn.partition.over.groups,
+               "dropped": moe.DROPPED["assignments"] - before}
         if count:
             part = fn.partition
             out["counts"] = {k: c.collectives.counts.get(k, 0)
@@ -317,6 +368,35 @@ def _teeth(cfg, mesh, seed: int) -> float:
         partition._scatter_dim = scatter
 
 
+def _teeth_norm(cfg, mesh, seed: int) -> float:
+    """Mamba-2 with its gated norm's sum-of-squares all-reduce skipped:
+    each rank normalises over its own channels."""
+    from repro_torch.sharding import partition
+
+    class Skipped:  # the branch's only all-reduce over "model"
+        apply = staticmethod(lambda x, group: x)
+
+    summed, partition._Sum = partition._Sum, Skipped
+    try:
+        return _branch_case(cfg, mesh, "core", seed)["y"]
+    finally:
+        partition._Sum = summed
+
+
+def _teeth_experts(cfg, mesh, seed: int) -> float:
+    """The expert banks with their outputs' all-gather skipped: the other
+    ranks' experts read zeros."""
+    from repro_torch.sharding.partition import _TensorParallel
+
+    gather = _TensorParallel.experts
+    _TensorParallel.experts = lambda self, out: torch.cat(
+        [out if r == self.rank else torch.zeros_like(out) for r in range(self.n)])
+    try:
+        return _branch_case(cfg, mesh, "moe", seed)["y"]
+    finally:
+        _TensorParallel.experts = gather
+
+
 def _worker(rank, world, d):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{d}/pg{world}", rank=rank,
@@ -336,20 +416,34 @@ def _worker(rank, world, d):
             for arch in ("qwen3-0.6b_smoke", "starcoder2-15b_smoke", "odd"):
                 res[("vocab", arch, m)] = _vocab_case(_cfg(arch), mesh, 3)
             res[("teeth", m)] = _teeth(_cfg("qwen3-0.6b_smoke"), mesh, 2)
+            # MLA, the expert banks, Mamba-2 (one B/C group, and two)
+            res[("attn", MOE, m)] = _branch_case(_cfg(MOE), mesh, "attn", 1)
+            res[("moe", MOE, m)] = _branch_case(_cfg(MOE), mesh, "moe", 6)
+            for arch in ("zamba2-2.7b_smoke", "zamba2-g2"):
+                res[("core", arch, m)] = _branch_case(_cfg(arch), mesh, "core", 7)
+            res[("teeth-norm", m)] = _teeth_norm(_cfg("zamba2-2.7b_smoke"), mesh, 7)
+            res[("teeth-experts", m)] = _teeth_experts(_cfg(MOE), mesh, 6)
         fsdp = ShardingRules(fsdp_min_elems=FSDP_ON)
         archs = ["qwen3-0.6b_smoke", "odd", "llava-next-34b_smoke", "hubert-xlarge_smoke",
-                 "hubert-odd", "zamba2-2.7b_smoke"] + (
-                     ["deepseek-v2-lite-16b_smoke"] if shape[0] == 1 else [])
+                 "hubert-odd", "zamba2-2.7b_smoke", MOE] + (
+                     ["qwen2-moe-a2.7b_smoke"] if shape == (2, 2) else [])
         for arch in archs:
             res[("model", arch, m)] = _model_case(_cfg(arch), mesh, fsdp, 4,
                                                   count=arch == "qwen3-0.6b_smoke")
         if shape == (2, 2):  # the per-unit counts: 4 layers less 2
             deep = dataclasses.replace(_cfg("qwen3-0.6b_smoke"), n_layers=4)
             res[("model", "qwen3-4layers", m)] = _model_case(deep, mesh, fsdp, 4, count=True)
+            # "model" joins the dp dims: 4 dp groups of one row, nothing TP'd
+            only = ShardingRules(fsdp_only=True, fsdp_min_elems=FSDP_ON)
+            for arch in ("qwen3-0.6b_smoke", MOE):
+                res[("model", arch, "2x2-fsdp_only")] = _model_case(_cfg(arch), mesh, only, 4)
     if world == 2:  # no tensor parallelism: the model's own arithmetic
         mesh = make_mesh((2, 1), ("data", "model"), device_type="cpu")
         for arch in LOCAL:
             res[("local", arch)] = _local_case(_cfg(arch), mesh, 5)
+        for arch in (MOE, "qwen2-moe-a2.7b_smoke"):  # two dp groups, one global batch
+            res[("model", arch, "2x1")] = _model_case(_cfg(arch), mesh,
+                                                      ShardingRules(fsdp_min_elems=FSDP_ON), 4)
     torch.save(res, d / f"{world}_{rank}.pt")
     dist.destroy_process_group()
 
@@ -372,11 +466,13 @@ LOCAL = [f"{a}_smoke" for a in ("qwen3-0.6b", "codeqwen1.5-7b", "starcoder2-15b"
 
 
 def _ranks(m):
-    return range(int(np.prod([int(x) for x in m.split("x")])))
+    return range(int(np.prod([int(x) for x in m.split("-")[0].split("x")])))
 
 
 BRANCH = [(w, a, m, r) for w, a in (("attn", "qwen3-0.6b_smoke"), ("attn", "starcoder2-15b_smoke"),
-                                    ("attn", "odd"), ("ffn", "qwen3-0.6b_smoke"))
+                                    ("attn", "odd"), ("ffn", "qwen3-0.6b_smoke"), ("attn", MOE),
+                                    ("moe", MOE), ("core", "zamba2-2.7b_smoke"),
+                                    ("core", "zamba2-g2"))
           for m in ("1x2", "1x4") for r in _ranks(m)]
 
 
@@ -385,17 +481,31 @@ def test_tp_branch_matches_the_unsharded_module(results, which, arch, mesh, rank
     r = results[(which, arch, mesh, rank)]
     whole = arch == "odd" and mesh == "1x4"  # 6 heads on 4 ranks: computed whole
     assert r["mode"] == ("whole" if whole else "tp")
-    assert r["y"] <= OUT_TOL and r["dx"] <= OUT_TOL, (r["y"], r["dx"])
+    assert r["y"] <= OUT_TOL and r["dx"] <= OUT_TOL and r["aux"] <= LOSS_RTOL, (r["y"], r["dx"],
+                                                                                r["aux"])
     bad = {k: v for k, v in r["grads"].items() if v > OUT_TOL}
     assert not bad and r["grads"], bad
-    if which == "attn" and not whole:  # this rank's heads: its q heads, the kv heads they read
-        tp = int(mesh.split("x")[1])
-        cfg = _cfg(arch)
+    tp = int(mesh.split("x")[1])
+    cfg = _cfg(arch)
+    if which == "attn" and not whole and not cfg.use_mla:  # its q heads, the kv heads they read
         hd = cfg.head_dim
         hq = cfg.n_heads // tp
         assert r["shapes"]["wq.w"] == (cfg.d_model, hq * hd) and r["shapes"]["wo.w"] == (hq * hd,
                                                                                         cfg.d_model)
         assert r["shapes"]["wk.w"] == (cfg.d_model, max(1, cfg.n_kv_heads // tp) * hd)
+    if which == "attn" and cfg.use_mla:  # this rank's heads; the latent's projection whole
+        h = cfg.n_heads // tp
+        assert r["shapes"]["wq.w"] == (cfg.d_model, h * (cfg.nope_head_dim + cfg.rope_head_dim))
+        assert r["shapes"]["kv_up.w"] == (cfg.kv_lora_rank,
+                                          h * (cfg.nope_head_dim + cfg.v_head_dim))
+        assert r["shapes"]["kv_down.w"] == (cfg.d_model, cfg.kv_lora_rank + cfg.rope_head_dim)
+    if which == "moe":  # this rank's experts
+        assert r["shapes"]["w_gate"][0] == cfg.n_routed_experts // tp
+    if which == "core":  # this rank's heads and channels, the groups they read
+        nh, di, n, g = cfg.n_ssm_heads // tp, cfg.d_inner // tp, cfg.ssm_state, cfg.ssm_groups
+        assert r["shapes"]["in_dt.w"] == (cfg.d_model, nh) and r["shapes"]["gate_norm"] == (di,)
+        assert r["shapes"]["in_x.w"] == (cfg.d_model, di) and r["shapes"]["out_proj.w"][0] == di
+        assert r["shapes"]["in_B.w"] == (cfg.d_model, max(1, g // tp) * n)
 
 
 VOCAB = [(a, m, r) for a in ("qwen3-0.6b_smoke", "starcoder2-15b_smoke", "odd")
@@ -414,9 +524,11 @@ def test_vocab_parallel_embedding_and_loss(results, arch, mesh, rank):
 
 MODEL = [(a, m, r) for m in ("1x2", "1x4", "2x2")
          for a in ("qwen3-0.6b_smoke", "odd", "llava-next-34b_smoke", "hubert-xlarge_smoke",
-                   "hubert-odd", "zamba2-2.7b_smoke")
-         + (("deepseek-v2-lite-16b_smoke",) if m != "2x2" else ())
+                   "hubert-odd", "zamba2-2.7b_smoke", MOE)
+         + (("qwen2-moe-a2.7b_smoke",) if m == "2x2" else ())
          for r in _ranks(m)]
+MODEL += [(a, "2x1", r) for a in (MOE, "qwen2-moe-a2.7b_smoke") for r in range(2)]
+MODEL += [(a, "2x2-fsdp_only", r) for a in ("qwen3-0.6b_smoke", MOE) for r in range(4)]
 
 
 @pytest.mark.parametrize("arch,mesh,rank", MODEL)
@@ -426,8 +538,19 @@ def test_partitioned_model_matches_loss_fn(results, arch, mesh, rank):
     bad = {k: v for k, v in r["grads"].items() if v > GRAD_REL}
     assert not bad and len(r["grads"]) > 10, bad
     assert r["shapes"]  # parameters, grads and moments: this rank's slices by param_specs
-    if arch == "qwen3-0.6b_smoke":
-        assert set(r["modes"].values()) == {"tp", "vocab"}
+    modes = r["modes"]
+    if mesh == "2x2-fsdp_only":  # nothing TP'd; four dp groups
+        assert set(modes.values()) == {"local"} and r["groups"] == 4
+    elif arch == "qwen3-0.6b_smoke":
+        assert set(modes.values()) == {"tp", "vocab"}
+    if mesh in ("1x2", "1x4", "2x2") and arch in ("zamba2-2.7b_smoke", MOE,
+                                                  "qwen2-moe-a2.7b_smoke"):
+        # Mamba-2, MLA and the expert banks on this rank's heads and experts
+        assert all(v == "tp" for k, v in modes.items()
+                   if k.endswith((".core", ".attn", ".moe", ".ffn"))), modes
+    if _cfg(arch).n_routed_experts and mesh != "1x2" and mesh != "1x4":
+        # capacity over the global batch of the dp groups, and it binds
+        assert r["groups"] == int(mesh[0]) * (2 if "fsdp" in mesh else 1) and r["dropped"] > 0
 
 
 @pytest.mark.parametrize("arch,rank", [(a, r) for a in LOCAL for r in range(2)])
@@ -459,3 +582,13 @@ def test_collectives_per_unit(results, rank):
 def test_skipping_a_tp_reduce_scatter_fails_the_check(results, mesh):
     for rank in _ranks(mesh):
         assert results[("teeth", mesh, rank)] > 100 * OUT_TOL
+
+
+@pytest.mark.parametrize("which", ["teeth-norm", "teeth-experts"])
+@pytest.mark.parametrize("mesh", ["1x2", "1x4"])
+def test_skipping_a_new_collective_fails_the_check(results, which, mesh):
+    """The gated norm's sum of squares not summed over "model", or the
+    expert outputs not gathered: the branch's output is off by far more
+    than the bound."""
+    for rank in _ranks(mesh):
+        assert results[(which, mesh, rank)] > 100 * OUT_TOL
