@@ -372,6 +372,18 @@ def _mesh(multi_pod: bool, mesh_shape: Optional[Sequence[int]]):
     return make_mesh(tuple(mesh_shape), axes, device_type="cpu")
 
 
+def _modes(part) -> Optional[dict]:
+    """A train step's partition: its branches by mode, and by name those
+    computed whole over "model" (no TP, no heads x rows)."""
+    if part is None:
+        return None
+    counts: Dict[str, int] = defaultdict(int)
+    for mode in part.modes.values():
+        counts[mode] += 1
+    return {"modes": dict(sorted(counts.items())),
+            "whole": sorted(k for k, v in part.modes.items() if v == "whole")}
+
+
 def run_cell(arch: Union[str, ModelConfig], shape_name: Union[str, ShapeConfig],
              multi_pod: bool, rules=None, out_dir: Path = OUT_DIR, remat: bool = True,
              tag: str = "", hbm_bytes: int = 0,
@@ -464,6 +476,7 @@ def run_cell(arch: Union[str, ModelConfig], shape_name: Union[str, ShapeConfig],
         "memory_tpu_analytic": analytic,
         "microbatches": microbatches,
         "model_flops": model_flops(cfg, shape),
+        "partition": _modes(getattr(fn, "partition", None)),
         "hlo_lines": 0,
         "aten_ops": tr["ops"],
         "lower_s": t_build,

@@ -252,7 +252,7 @@ def make_sharded_train_step(
     from torch.distributed.tensor import Shard
 
     from repro_torch.runtime import PeerStepError
-    from repro_torch.sharding.partition import Partition
+    from repro_torch.sharding.partition import Partition, dp_rows
     from repro_torch.sharding.specs import ShardingRules
 
     rules = rules or ShardingRules()
@@ -260,7 +260,8 @@ def make_sharded_train_step(
     def grads_phase(model, batch):
         part = getattr(train_step, "partition", None)
         if part is None:  # the plan is the state's placements': made once
-            part = train_step.partition = Partition(cfg, model, mesh, rules)
+            part = train_step.partition = Partition(
+                cfg, model, mesh, rules, rows=dp_rows(batch, mesh, rules) // microbatches)
         # this rank's slices as leaves of the step (the state's storage)
         shards = {k: p.to_local().detach().requires_grad_(True)
                   for k, p in model.named_parameters()}

@@ -84,15 +84,17 @@ class Products:
     """How a module computes its column products (``x`` through several
     weights split by output features), its row product (a weight split by
     input features) and its norms: whole, as here. ``Attention``, ``MLA``,
-    ``MLP``, ``MoE`` and ``Mamba2`` take one; the partitioned train step
-    gives them its tensor-parallel products (``sharding/partition.py``),
-    which take this rank's sequence shard in and give this rank's shard of
-    the residual back, and whose norms sum their weights' grads over the
-    ranks' heads or tokens. The MoE also takes the whole sequence of a
+    ``MLP``, ``MoE``, ``Mamba2``, ``MLSTM`` and ``SLSTM`` take one; the
+    partitioned train step gives them its tensor-parallel products
+    (``sharding/partition.py``), which take this rank's sequence shard in
+    and give this rank's shard of the residual back, and whose norms sum
+    their weights' grads over the ranks' heads or tokens. The MoE also takes the whole sequence of a
     shard (``whole``), the offset of this rank's experts (``first``), every
     rank's expert outputs (``experts``) and this rank's shard of a whole
-    sequence (``shard``); Mamba-2's gated norm sums its squares over the
-    ranks' channels (``wide_norm``)."""
+    sequence (``shard``); Mamba-2's gated norm and the mLSTM and sLSTM
+    output norms sum their squares over the ranks' channels
+    (``wide_norm``), and mLSTM's cell input and sLSTM's normed output are
+    gathered over them (``gather``)."""
 
     @staticmethod
     def norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -114,6 +116,11 @@ class Products:
 
     @staticmethod
     def whole(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    @staticmethod
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        """Every rank's features of ``x`` side by side (the last dim)."""
         return x
 
     @staticmethod

@@ -24,7 +24,7 @@ from torch import nn
 from repro_torch import kernels as _kernels
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_chunked as _ssd_fast
-from repro_torch.models.layers import DTYPE, WHOLE, Dense, Products, _ones, gelu, rms_norm, silu
+from repro_torch.models.layers import DTYPE, WHOLE, Dense, Products, _ones, gelu, silu
 
 Cache = Dict[str, torch.Tensor]
 
@@ -255,8 +255,9 @@ class MLSTM(nn.Module):
         self.out_norm = _ones(di, device)
         self.down = Dense(di, d, **kw)
 
-    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, chunk: int = 256):
-        return mlstm_apply(self, self.cfg, u, cache, chunk)
+    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, chunk: int = 256,
+                products: Products = WHOLE):
+        return mlstm_apply(self, self.cfg, u, cache, chunk, products)
 
 
 def _mlstm_chunked(
@@ -322,18 +323,28 @@ def mlstm_apply(
     u: torch.Tensor,  # (b, L, d)
     cache: Optional[Cache] = None,  # {"conv": (b, W-1, di), "C": (b, nh, dh, dh), "n", "m"}
     chunk: int = 256,
+    products: Products = WHOLE,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (y (b, L, d), the cache or None). Without a cache, the
     chunked form over chunks of min(chunk, L) (L must divide into them);
     with one, L == 1 and the cache dict is updated in place (JAX returns a
-    new one)."""
-    b, L, d = u.shape
-    di, nh = cfg.d_inner, cfg.n_heads
-    dh = di // nh
-    a, gate = p.up(u).chunk(2, dim=-1)
-    ilog = p.w_i(u).float()  # (b, L, nh)
-    flog = -softplus(-p.w_f(u).float())  # jax.nn.log_sigmoid
+    new one).
+
+    Under tensor parallelism (``products`` of ``sharding/partition.py``; no
+    cache) the leaves hold this rank's heads: ``up``'s columns of their
+    channels in each half, ``w_i``/``w_f`` columns, ``wq``/``wk``/``wv``
+    columns, the ``out_norm`` slice and ``down`` rows; the conv is whole.
+    The cell input is computed on this rank's channels and gathered whole
+    (``products.gather``): every q/k/v head reads all of it. The head
+    count is the gates'."""
+    dh = cfg.d_inner // cfg.n_heads
+    ag, i_raw, f_raw = products.columns(u, (p.up, p.w_i, p.w_f))
+    a, gate = ag.chunk(2, dim=-1)
+    b, L, nh = i_raw.shape
+    ilog = i_raw.float()  # (b, L, nh)
+    flog = -softplus(-f_raw.float())  # jax.nn.log_sigmoid
     if cache is None:
+        a = products.gather(a)
         c = silu(causal_conv1d(a, p.conv_w, p.conv_b))
         q = p.wq(c).reshape(b, L, nh, dh)
         k = p.wk(c).reshape(b, L, nh, dh)
@@ -360,9 +371,9 @@ def mlstm_apply(
         den = torch.einsum("bhd,bhd->bh", q, n_new)
         y = (num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])[:, None]
         cache.update(conv=conv, C=C_new, n=n_new, m=m_new)
-    y = y.reshape(b, L, di).to(u.dtype)
-    y = rms_norm(y, p.out_norm, cfg.rms_eps) * silu(gate)
-    return p.down(y), cache
+    y = y.reshape(b, L, nh * dh).to(u.dtype)
+    y = products.wide_norm(y, p.out_norm, cfg.rms_eps, cfg.d_inner) * silu(gate)
+    return products.rows(y, p.down), cache
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:
@@ -401,15 +412,17 @@ class SLSTM(nn.Module):
         self.ffn_up = Dense(d, ffw, **kw)
         self.ffn_down = Dense(ffw, d, **kw)
 
-    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None):
-        return slstm_apply(self, self.cfg, u, cache)
+    def forward(self, u: torch.Tensor, cache: Optional[Cache] = None, products: Products = WHOLE):
+        return slstm_apply(self, self.cfg, u, cache, products)
 
 
-def _slstm_cell(carry, gx: torch.Tensor, r: torch.Tensor):
+def _slstm_cell(carry, gx: torch.Tensor, rw: torch.Tensor):
     """One sLSTM step. carry: (c, n, h, m), each (b, nh, hd) f32; gx: (b, 4,
-    nh, hd) the input paths; r: (4, nh, hd, hd) f32."""
+    nh, hd) the input paths; rw: (nh, hd, 4 hd) f32, the recurrent matrices
+    ``r`` (4, nh, hd, hd) as one operand per head (``_recurrent``)."""
     c, n, h, m = carry
-    rec = torch.einsum("bhd,ghde->bghe", h, r)  # (b, 4, nh, hd)
+    b, nh, hd = h.shape
+    rec = torch.bmm(h.transpose(0, 1), rw).view(nh, b, 4, hd).permute(1, 2, 0, 3)  # (b, 4, nh, hd)
     z_r, i_r, f_r, o_r = [(gx[:, g] + rec[:, g]).float() for g in range(4)]
     z = torch.tanh(z_r)
     o = torch.sigmoid(o_r)
@@ -422,20 +435,37 @@ def _slstm_cell(carry, gx: torch.Tensor, r: torch.Tensor):
     return c_new, n_new, h_new, m_new
 
 
+def _recurrent(r: torch.Tensor) -> torch.Tensor:
+    """(4, nh, hd, hd) -> (nh, hd, 4 hd) f32, made once per call: inside the
+    loop ``einsum("bhd,ghde->bghe")`` copied ``r`` so at every position,
+    and autograd kept each copy for the backward (16 GiB a rank over 4096
+    positions of one head at full width). The same products, bit for bit."""
+    nh, hd = r.shape[1], r.shape[2]
+    return r.float().permute(1, 2, 0, 3).reshape(nh, hd, 4 * hd)
+
+
 def slstm_apply(
     p: SLSTM,
     cfg: ModelConfig,
     u: torch.Tensor,  # (b, L, d)
     cache: Optional[Cache] = None,  # {"c", "n", "h", "m"}: (b, nh, hd) f32
+    products: Products = WHOLE,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (y (b, L, d), the cache or None). Without a cache, a loop
     over the L positions from (0, 0, 0, -1e30); with one, L == 1 and the
-    cache dict is updated in place."""
-    b, L, d = u.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    gx = p.wx(u).reshape(b, L, 4, nh, hd)
-    r = p.r.float()
+    cache dict is updated in place.
+
+    Under tensor parallelism (``products`` of ``sharding/partition.py``; no
+    cache) the leaves hold this rank's heads: ``wx``'s z/i/f/o columns of
+    them, ``r[:, heads]``, the ``out_norm`` slice; the loop runs on those
+    heads alone. The normed output is gathered over the channels
+    (``products.gather``) for the column ``ffn_up`` and the row
+    ``ffn_down``. The head count is ``r``'s."""
+    nh, hd = p.r.shape[1], cfg.d_model // cfg.n_heads
+    gx = products.columns(u, (p.wx,))[0]
+    b, L = gx.shape[:2]
+    gx = gx.reshape(b, L, 4, nh, hd)
+    r = _recurrent(p.r)
     if cache is None:
         zero = torch.zeros((b, nh, hd), dtype=torch.float32, device=u.device)
         carry = (zero, zero, zero, torch.full((b, nh, hd), -1e30, dtype=torch.float32,
@@ -444,13 +474,13 @@ def slstm_apply(
         for t in range(L):
             carry = _slstm_cell(carry, gx[:, t], r)
             hs.append(carry[2])
-        y = torch.stack(hs, dim=1).reshape(b, L, d)
+        y = torch.stack(hs, dim=1).reshape(b, L, nh * hd)
     else:
         c, n, h, m = _slstm_cell((cache["c"], cache["n"], cache["h"], cache["m"]), gx[:, 0], r)
-        y = h.reshape(b, 1, d)
+        y = h.reshape(b, 1, nh * hd)
         cache.update(c=c, n=n, h=h, m=m)
-    y = rms_norm(y.to(u.dtype), p.out_norm, cfg.rms_eps)
-    return p.ffn_down(gelu(p.ffn_up(y))), cache
+    y = products.gather(products.wide_norm(y.to(u.dtype), p.out_norm, cfg.rms_eps, cfg.d_model))
+    return products.rows(gelu(p.ffn_up(y)), p.ffn_down), cache
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Cache:

@@ -33,7 +33,16 @@ explicit local tensors with explicit collectives:
   columns, the x conv's channels, ``A_log``/``D``/``dt_bias``,
   ``out_proj`` rows; ``in_B``/``in_C`` and their convs whole, or the
   groups its heads read), its gated norm's sum of squares summed over
-  "model" in f32 and its weight this rank's slice. The non-EP MoE routes
+  "model" in f32 and its weight this rank's slice. mLSTM runs on this
+  rank's heads (``up``'s channels of them in each half, ``w_i``/``w_f``,
+  ``wq``/``wk``/``wv`` columns, ``down`` rows): its cell input is computed
+  on this rank's channels and all-gathered over "model" (every q/k/v head
+  reads every channel of it and of its conv, which runs whole), its
+  output norm's sum of squares summed over "model". sLSTM runs its loop
+  over positions on this rank's heads (``wx``'s z/i/f/o columns of them,
+  ``r[:, heads]``): no collective inside the loop; its output norm summed
+  likewise, its normed output all-gathered over the channels for the
+  column / row FFN. The non-EP MoE routes
   the whole sequence on every rank, runs this rank's experts (the banks'
   split at rest), gathers every rank's expert outputs for the unmeshed
   combine, and keeps its shard; its shared experts are a column / row
@@ -60,9 +69,24 @@ explicit local tensors with explicit collectives:
   shard (masked) and reduce-scattered into the residual; the logits stay
   vocab-sharded and the loss's logsumexp and target logit are summed over
   the shards, so the whole logits are never made.
-- Where a module has no TP here (``n_heads`` or SSD heads that do not
-  divide, mLSTM/sLSTM, a MoE whose experts do not divide over "model",
-  the frontends, a vocabulary that does not divide) its leaves are
+- **Heads x rows** (mode ``"rows"``) for an attention (not MLA), mLSTM or
+  sLSTM block whose heads do not divide over "model" (n ranks): h, the
+  largest divisor of n dividing its head counts (h > 1), and r = n / h
+  row groups, where r divides the dp group's rows. The "model" ranks
+  ``k r + j`` (k < h) form row group j: its h ranks compute its b / r of
+  the dp group's rows, each on its own 1/h of the heads. The r
+  consecutive ranks ``k r .. k r + r - 1`` exchange by one all-to-all
+  (``_Regroup``) their sequence shards of all b rows for row block j's
+  b / r rows over their r shards, the sequence chunk k of n / r shards;
+  inside the row group the block then runs the tensor parallelism above
+  over h ranks (``_TensorParallel`` on that group). The inverse
+  all-to-all returns each rank's sequence shard; each all-to-all is the
+  other's backward. The weights are gathered whole over "model" and each
+  rank takes its heads' slices (``Leaf.cols``): their grads sum over
+  the row groups where the whole block's summed over every rank.
+- Where a module has no TP here (SSD heads that do not divide, a block
+  whose heads fit no row split, a MoE whose experts do not divide over
+  "model", the frontends, a vocabulary that does not divide) its leaves are
   gathered whole over "model" too, and it computes the whole gathered
   sequence and keeps this rank's shard (a per-token frontend or head
   computes its shard alone). The expert-parallel MoE (``ep_shardmap``)
@@ -95,7 +119,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import DTYPE, dense, gelu, normed, rms_norm
-from repro_torch.models.model import Block, Mamba2Block, cross_entropy, n_units
+from repro_torch.models.model import (Block, Mamba2Block, MLSTMBlock, SLSTMBlock, cross_entropy,
+                                      n_units)
 from repro_torch.models.moe import Batch
 from repro_torch.models.moe_ep import _staged, moe_ep_local
 from repro_torch.sharding import hints as hints_mod
@@ -142,6 +167,43 @@ def _gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 def _scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     m = x.movedim(dim, 0)
     return _scatter_flat(m.reshape(-1), group, n).view(m.shape[0] // n, *m.shape[1:]).movedim(0, dim)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Equal blocks along dim 0: block j goes to rank j of ``group``."""
+    src = _host(x.contiguous(), group)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device)
+
+
+def _regroup(x: torch.Tensor, group, r: int, to_rows: bool) -> torch.Tensor:
+    """Over a row group's ``r`` ranks: ``to_rows`` (b, s, ...) this rank's
+    sequence shard of the b rows -> (b / r, r s, ...) row block j's rows
+    (j this rank's place in ``group``) over the r ranks' shards, in order;
+    else the inverse."""
+    if to_rows:
+        b, s, *rest = x.shape
+        out = _all_to_all(x.reshape(r, b // r, s, *rest), group)  # block k from rank k
+        return out.transpose(0, 1).reshape(b // r, r * s, *rest)
+    b, rs, *rest = x.shape
+    send = x.reshape(b, r, rs // r, *rest).transpose(0, 1)  # shard k to rank k
+    return _all_to_all(send, group).reshape(r * b, rs // r, *rest)
+
+
+class _Regroup(torch.autograd.Function):
+    """``_regroup`` as a differentiable exchange: the backward is the
+    inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, r, to_rows):
+        ctx.args = group, r, to_rows
+        return _regroup(x, group, r, to_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, r, to_rows = ctx.args
+        return _regroup(g, group, r, not to_rows), None, None, None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -266,11 +328,14 @@ class _TensorParallel:
     rank's sequence shard and compute its heads / features; the row product
     reduce-scatters its partial sums into this rank's shard."""
 
-    def __init__(self, group, n: int, rank: int) -> None:
+    def __init__(self, group, n: int, rank: int, norm_group=None) -> None:
         self.group, self.n, self.rank = group, n, rank
+        # the ranks whose tokens or heads share a norm weight (a row
+        # group's: every "model" rank's)
+        self.norm_group = group if norm_group is None else norm_group
 
     def norm(self, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-        return _Scale.apply(normed(x, eps), w, self.group)
+        return _Scale.apply(normed(x, eps), w, self.norm_group)
 
     def wide_norm(self, x: torch.Tensor, w: torch.Tensor, eps: float, width: int) -> torch.Tensor:
         """The RMS norm over all the ranks' features (``width``): each
@@ -282,6 +347,10 @@ class _TensorParallel:
 
     def whole(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherSeq.apply(x, 1, self.group, self.n)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's features side by side (the last dim, rank order)."""
+        return _GatherSeq.apply(x, x.dim() - 1, self.group, self.n)
 
     def shard(self, y: torch.Tensor) -> torch.Tensor:
         s = y.shape[1] // self.n
@@ -350,13 +419,14 @@ class Leaf:
     """How one parameter enters the compute: ``gather`` the (mesh dim,
     tensor dim) pairs it is all-gathered along (its grad reduce-scattered
     back), ``reduce`` the mesh dims whose ranks hold it whole (its grad
-    all-reduced over them), ``cols`` the columns of the gathered tensor
-    this rank computes with (kv heads; None: all)."""
+    all-reduced over them), ``cols`` the slice of the gathered tensor this
+    rank computes with: (tensor dim, its (start, end) ranges, joined in
+    order) (kv heads, a row group's heads; None: all)."""
 
     name: str
     gather: Tuple[Tuple[int, int], ...]
     reduce: Tuple[int, ...]
-    cols: Optional[Tuple[int, int]] = None
+    cols: Optional[Tuple[int, Tuple[Tuple[int, int], ...]]] = None
 
 
 @dataclass(frozen=True)
@@ -440,7 +510,9 @@ def gather_group(group: Group, shards: Dict[str, torch.Tensor]) -> Dict[str, tor
     res = {}
     for leaf, t in zip(group.leaves, outs):
         if leaf.cols is not None:
-            t = t.narrow(-1, leaf.cols[0], leaf.cols[1] - leaf.cols[0])
+            dim, ranges = leaf.cols
+            parts = [t.narrow(dim, a, b - a) for a, b in ranges]
+            t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
         res[leaf.name] = t
     return res
 
@@ -448,6 +520,18 @@ def gather_group(group: Group, shards: Dict[str, torch.Tensor]) -> Dict[str, tor
 # ------------------------------------------------------------------ #
 # the plan of a step
 # ------------------------------------------------------------------ #
+def dp_rows(batch: Dict, mesh, rules) -> int:
+    """The rows of a dp group in ``batch`` (DTensors by ``batch_specs``):
+    its rows over the mesh dims other than the tp axis that split them."""
+    from torch.distributed.tensor import Shard
+
+    v = next(iter(batch.values()))
+    names = tuple(mesh.mesh_dim_names)
+    return v.shape[0] // math.prod(mesh.size(i) for i, pl in enumerate(v.placements)
+                                   if isinstance(pl, Shard) and pl.dim == 0
+                                   and names[i] != rules.tp_axis)
+
+
 def _sub(weights: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     n = len(prefix)
     return {k[n:]: v for k, v in weights.items() if k.startswith(prefix)}
@@ -459,9 +543,11 @@ class Partition:
     which branches are TP'd, each leaf's gathers and reductions, the
     groups. ``loss(model, shards, batch)`` is this rank's loss of its dp
     group's rows (the same on the ranks of its tp group), computed from
-    its parameter slices ``shards`` and its block of the batch."""
+    its parameter slices ``shards`` and its block of the batch. ``rows``,
+    the dp group's rows in a (micro)batch, decides where heads x rows
+    fits (None: wherever the heads allow it)."""
 
-    def __init__(self, cfg: ModelConfig, model, mesh, rules) -> None:
+    def __init__(self, cfg: ModelConfig, model, mesh, rules, rows: Optional[int] = None) -> None:
         from torch.distributed.tensor import Shard
 
         self.cfg = cfg
@@ -494,10 +580,25 @@ class Partition:
             pl = place[name][tp_dim] if tp_dim is not None else None
             return isinstance(pl, Shard) and pl.dim == dim % params[name].dim()
 
-        # the modes: "local" (tp == 1), "tp", "ep", "vocab", "whole"
+        # the modes: "local" (tp == 1), "tp", "rows", "ep", "vocab", "whole"
         self.modes: Dict[str, str] = {}
         keep: set = set()  # leaves whose tp split the compute keeps
-        cols: Dict[str, Tuple[int, int]] = {}
+        cols: Dict[str, Tuple[int, Tuple[Tuple[int, int], ...]]] = {}
+        self.rows = rows
+        self.regroups: Dict[int, tuple] = {}  # h -> (row group, r, its products)
+        self.block_h: Dict[str, int] = {}  # a "rows" branch -> its h
+
+        def take(name: str, dim: int, ranges, r: int) -> None:
+            """The ``ranges`` of leaf ``name`` along ``dim`` are this rank's
+            compute slice: its split at rest where that is the slice (r ==
+            1), else the leaf gathered whole and narrowed."""
+            size, ranges = params[name].shape[dim], tuple(ranges)
+            mine = ((self.tp_rank * size // self.tp, (self.tp_rank + 1) * size // self.tp),)
+            if r == 1 and on_tp(name, dim) and ranges == mine:
+                keep.add(name)
+            elif ranges != ((0, size),):
+                cols[name] = (dim, ranges)
+
         blocks = [(f"prefix.{j}", b) for j, b in enumerate(model.prefix)]
         blocks += [(f"blocks.{j}", b) for j, b in enumerate(model.blocks)]
         for pre, blk in blocks:
@@ -506,6 +607,8 @@ class Partition:
                     self.modes[f"{pre}.{part}"] = "local" if self.tp == 1 else "whole"
             if self.tp > 1 and isinstance(blk, Mamba2Block):
                 self._mamba2(pre, params, on_tp, keep, cols)
+            if self.tp > 1 and isinstance(blk, (MLSTMBlock, SLSTMBlock)):
+                self._xlstm(pre, blk, mesh, take)
             if self.tp == 1 or not isinstance(blk, Block):
                 continue
             if cfg.use_mla and cfg.n_heads % self.tp == 0 and all(
@@ -530,7 +633,18 @@ class Partition:
                                          f"evenly over kv heads {sorted(set(kv))}")
                     for k in params:
                         if k.startswith((f"{pre}.attn.wk", f"{pre}.attn.wv")):
-                            cols[k] = (kv[0] * hd, (kv[-1] + 1) * hd)
+                            cols[k] = (-1, ((kv[0] * hd, (kv[-1] + 1) * hd),))
+            elif not cfg.use_mla:  # heads x rows, where a row split fits
+                split = self._heads_rows(f"{pre}.attn", (cfg.n_heads, cfg.n_kv_heads), mesh)
+                if split is not None and split[1] > 1:
+                    h, r = split
+                    k, hd = self.tp_rank // r, cfg.head_dim
+                    for w, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                                     ("wv", cfg.n_kv_heads), ("wo", cfg.n_heads)):
+                        span = ((k * heads // h * hd, (k + 1) * heads // h * hd),)
+                        for leaf in ("w", "b"):
+                            if f"{pre}.attn.{w}.{leaf}" in params:
+                                take(f"{pre}.attn.{w}.{leaf}", 0 if w == "wo" else -1, span, r)
             if blk.ffn is not None and all(on_tp(f"{pre}.ffn.{w}.w", -1)
                                            for w in ("gate", "up") if getattr(blk.ffn, w)) \
                     and on_tp(f"{pre}.ffn.down.w", 0):
@@ -565,7 +679,7 @@ class Partition:
                            or k == "final_norm"}
             self.summed.update(k for k in params if k.endswith((".attn.q_norm", ".attn.k_norm",
                                                                  ".attn.latent_norm"))
-                               and self.modes[k.rsplit(".", 2)[0] + ".attn"] == "tp")
+                               and self.modes[k.rsplit(".", 2)[0] + ".attn"] in ("tp", "rows"))
 
         def leaf(name: str) -> Leaf:
             gather, reduce = [], []
@@ -611,11 +725,87 @@ class Partition:
         self.modes[f"{pre}.core"] = "tp"
         keep.update(split)
         r, di = self.tp_rank, cfg.d_inner // self.tp
-        cols[f"{c}gate_norm"] = (r * di, (r + 1) * di)
+        cols[f"{c}gate_norm"] = (-1, ((r * di, (r + 1) * di),))
         if g > 1:  # the groups this rank's heads read
             g0, g1 = r * hl // per, ((r + 1) * hl - 1) // per + 1
             for w in ("in_B.w", "in_C.w", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b"):
-                cols[c + w] = (g0 * n, g1 * n)
+                cols[c + w] = (-1, ((g0 * n, g1 * n),))
+
+    def _heads_rows(self, branch: str, heads: Tuple[int, ...], mesh) -> Optional[Tuple[int, int]]:
+        """(h, r) of a branch whose head counts ``heads`` (and any width
+        split like them) do not all divide over "model": h the largest
+        divisor of the "model" size n dividing each, r = n / h; its mode
+        "rows", the row groups made. None (whole) where h is 1 or r does
+        not divide the dp group's rows."""
+        n = self.tp
+        h = max(k for k in range(1, n + 1) if n % k == 0 and all(c % k == 0 for c in heads))
+        r = n // h
+        if h == 1 or (r > 1 and self.rows is not None and self.rows % r):
+            return None
+        if r > 1:
+            self.modes[branch], self.block_h[branch] = "rows", h
+            self._row_groups(h, mesh)
+        return h, r
+
+    def _row_groups(self, h: int, mesh) -> None:
+        """The process groups of ``h`` x r: along every "model" line of the
+        mesh, the r consecutive ranks of each sequence chunk (the
+        all-to-all's) and the h ranks of each row group (stride r), made in
+        the same order on every rank."""
+        if h in self.regroups:
+            return
+        n, r = self.tp, self.tp // h
+        lines = mesh.mesh.movedim(self.tp_dim, -1).reshape(-1, n).tolist()
+        me = dist.get_rank()
+        for line in lines:
+            for k in range(h):
+                pg = dist.new_group(line[k * r:(k + 1) * r])
+                if me in line[k * r:(k + 1) * r]:
+                    exchange = pg
+            for j in range(r):
+                pg = dist.new_group(line[j::r])
+                if me in line[j::r]:
+                    heads = pg
+        self.regroups[h] = (exchange, r, _TensorParallel(heads, h, self.tp_rank // r,
+                                                         norm_group=self.tp_pg))
+
+    def _xlstm(self, pre: str, blk, mesh, take) -> None:
+        """Mode "tp" or "rows" for the mLSTM or sLSTM core of block ``pre``:
+        this rank's heads (of its row group's split), their slices of the
+        leaves."""
+        cfg, c = self.cfg, f"{pre}.core."
+        nh = cfg.n_heads
+        if isinstance(blk, MLSTMBlock):
+            di = cfg.d_inner
+            split = self._heads_rows(f"{pre}.core", (nh,), mesh)
+            if split is None:
+                return
+            h, r = split
+            k = self.tp_rank // r
+            ch = ((k * di // h, (k + 1) * di // h),)  # this rank's heads' channels
+            take(c + "up.w", -1, (ch[0], (di + ch[0][0], di + ch[0][1])), r)
+            for w in ("wq.w", "wk.w", "wv.w"):
+                take(c + w, -1, ch, r)
+            for w in ("w_i.w", "w_i.b", "w_f.w", "w_f.b"):
+                take(c + w, -1, ((k * nh // h, (k + 1) * nh // h),), r)
+            take(c + "out_norm", 0, ch, r)
+            take(c + "down.w", 0, ch, r)
+        else:
+            d, ffw = cfg.d_model, blk.core.ffn_up.w.shape[-1]
+            split = self._heads_rows(f"{pre}.core", (nh, ffw), mesh)
+            if split is None:
+                return
+            h, r = split
+            k = self.tp_rank // r
+            ch = (k * d // h, (k + 1) * d // h)
+            for w in ("wx.w", "wx.b"):  # the z, i, f, o paths of this rank's heads
+                take(c + w, -1, tuple((g * d + ch[0], g * d + ch[1]) for g in range(4)), r)
+            take(c + "r", 1, ((k * nh // h, (k + 1) * nh // h),), r)
+            take(c + "out_norm", 0, (ch,), r)
+            take(c + "ffn_up.w", -1, ((k * ffw // h, (k + 1) * ffw // h),), r)
+            take(c + "ffn_down.w", 0, ((k * ffw // h, (k + 1) * ffw // h),), r)
+        if r == 1:
+            self.modes[f"{pre}.core"] = "tp"
 
     # -------------------------------------------------------------- #
     def local_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -668,6 +858,10 @@ class Partition:
             if mode == "ep":  # this rank's tokens, with this rank's experts
                 return moe_ep_local(self.cfg, h, _sub(w, f"{pre}.moe."), self.tp_pg,
                                     self.tp_rank, self.tp, self.mesh_pgs)
+            if mode == "rows":  # the row group's rows on this rank's heads
+                group, r, products = self.regroups[self.block_h[f"{pre}.{name}"]]
+                out = fn(_Regroup.apply(h, group, r, True), products=products)
+                return _Regroup.apply(out, group, r, False)
             out = fn(self._gather_seq(h), **kw)  # whole; this rank's shard kept
             if name == "moe":
                 return self._shard(out[0]), out[1]

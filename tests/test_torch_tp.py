@@ -20,17 +20,21 @@ only; measured under 5e-6), the whole model's grads within 1e-4 of it
   and untied heads), each rank's sequence shard of the output and of the
   input's grad, and each weight's grad (the shares summed over the ranks,
   times the world: the step divides by it) against the unsharded
-  module's. A head count and a vocabulary that do not divide (6 heads,
-  vocab 510 on 4 ranks) are computed whole; that config's attention is
-  checked too.
+  module's. xlstm-1.3b_smoke's mLSTM (block 0) and sLSTM (block 5) on
+  their heads (4 heads: 2 and 1 a rank), and a 2-head variant on 1 head
+  a rank over 2 ranks and in heads x rows over 4 (2 row groups of 2
+  ranks, the all-to-alls between them). A head count that does not
+  divide (6 heads on 4 ranks) runs heads x rows (h = 2, r = 2); a
+  vocabulary that does not (510 on 4 ranks) is computed whole.
 * The whole model through ``make_sharded_train_step(...).grads`` on all
   three meshes against ``loss_fn`` on the whole batch: qwen3 (FSDP on,
   ``fsdp_min_elems`` 256 at these widths), the non-dividing config,
   llava-next-34b_smoke (vision), hubert-xlarge_smoke (audio; also with
   510 labels, which do not divide over 4 ranks: the head on each rank's
   positions), zamba2-2.7b_smoke and deepseek-v2-lite-16b_smoke (Mamba-2,
-  MLA and the expert banks in mode "tp"), qwen2-moe-a2.7b_smoke on (2,
-  2); the two MoE configs on (2, 1) too, and deepseek and qwen3 on (2, 2)
+  MLA and the expert banks in mode "tp"), xlstm-1.3b_smoke and its 2-head
+  variant (mLSTM and sLSTM in mode "tp", the variant in "rows" on (1,
+  4)), qwen2-moe-a2.7b_smoke on (2, 2); the two MoE configs on (2, 1) too, and deepseek and qwen3 on (2, 2)
   with ``fsdp_only`` (4 dp groups of one row, nothing TP'd). Where there
   are several dp groups the MoE counts capacity and aux over the global
   batch, as ``loss_fn`` on the whole batch does, and drops assignments.
@@ -57,7 +61,9 @@ only; measured under 5e-6), the whole model's grads within 1e-4 of it
 * Teeth: with one TP reduce-scatter skipped (the MLP's row partial sums
   kept unreduced), the MLP output is off by far more than the bound; so
   is Mamba-2's with its gated norm's sum-of-squares all-reduce skipped,
-  and the MoE's with the expert outputs' all-gather skipped.
+  the mLSTM's and the sLSTM's with their output norm's skipped, the
+  MoE's with the expert outputs' all-gather skipped, and the 2-head
+  mLSTM's in heads x rows with the inverse all-to-all skipped.
 """
 
 import dataclasses
@@ -86,6 +92,9 @@ def _cfg(name):
         return dataclasses.replace(get_config("hubert-xlarge_smoke"), name=name, vocab=510)
     if name == "zamba2-g2":  # two B/C groups of 4 heads: whole groups on 2 ranks, shared on 4
         return dataclasses.replace(get_config("zamba2-2.7b_smoke"), name=name, ssm_groups=2)
+    if name == "xlstm-h2":  # 2 heads: a head a rank on 2 ranks, heads x rows (2 x 2) on 4
+        return dataclasses.replace(get_config("xlstm-1.3b_smoke"), name=name, n_heads=2,
+                                   n_kv_heads=2)
     return get_config(name)
 
 
@@ -128,10 +137,10 @@ def _call(which: str, mod, a, pos, kw=None):
     return mod(a, **kw), 0.0
 
 
-def _branch_case(cfg, mesh, which: str, seed: int) -> dict:
-    """Block 0's attention, MLP, MoE or Mamba-2 branch on this rank's
-    sequence shard against the unsharded module: output (and MoE aux),
-    input grad and weight grads."""
+def _branch_case(cfg, mesh, which: str, seed: int, block: int = 0) -> dict:
+    """Block ``block``'s attention, MLP, MoE or recurrent core (Mamba-2,
+    mLSTM, sLSTM) branch on this rank's sequence shard against the
+    unsharded module: output (and MoE aux), input grad and weight grads."""
     from torch.func import functional_call
 
     from repro_torch.models.layers import rms_norm
@@ -144,35 +153,39 @@ def _branch_case(cfg, mesh, which: str, seed: int) -> dict:
     h = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))).float().requires_grad_(True)
     c = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))).float()
     pos = torch.arange(S)
-    mod = getattr(whole.blocks[0], which)
+    mod = getattr(whole.blocks[block], which)
     ln = LN[which]
-    hn = rms_norm(h, getattr(whole.blocks[0], ln), cfg.rms_eps)
+    hn = rms_norm(h, getattr(whole.blocks[block], ln), cfg.rms_eps)
     y, aux = _call(which, mod, hn, pos)
     ((y * c).sum() + aux).backward()
-    w = gather_group(part.units[0], shards)
-    pre = f"blocks.0.{which}."
+    w = gather_group(part.units[block // len(cfg.block_pattern)], shards)
+    blk = f"blocks.{block}"
+    pre = f"{blk}.{which}."
     sub = {k[len(pre):]: v for k, v in w.items() if k.startswith(pre)}
-    dmod = getattr(state["model"].blocks[0], which)
+    dmod = getattr(state["model"].blocks[block], which)
     h_loc = part._shard(h.detach()).clone().requires_grad_(True)
-    mode = part.modes[f"blocks.0.{which}"]
+    mode = part.modes[f"{blk}.{which}"]
 
     def fn(a, **kw):  # the branch as the block passes it: MoE (y, aux), else y
         out = _call(which, lambda *x, **k: functional_call(dmod, sub, x, k), a, pos, kw)
         return out if which == "moe" else out[0]
 
-    out = part.split("blocks.0", w)(which, fn, h_loc, w[f"blocks.0.{ln}"], cfg.rms_eps)
+    out = part.split(blk, w)(which, fn, h_loc, w[f"{blk}.{ln}"], cfg.rms_eps)
     y_loc, aux_loc = out if which == "moe" else (out, 0.0)
     # each rank's share of the objective: its shard's products, 1/tp of the aux
     ((y_loc * part._shard(c)).sum() + aux_loc / part.tp).backward()
     params = dict(state["model"].named_parameters())
-    grads = {}
+    grads, leaf = {}, {}
     for k, p in whole.named_parameters():
-        if k.startswith(pre) or k == f"blocks.0.{ln}":
+        if k.startswith(pre) or k == f"{blk}.{ln}":
             idx = local_index(params[k].shape, mesh, params[k].placements)
             grads[k] = _rel(shards[k].grad * part.world, p.grad[idx])
+            # against the largest entry of the whole leaf's grad
+            leaf[k] = grads[k] * float(p.grad[idx].abs().max() / (p.grad.abs().max() + 1e-30))
     return {"mode": mode, "y": _rel(y_loc, part._shard(y)), "dx": _rel(h_loc.grad, part._shard(h.grad)),
             "aux": abs(float(aux_loc) - float(aux)) / max(abs(float(aux)), 1e-30),
-            "grads": grads, "shapes": {k: tuple(v.shape) for k, v in sub.items()}}
+            "grads": grads, "grads_leaf": leaf,
+            "shapes": {k: tuple(v.shape) for k, v in sub.items()}}
 
 
 def _vocab_case(cfg, mesh, seed: int) -> dict:
@@ -302,10 +315,13 @@ def _model_case(cfg, mesh, rules, seed: int, count: bool = False) -> dict:
             partition._gather_flat, partition._scatter_flat = flat_g, flat_s
         params = dict(state["model"].named_parameters())
         whole_grads = dict(whole.named_parameters())
+        idx = {k: local_index(params[k].shape, mesh, params[k].placements) for k in grads}
         out = {"loss": abs(float(loss) - float(want)) / abs(float(want)),
-               "grads": {k: _rel(g, whole_grads[k].grad[local_index(params[k].shape, mesh,
-                                                                       params[k].placements)])
-                         for k, g in grads.items()},
+               "grads": {k: _rel(g, whole_grads[k].grad[idx[k]]) for k, g in grads.items()},
+               # against the largest entry of the whole leaf's grad
+               "grads_leaf": {k: float((g.float() - whole_grads[k].grad[idx[k]]).abs().max()
+                                       / (whole_grads[k].grad.abs().max() + 1e-30))
+                              for k, g in grads.items()},
                "modes": dict(fn.partition.modes), "groups": fn.partition.over.groups,
                "dropped": moe.DROPPED["assignments"] - before}
         if count:
@@ -368,9 +384,10 @@ def _teeth(cfg, mesh, seed: int) -> float:
         partition._scatter_dim = scatter
 
 
-def _teeth_norm(cfg, mesh, seed: int) -> float:
-    """Mamba-2 with its gated norm's sum-of-squares all-reduce skipped:
-    each rank normalises over its own channels."""
+def _teeth_norm(cfg, mesh, seed: int, block: int = 0) -> float:
+    """Mamba-2's gated norm, or an mLSTM's or sLSTM's output norm, with its
+    sum-of-squares all-reduce skipped: each rank normalises over its own
+    channels."""
     from repro_torch.sharding import partition
 
     class Skipped:  # the branch's only all-reduce over "model"
@@ -378,9 +395,30 @@ def _teeth_norm(cfg, mesh, seed: int) -> float:
 
     summed, partition._Sum = partition._Sum, Skipped
     try:
-        return _branch_case(cfg, mesh, "core", seed)["y"]
+        return _branch_case(cfg, mesh, "core", seed, block)["y"]
     finally:
         partition._Sum = summed
+
+
+def _teeth_regroup(cfg, mesh, seed: int, block: int = 0) -> float:
+    """Heads x rows with the inverse all-to-all skipped: each rank keeps
+    its row group's rows of its sequence chunk where its own rows' shard
+    belongs."""
+    from repro_torch.sharding import partition
+
+    regroup = partition._regroup
+
+    def skipped(x, group, r, to_rows):
+        if to_rows:
+            return regroup(x, group, r, to_rows)
+        b, rs = x.shape[:2]
+        return x.reshape(b, r, rs // r, *x.shape[2:]).reshape(b * r, rs // r, *x.shape[2:])
+
+    partition._regroup = skipped
+    try:
+        return _branch_case(cfg, mesh, "core", seed, block)["y"]
+    finally:
+        partition._regroup = regroup
 
 
 def _teeth_experts(cfg, mesh, seed: int) -> float:
@@ -395,6 +433,23 @@ def _teeth_experts(cfg, mesh, seed: int) -> float:
         return _branch_case(cfg, mesh, "moe", seed)["y"]
     finally:
         _TensorParallel.experts = gather
+
+
+def _rows_fit(mesh) -> dict:
+    """The modes of the 6-head config's attention on 4 ranks (h = 2, r = 2)
+    and of a 3-head one (h = 1) for dp groups of 1, 2 and any rows."""
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.partition import Partition
+    from repro_torch.sharding.specs import ShardingRules
+
+    out = {}
+    for name, cfg in (("odd", _cfg("odd")),
+                      ("3 heads", dataclasses.replace(_cfg("odd"), n_heads=3, n_kv_heads=1))):
+        model = _setup(cfg, mesh, ShardingRules())[1]["model"]
+        for rows in (1, 2, None):
+            out[(name, rows)] = Partition(cfg, model, mesh, ShardingRules(), rows=rows).modes[
+                "blocks.0.attn"]
+    return out
 
 
 def _worker(rank, world, d):
@@ -423,9 +478,19 @@ def _worker(rank, world, d):
                 res[("core", arch, m)] = _branch_case(_cfg(arch), mesh, "core", 7)
             res[("teeth-norm", m)] = _teeth_norm(_cfg("zamba2-2.7b_smoke"), mesh, 7)
             res[("teeth-experts", m)] = _teeth_experts(_cfg(MOE), mesh, 6)
+            # mLSTM (block 0) and sLSTM (block 5) on their heads, or heads x rows
+            for arch in ("xlstm-1.3b_smoke", "xlstm-h2"):
+                for which, blk in XLSTM:
+                    res[(which, arch, m)] = _branch_case(_cfg(arch), mesh, "core", 8, blk)
+            for which, blk in XLSTM:
+                res[(f"teeth-{which}-norm", m)] = _teeth_norm(_cfg("xlstm-1.3b_smoke"), mesh,
+                                                              8, blk)
+            if shape == (1, 4):
+                res[("teeth-regroup", m)] = _teeth_regroup(_cfg("xlstm-h2"), mesh, 8)
+                res[("rows-fit", m)] = _rows_fit(mesh)
         fsdp = ShardingRules(fsdp_min_elems=FSDP_ON)
         archs = ["qwen3-0.6b_smoke", "odd", "llava-next-34b_smoke", "hubert-xlarge_smoke",
-                 "hubert-odd", "zamba2-2.7b_smoke", MOE] + (
+                 "hubert-odd", "zamba2-2.7b_smoke", MOE, "xlstm-1.3b_smoke", "xlstm-h2"] + (
                      ["qwen2-moe-a2.7b_smoke"] if shape == (2, 2) else [])
         for arch in archs:
             res[("model", arch, m)] = _model_case(_cfg(arch), mesh, fsdp, 4,
@@ -460,6 +525,7 @@ def results(tmp_path_factory):
     return out
 
 
+XLSTM = (("mlstm", 0), ("slstm", 5))  # the branch, its block in xlstm's unit
 LOCAL = [f"{a}_smoke" for a in ("qwen3-0.6b", "codeqwen1.5-7b", "starcoder2-15b", "qwen1.5-110b",
                                  "qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "zamba2-2.7b",
                                  "xlstm-1.3b", "hubert-xlarge", "llava-next-34b")]
@@ -479,16 +545,17 @@ BRANCH = [(w, a, m, r) for w, a in (("attn", "qwen3-0.6b_smoke"), ("attn", "star
 @pytest.mark.parametrize("which,arch,mesh,rank", BRANCH)
 def test_tp_branch_matches_the_unsharded_module(results, which, arch, mesh, rank):
     r = results[(which, arch, mesh, rank)]
-    whole = arch == "odd" and mesh == "1x4"  # 6 heads on 4 ranks: computed whole
-    assert r["mode"] == ("whole" if whole else "tp")
+    rows = arch == "odd" and mesh == "1x4"  # 6 heads on 4 ranks: 2 row groups of 2 ranks
+    assert r["mode"] == ("rows" if rows else "tp")
     assert r["y"] <= OUT_TOL and r["dx"] <= OUT_TOL and r["aux"] <= LOSS_RTOL, (r["y"], r["dx"],
                                                                                 r["aux"])
     bad = {k: v for k, v in r["grads"].items() if v > OUT_TOL}
     assert not bad and r["grads"], bad
     tp = int(mesh.split("x")[1])
     cfg = _cfg(arch)
-    if which == "attn" and not whole and not cfg.use_mla:  # its q heads, the kv heads they read
+    if which == "attn" and not cfg.use_mla:  # its q heads, the kv heads they read
         hd = cfg.head_dim
+        tp = 2 if rows else tp  # a row group's ranks
         hq = cfg.n_heads // tp
         assert r["shapes"]["wq.w"] == (cfg.d_model, hq * hd) and r["shapes"]["wo.w"] == (hq * hd,
                                                                                         cfg.d_model)
@@ -508,6 +575,38 @@ def test_tp_branch_matches_the_unsharded_module(results, which, arch, mesh, rank
         assert r["shapes"]["in_B.w"] == (cfg.d_model, max(1, g // tp) * n)
 
 
+XLSTM_BRANCH = [(w, a, m, r) for w, _ in XLSTM for a in ("xlstm-1.3b_smoke", "xlstm-h2")
+                for m in ("1x2", "1x4") for r in _ranks(m)]
+
+
+@pytest.mark.parametrize("which,arch,mesh,rank", XLSTM_BRANCH)
+def test_xlstm_branch_matches_the_unsharded_module(results, which, arch, mesh, rank):
+    """mLSTM and sLSTM on this rank's heads (4 heads on 2 and 4 ranks, 2 on
+    2), or heads x rows (2 heads on 4 ranks: 2 row groups of 2): output,
+    input grad and every weight's grad within 1e-5 of the largest entry of
+    the unsharded value (a grad: of the whole leaf's, since a rank's slice
+    of ``w_i.b``/``w_f.b`` can be one entry, a sum over every position that
+    cancels to 0.37 beside the leaf's 3-18); the local shapes are the
+    heads'."""
+    r = results[(which, arch, mesh, rank)]
+    cfg = _cfg(arch)
+    n = int(mesh.split("x")[1])
+    h = math.gcd(n, cfg.n_heads)
+    assert r["mode"] == ("tp" if h == n else "rows")
+    assert r["y"] <= OUT_TOL and r["dx"] <= OUT_TOL, (r["y"], r["dx"])
+    bad = {k: v for k, v in r["grads_leaf"].items() if v > OUT_TOL}
+    assert not bad and len(r["grads_leaf"]) >= 7, bad
+    d, di, nh, sh = cfg.d_model, cfg.d_inner, cfg.n_heads, r["shapes"]
+    if which == "mlstm":
+        assert sh["up.w"] == (d, 2 * di // h) and sh["wq.w"] == (di, di // h)
+        assert sh["w_i.w"] == (d, nh // h) and sh["down.w"] == (di // h, d)
+        assert sh["out_norm"] == (di // h,) and sh["conv_w"][1] == di
+    else:
+        hd, ffw = d // nh, cfg.d_model  # the smoke FFN: round(4 d / 3 / 64) * 64 = d
+        assert sh["wx.w"] == (d, 4 * d // h) and sh["r"] == (4, nh // h, hd, hd)
+        assert sh["ffn_up.w"] == (d, ffw // h) and sh["ffn_down.w"] == (ffw // h, d)
+
+
 VOCAB = [(a, m, r) for a in ("qwen3-0.6b_smoke", "starcoder2-15b_smoke", "odd")
          for m in ("1x2", "1x4") for r in _ranks(m)]
 
@@ -524,7 +623,7 @@ def test_vocab_parallel_embedding_and_loss(results, arch, mesh, rank):
 
 MODEL = [(a, m, r) for m in ("1x2", "1x4", "2x2")
          for a in ("qwen3-0.6b_smoke", "odd", "llava-next-34b_smoke", "hubert-xlarge_smoke",
-                   "hubert-odd", "zamba2-2.7b_smoke", MOE)
+                   "hubert-odd", "zamba2-2.7b_smoke", MOE, "xlstm-1.3b_smoke", "xlstm-h2")
          + (("qwen2-moe-a2.7b_smoke",) if m == "2x2" else ())
          for r in _ranks(m)]
 MODEL += [(a, "2x1", r) for a in (MOE, "qwen2-moe-a2.7b_smoke") for r in range(2)]
@@ -533,9 +632,16 @@ MODEL += [(a, "2x2-fsdp_only", r) for a in ("qwen3-0.6b_smoke", MOE) for r in ra
 
 @pytest.mark.parametrize("arch,mesh,rank", MODEL)
 def test_partitioned_model_matches_loss_fn(results, arch, mesh, rank):
+    """Loss and grads against ``loss_fn``: a rank's slice of each grad
+    within 1e-4 of the slice's largest entry; xLSTM's of the whole leaf's,
+    as ``test_torch_train.py`` holds them, since the i gate's slice of
+    ``wx.b`` (its grad ~1e-5 of the leaf's: the stabiliser takes the
+    input gate's step) and a one-entry slice of ``w_f.b`` are sums that
+    cancel."""
     r = results[("model", arch, mesh, rank)]
     assert r["loss"] <= LOSS_RTOL, r["loss"]
-    bad = {k: v for k, v in r["grads"].items() if v > GRAD_REL}
+    grads = r["grads_leaf"] if arch.startswith("xlstm") else r["grads"]
+    bad = {k: v for k, v in grads.items() if v > GRAD_REL}
     assert not bad and len(r["grads"]) > 10, bad
     assert r["shapes"]  # parameters, grads and moments: this rank's slices by param_specs
     modes = r["modes"]
@@ -548,6 +654,13 @@ def test_partitioned_model_matches_loss_fn(results, arch, mesh, rank):
         # Mamba-2, MLA and the expert banks on this rank's heads and experts
         assert all(v == "tp" for k, v in modes.items()
                    if k.endswith((".core", ".attn", ".moe", ".ffn"))), modes
+    if arch.startswith("xlstm") and "fsdp" not in mesh:
+        # every mLSTM and sLSTM on its heads; heads x rows for 2 heads on 4 ranks
+        want = "rows" if (arch, mesh) == ("xlstm-h2", "1x4") else "tp"
+        assert {v for k, v in modes.items() if k.endswith(".core")} == {want}, modes
+    if arch == "odd":  # 6 heads: on their ranks over 2, heads x rows (2 x 2) over 4
+        want = "rows" if mesh == "1x4" else "tp"
+        assert {v for k, v in modes.items() if k.endswith(".attn")} == {want}, modes
     if _cfg(arch).n_routed_experts and mesh != "1x2" and mesh != "1x4":
         # capacity over the global batch of the dp groups, and it binds
         assert r["groups"] == int(mesh[0]) * (2 if "fsdp" in mesh else 1) and r["dropped"] > 0
@@ -584,11 +697,28 @@ def test_skipping_a_tp_reduce_scatter_fails_the_check(results, mesh):
         assert results[("teeth", mesh, rank)] > 100 * OUT_TOL
 
 
-@pytest.mark.parametrize("which", ["teeth-norm", "teeth-experts"])
+@pytest.mark.parametrize("which", ["teeth-norm", "teeth-experts", "teeth-mlstm-norm",
+                                   "teeth-slstm-norm"])
 @pytest.mark.parametrize("mesh", ["1x2", "1x4"])
 def test_skipping_a_new_collective_fails_the_check(results, which, mesh):
-    """The gated norm's sum of squares not summed over "model", or the
-    expert outputs not gathered: the branch's output is off by far more
-    than the bound."""
+    """The gated norm's, the mLSTM's or the sLSTM's output norm's sum of
+    squares not summed over "model", or the expert outputs not gathered:
+    the branch's output is off by far more than the bound."""
     for rank in _ranks(mesh):
         assert results[(which, mesh, rank)] > 100 * OUT_TOL
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_heads_x_rows_only_where_the_rows_divide(results, rank):
+    """6 heads on 4 ranks: 2 row groups of 2 where the dp group's rows
+    divide by 2 (or are not known), else whole; 3 heads (h = 1): whole."""
+    fit = results[("rows-fit", "1x4", rank)]
+    assert fit == {("odd", 1): "whole", ("odd", 2): "rows", ("odd", None): "rows",
+                   ("3 heads", 1): "whole", ("3 heads", 2): "whole", ("3 heads", None): "whole"}
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_skipping_the_inverse_regroup_fails_the_check(results, rank):
+    """Heads x rows (2 x 2 on 4 ranks) with the inverse all-to-all skipped:
+    each rank keeps another row group's rows in place of its own shard."""
+    assert results[("teeth-regroup", "1x4", rank)] > 100 * OUT_TOL

@@ -244,7 +244,8 @@ def _jax_grads_by_name(cfg, grads):
             params_from_jax(jax.tree.map(np.asarray, grads), cfg, "cpu").named_parameters()}
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b_smoke", "deepseek-v2-lite-16b_smoke"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b_smoke", "deepseek-v2-lite-16b_smoke",
+                                  "xlstm-1.3b_smoke"])
 def test_save_block_outputs_grads_match_full_and_jax(arch):
     """Per-branch checkpoints recompute the same ops as whole-unit ones:
     loss and grads equal ``"full"``'s bit for bit on the CPU, and

@@ -62,8 +62,15 @@ ARCH, EP_ARCH = "qwen3-0.6b_smoke", "deepseek-v2-lite-16b_smoke"
 STEPS = 4
 ARGS = ["--arch", ARCH, "--mesh", "2,2", "--steps", str(STEPS), "--batch", "4", "--seq", "32",
         "--warmup", "1", "--lr", "3e-3", "--ckpt-every", "100", "--log-every", "1"]
-# the blocks partitioned since: Mamba-2, MLA and the expert banks
-MORE, MORE_STEPS = ("zamba2-2.7b_smoke", "deepseek-v2-lite-16b_smoke"), 3
+# the blocks partitioned since: Mamba-2, MLA and the expert banks; mLSTM and sLSTM
+MORE, MORE_STEPS = ("zamba2-2.7b_smoke", "deepseek-v2-lite-16b_smoke", "xlstm-1.3b_smoke"), 3
+# bf16 runs that only f32 can hold to the reference: the reference's jitted
+# bf16 step fuses the sLSTM scan's roundings (the port's unmeshed first loss
+# is 1.8e-4 off it), and after an update the trajectory is rounding-bound
+# (the i gate's grads, ~1e-5 of ``wx.b``'s largest, take Adam's whole step
+# in the sign bf16 rounding gives them: the port's unmeshed run is 0.06-0.09
+# off the reference's at steps 2-3, the meshed run 0.01-0.08 off it)
+FUSED = ("xlstm-1.3b_smoke",)
 
 
 def more_args(arch: str) -> list:
@@ -265,6 +272,10 @@ def _worker(rank, world, d):
         losses = train.main(["--device", "cpu"] + more_args(arch)
                             + ["--ckpt-dir", str(d / arch / "port")])["losses"]
         res["more"][arch] = {"losses": losses, "dropped": moe.DROPPED["assignments"] - before}
+        if arch in FUSED and rank == 0:  # the unmeshed bf16 run on the same batches
+            res["more"][arch]["plain"] = train.main(
+                ["--device", "cpu"] + unmeshed(more_args(arch))
+                + ["--ckpt-dir", str(d / arch / "plain")])["losses"]
         res["more"][arch]["f32"] = _f32_more(d / arch, arch, rank)
     cfg = get_config(ARCH)
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
@@ -450,6 +461,8 @@ def runs(tmp_path_factory):
     shutil.copytree(d / "init", d / "plain")
     for arch in MORE:
         shutil.copytree(d / arch / "init", d / arch / "port")
+        if arch in FUSED:
+            shutil.copytree(d / arch / "init", d / arch / "plain")
     mp.spawn(_worker, args=(4, d), nprocs=4)
     ref = json.loads((d / "ref.json").read_text())
     return d, ref, [torch.load(d / f"{r}.pt", weights_only=False) for r in range(4)]
@@ -497,22 +510,30 @@ def test_train_mesh_losses_match_the_reference(runs):
 
 @pytest.mark.parametrize("arch", MORE)
 def test_train_mesh_partitioned_blocks_match_the_reference(runs, arch):
-    """zamba2's Mamba-2 and deepseek's MLA and expert banks partitioned over
-    "model" (deepseek's capacity binding over the global batch): the CLI's
-    run against the reference's, by the qwen3 run's checks and limits."""
+    """zamba2's Mamba-2, deepseek's MLA and expert banks and xlstm's mLSTM
+    and sLSTM partitioned over "model" (deepseek's capacity binding over
+    the global batch): the CLI's run against the reference's, by the qwen3
+    run's checks and limits. xlstm's bf16 run is held to the port's
+    unmeshed bf16 run before its first update (``FUSED``), and to the
+    reference in f32."""
     d, ref, res = runs
     mine, want = res[0]["more"][arch]["losses"], ref["more"][arch]
     assert all(r["more"][arch]["losses"] == mine for r in res)
     assert len(want) == len(mine) == MORE_STEPS
-    np.testing.assert_allclose(mine[0], want[0], rtol=LOSS_RTOL)
-    moved, ref_moved = np.array(mine[1:]) - mine[0], np.array(want[1:]) - want[0]
-    assert np.all(np.abs(ref_moved) > 20 * LOSS_RTOL * want[0])
-    np.testing.assert_allclose(moved, ref_moved, rtol=LOSS_MOVE_RTOL)
-    # the master weights' moves in bf16, all the leaves together (each small
-    # leaf's own move, a norm's or a conv's, is rounding-bound in bf16: the
-    # port's unmeshed run is 0.26-0.47 off the reference's on some, so each
-    # leaf is held in f32 below)
-    assert _moves(d / arch, "port", "ref", MORE_STEPS)["all"] <= MOVE_REL_ALL
+    if arch in FUSED:  # before any update: the port's unmeshed bf16 loss; then it falls
+        plain = res[0]["more"][arch]["plain"]
+        np.testing.assert_allclose(mine[0], plain[0], rtol=SELF_LOSS_RTOL)
+        assert all(x < mine[0] - 20 * SELF_LOSS_RTOL * mine[0] for x in mine[1:] + plain[1:])
+    else:
+        np.testing.assert_allclose(mine[0], want[0], rtol=LOSS_RTOL)
+        moved, ref_moved = np.array(mine[1:]) - mine[0], np.array(want[1:]) - want[0]
+        assert np.all(np.abs(ref_moved) > 20 * LOSS_RTOL * want[0])
+        np.testing.assert_allclose(moved, ref_moved, rtol=LOSS_MOVE_RTOL)
+        # the master weights' moves in bf16, all the leaves together (each
+        # small leaf's own move, a norm's or a conv's, is rounding-bound in
+        # bf16: the port's unmeshed run is 0.26-0.47 off the reference's on
+        # some, so each leaf is held in f32 below)
+        assert _moves(d / arch, "port", "ref", MORE_STEPS)["all"] <= MOVE_REL_ALL
     if _config(arch).n_routed_experts:  # the capacity binds
         assert all(r["more"][arch]["dropped"] > 0 for r in res)
     # the same run in f32: the partitioned step against the reference's jitted one
