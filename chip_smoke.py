@@ -755,6 +755,47 @@ def phase_kernels() -> dict:
             errs[name] = err
         print(line)
 
+    # the decode instance's log-sum-exp at distributed (g)'s local shapes,
+    # at the planned tile and at bk = 32 (the keys split where more than 32
+    # are live), with an empty shard
+    splits = set()
+    for name, shape, kv_lens in G_LSE:
+        b_, _, skv, hq_, hkv_, d_ = shape[:6]
+        dv = shape[6] if len(shape) > 6 else d_
+        D, worst = compiled_dim(d_, dv), {}
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(gen, *shape[:6], dtype, dv)
+            for kv_len in kv_lens:
+                for blocks in (None, (1, 32)):
+                    kw = dict(causal=False, q_offset=0, kv_len=kv_len, sm_scale=1.0 / math.sqrt(d_))
+                    before = flash_attention_cuda.launches
+                    got, lse = flash_attention(q, k, v, blocks=blocks, return_lse=True, **kw)
+                    want, want_lse = fa_ops._plain(q, k, v, False, kw["sm_scale"], 0, kv_len, True)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ok = flash_attention_cuda.launches == before + 1 and err <= TOL[dtype]
+                    if kv_len == 0:
+                        lse_err = 0.0
+                        ok &= bool(torch.all(lse == -torch.inf)) and not torch.count_nonzero(got)
+                    else:
+                        lse_err = (lse - want_lse).abs().max().item()
+                        ok &= math.isfinite(lse_err) and lse_err <= G_LSE_TOL
+                    ok &= not (torch.isnan(got).any() or torch.isnan(lse).any())
+                    bk = (blocks or plan_blocks(1, skv, D))[1]
+                    parts = n_split(b_, hkv_, kv_len, bk)
+                    splits.add(parts > 1)
+                    check(ok, f"flash_attention {name} {dtype} kv_len={kv_len} bk={bk}: out err "
+                              f"{err}, lse err {lse_err} (tol {TOL[dtype]}, {G_LSE_TOL}), "
+                              f"-inf and zeros where empty")
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    print(f"kernel flash_attention {name} {shape} kv_len={kv_len} "
+                          f"{str(dtype)[6:]} with its log-sum-exp, bk {bk}, n_split {parts}: out "
+                          f"max abs err {err:.3g} (tol {TOL[dtype]}), lse max abs err "
+                          f"{lse_err:.3g} (tol {G_LSE_TOL})"
+                          + ("; no live key: zeros and -inf" if kv_len == 0 else ""))
+        errs[name] = worst
+    check(splits == {True, False}, f"the log-sum-exp checks: splits seen {splits}")
+
     # the autograd wrapper: kernel forward, backward by recompute through the plain version
     q, k, v = (t_.requires_grad_() for t_ in _qkv(gen, 2, 64, 64, 4, 2, 80, torch.float32))
     g = torch.randn((2, 64, 4, 80), generator=gen, device="cuda")
@@ -2697,7 +2738,10 @@ DIST_TIMEOUT = 420
 # (3.4 B parameters, 16.6 GiB a rank on an H100 80GB in processes of
 # their own) ran out of the card's memory on two ranks after (b)-(d) in
 # the same processes; 4 layers (2.2 B) left room, 3 leave time for (f)
-DIST_E = [dict(arch="zamba2-2.7b", n_layers=6), dict(arch="deepseek-v2-lite-16b", n_layers=3)]
+# (zamba2's unmeshed comparison is out, ``meshed_only``, to make room
+# for (g): its --mesh 2,2 step and launches are still checked)
+DIST_E = [dict(arch="zamba2-2.7b", n_layers=6, meshed_only=True),
+          dict(arch="deepseek-v2-lite-16b", n_layers=3)]
 DIST_E_ARGS = ["--steps", "1", "--batch", "2", "--seq", "2048", "--lr", "3e-4", "--warmup", "2",
                "--optimizer", "adamw", "--seed", str(SEED), "--log-every", "1", "--deterministic"]
 # (f): xlstm-1.3b at full width cut to one unit (5 mLSTM blocks and 1 sLSTM
@@ -2708,9 +2752,47 @@ DIST_E_ARGS = ["--steps", "1", "--batch", "2", "--seq", "2048", "--lr", "3e-4", 
 # unmeshed step's grad norm is itself 4.2e-2 off the f32 step's (xLSTM's
 # gate grads are rounding noise in bf16), above DIST_LOSS_RTOL, so the
 # grad norm is held in f32; the bf16 norms' gaps are printed
-DIST_F = [dict(arch="xlstm-1.3b", n_layers=6, f32=True,
+# (cut to 2 x 256, ``f32_seq``, to make room for (g))
+DIST_F = [dict(arch="xlstm-1.3b", n_layers=6, f32=True, f32_seq=256,
                watch=["blocks.0.core.wq.w", "blocks.0.core.w_i.w", "blocks.0.core.up.w",
                       "blocks.5.core.r", "blocks.5.core.wx.w", "blocks.5.core.ffn_up.w"])]
+# (g): partitioned serving, 4 gloo ranks on --mesh 2,2 after (f):
+# qwen3-0.6b at full width cut to G_QWEN3_LAYERS layers (at all 28 the
+# phase took ~150 s more and the script 1213 s, over its limit; at 8,
+# 1081 s on the same host), a
+# prefill of 8 x 512 tokens and a wave of 8 prompts of PROMPT_TOKENS[0]
+# tokens fed one at a time, then 16 greedy steps, in bf16 and in f32, the
+# cache by kv head (4 of 8 a rank) and by sequence
+# (``shard_cache_heads=False``: 32 of 64 slots a rank, so the second
+# shard is empty until the prompt passes it); deepseek-v2-lite cut to 3
+# layers in f32 (the MLA latent by sequence, the D = 192 instance with the
+# log-sum-exp, 32 of 64 experts a rank). In f32 every logit within
+# DIST_G_F32_TOL of its row's largest (test_torch_serve_mesh.py's 1e-5 is
+# the smoke widths'; full width carries the order of the f32 sums
+# further); in bf16 within MODEL_LOGIT_TOL (the same rounding-order gap as
+# kernels on/off), which leaving the partial sums unreduced breaks.
+G_QWEN3_LAYERS = 4
+_G = dict(rows=8, prompt=PROMPT_TOKENS[0], new=16, max_len=64)
+_G_QWEN3 = dict(arch="qwen3-0.6b", n_layers=G_QWEN3_LAYERS, **_G)
+_G_SEQ = {"shard_cache_heads": False}
+DIST_G = [
+    dict(label="qwen3 bf16 heads", f32=False, prefill=(8, 512), fault=True, **_G_QWEN3),
+    dict(label="qwen3 bf16 sequence", f32=False, rules=_G_SEQ, **_G_QWEN3),
+    dict(label="qwen3 f32 heads", f32=True, **_G_QWEN3),
+    dict(label="qwen3 f32 sequence", f32=True, rules=_G_SEQ, **_G_QWEN3),
+    dict(label="deepseek f32", arch="deepseek-v2-lite-16b", n_layers=3, f32=True,
+         prefill=(8, 512), **_G),
+]
+DIST_G_F32_TOL = 1e-4
+DIST_G_BF16_TOL = MODEL_LOGIT_TOL
+# (g)'s flash decode at one rank's local shapes (b, sq, cache, hq, hkv, d[,
+# dv]): qwen3's 4 rows on 8 of 16 q heads over 4 of 8 kv heads of the whole
+# 64-slot cache; every head over a 32-slot sequence shard (with the
+# log-sum-exp); MLA's 16 heads, d 192, dv 128 over a 32-slot latent shard
+G_LSE = [("g heads", (4, 1, 64, 8, 4, 128), (1, 33, 48, 64)),
+         ("g sequence", (4, 1, 32, 16, 8, 128), (0, 16, 32)),
+         ("g mla", (4, 1, 32, 16, 16, 192, 128), (0, 20, 32))]
+G_LSE_TOL = 1e-4  # the f32 log-sum-exp of the same f32 scores, summed in another order
 # (b)-(d) take ~75-85 s and (e) + (f) ~150-220 s on a normal host; a rank
 # that fails inside a collective leaves the others waiting until this limit
 DIST_E_TIMEOUT = 390
@@ -2989,7 +3071,7 @@ for e_run in e_spec["runs"]:
     e_cfg = e_register(dataclasses.replace(e_full, name=f"{e_full.name}-{e_run['n_layers']}l",
                                            n_layers=e_run["n_layers"]))
     for meshed in (True, False):
-        if meshed or e_rank == 0:
+        if meshed or (e_rank == 0 and not e_run.get("meshed_only")):
             note, seen = {"fa": {}, "ssd": {}, "modes": {}, "shapes": {}}, {}
             def gather_e(group, shards):  # the compute tensors of a unit's or the root's leaves
                 out = e_gather0(group, shards)
@@ -3068,7 +3150,7 @@ for e_run in e_spec["runs"]:
         from repro_torch.sharding.hints import hints_from_mesh as e_hints
         from repro_torch.sharding.specs import ShardingRules as e_Rules, batch_specs as e_bspecs
         e_a = dict(zip(e_spec["args"][::2], e_spec["args"][1::2]))
-        e_b, e_s, e_seed = int(e_a["--batch"]), int(e_a["--seq"]), int(e_a["--seed"])
+        e_b, e_s, e_seed = int(e_a["--batch"]), e_run.get("f32_seq", int(e_a["--seq"])), int(e_a["--seed"])
         e_np = e_Synth(e_cfg.vocab, seed=e_seed).batch(0, e_b, e_s)
         def e_f32():
             gen = torch.Generator(device="cuda").manual_seed(e_seed)
@@ -3103,11 +3185,196 @@ for e_run in e_spec["runs"]:
             clear_hints()
         gc.collect()
         torch.cuda.empty_cache()
+        e_32["seq"] = e_s
         e_res.append(e_32)
         Path(f"{e_spec['out']}.{e_rank}").write_text(json.dumps(e_res))
         dist.barrier()
-dist.destroy_process_group()
 """
+# (g) on the same ranks after (f), or on its own: partitioned serving on
+# --mesh 2,2 (``make_sharded_prefill_step``, ``make_sharded_serve_step``),
+# each run of g_spec.json (beside the script) against the unmeshed steps on
+# rank 0 (the others wait): the prefill's last-position logits, and a wave
+# of prompts fed one token at a time then greedy steps, every step's logits
+# and token; each rank's flash calls by local shape (q rows, q positions, q
+# heads, cache positions, kv heads, d, dv, lse), empty-shard calls, decode
+# step ms and peak memory
+G_RUN = """
+import collections as g_col, dataclasses as g_dc, gc as g_gc, json as g_json, time as g_time
+from pathlib import Path as g_Path
+import torch
+import torch.distributed as dist
+from repro_torch import kernels as g_kernels
+from repro_torch.configs import ShapeConfig as g_Shape, get_config as g_config
+from repro_torch.kernels import flash_attention as g_fa
+from repro_torch.kernels.flash_attention.flash_attention import (flash_attention_cuda as g_fa_cuda,
+                                                              reset_launches as g_fa_reset)
+from repro_torch.launch import steps as g_steps
+from repro_torch.launch.mesh import make_mesh as g_make_mesh
+from repro_torch.models import init_cache as g_init_cache, moe_ep as g_ep
+from repro_torch.models.model import Model as g_Model, decode_step as g_decode_step
+from repro_torch.sharding import partition as g_part
+from repro_torch.sharding.place import from_full as g_from_full, local_index as g_index
+from repro_torch.sharding.specs import (P as g_P, ShardingRules as g_Rules,
+                                        batch_specs as g_bspecs, placements as g_pl)
+if not dist.is_initialized():  # on its own
+    dist.init_process_group("gloo", init_method="env://")
+    torch.cuda.set_device(0)
+g_rank = dist.get_rank()
+g_spec = g_json.loads(g_Path(__file__).with_name("g_spec.json").read_text())
+g_kernels.enable_kernels(True)
+g_mesh = g_make_mesh((2, 2), ("data", "model"), device_type="cuda")
+g_rows_pl = g_pl(g_P(("data",), None), g_mesh)
+g_fa0, g_note, g_res = g_fa.flash_attention, {}, []
+def g_fa_noted(q, k, v, **kw):  # the local shapes the model's attention launches at
+    key = str((q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2], q.shape[3],
+               v.shape[3], bool(kw.get("return_lse"))))
+    g_note[key] = g_note.get(key, 0) + 1
+    if kw.get("kv_len") == 0:
+        g_note["empty shard"] = g_note.get("empty shard", 0) + 1
+    return g_fa0(q, k, v, **kw)
+def g_model(cfg, f32, seed):
+    m = g_Model(cfg, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    return m.float() if f32 else m
+def g_cache(cfg, b, L, f32):
+    return [{n: (t.float() if f32 else t) for n, t in layer.items()}
+            for layer in g_init_cache(cfg, b, L, "cuda")]
+def g_whole(t, local=None):  # a DTensor's whole value on every rank, by way of host memory
+    loc = t.to_local().float().cpu() if local is None else local  # local: blocks stacked over steps
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (g_index(t.shape, g_mesh, t.placements), loc))
+    out = torch.empty((*loc.shape[:loc.dim() - t.dim()], *t.shape))
+    for sl, part in parts:
+        out[(..., *sl)] = part
+    return out
+def g_timed(fn):
+    torch.cuda.synchronize()
+    t0 = g_time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (g_time.perf_counter() - t0) * 1e3
+g_fa.flash_attention = g_fa_noted
+for g_run in g_spec["runs"]:
+    g_full = g_config(g_run["arch"])
+    g_cfg = g_dc.replace(g_full, n_layers=g_run.get("n_layers") or g_full.n_layers)
+    g_f32, g_rules = g_run["f32"], g_Rules(**g_run.get("rules", {}))
+    g_b, g_p, g_new, g_L = g_run["rows"], g_run["prompt"], g_run["new"], g_run["max_len"]
+    g_gen = torch.Generator().manual_seed(g_spec["seed"])
+    g_prompt = torch.randint(0, g_cfg.vocab, (g_b, g_p), generator=g_gen).cuda()
+    g_pb, g_ps = g_run.get("prefill") or (0, 0)
+    g_ptoks = torch.randint(0, g_cfg.vocab, (g_pb, g_ps), generator=g_gen).cuda() if g_pb else None
+    g_ref = g_Path(g_spec["out"]).with_name(f"g_ref_{g_run['label']}.pt")
+    if g_rank == 0:  # the unmeshed steps
+        m = g_model(g_cfg, g_f32, g_spec["seed"])
+        torch.cuda.reset_peak_memory_stats()
+        want = {"prefill": None}
+        if g_pb:
+            want["prefill"] = g_steps.make_prefill_step(g_cfg)(m, {"tokens": g_ptoks}).float().cpu()
+        cache, fed, lg, ms, tok = g_cache(g_cfg, g_b, g_L, g_f32), [], [], [], g_prompt[:, :1]
+        torch.cuda.reset_peak_memory_stats()
+        for pos in range(g_p + g_new):
+            (logits, cache), t = g_timed(lambda: g_decode_step(g_cfg, m, cache, tok, pos))
+            fed.append(tok.cpu())
+            lg.append(logits.float().cpu())
+            ms.append(t)
+            tok = g_prompt[:, pos + 1:pos + 2] if pos + 1 < g_p else logits.argmax(-1, keepdim=True)
+        want.update(fed=torch.stack(fed), logits=torch.stack(lg), ms=ms,
+                    peak=torch.cuda.max_memory_allocated())
+        torch.save({"fed": want["fed"]}, g_ref)  # rank 0 keeps the rest
+        del m, cache, logits
+        g_gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    want = want if g_rank == 0 else torch.load(g_ref)
+    g_base = torch.cuda.memory_allocated()  # what the process holds before (g)'s run
+    dm = g_steps.distribute_params(g_model(g_cfg, g_f32, g_spec["seed"]), g_cfg, g_mesh, g_rules)
+    g_gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"label": g_run["label"], "rank": g_rank}
+    g_note.clear()
+    g_fa_reset()
+    g_ep.HOST_STAGED.update(calls=0, bytes=0)
+    if g_pb:  # the meshed prefill: this rank's sequence shard of its rows
+        pre = g_steps.make_sharded_prefill_step(g_cfg, g_mesh, g_rules)
+        sh = g_pl(g_bspecs(g_cfg, g_Shape("g", g_ps, g_pb, "prefill"), g_mesh, g_rules)["tokens"],
+                  g_mesh)
+        out, rec["prefill_ms"] = g_timed(lambda: pre(dm, {"tokens": g_from_full(g_ptoks, g_mesh, sh)}))
+        got = g_whole(out)
+        if g_rank == 0:
+            rec["prefill_gap"] = float((got - want["prefill"]).abs().max())
+            rec["prefill_max"] = float(want["prefill"].abs().max())
+        rec["prefill_modes"] = dict(g_col.Counter(pre.partition.modes.values()))
+        if g_run.get("fault"):  # planted: each rank keeps its own partial sums
+            red = g_part._sum_, g_part._scatter_flat
+            def g_own(x, group, n):
+                c, j = x.numel() // n, dist.get_rank(group)
+                return x.contiguous().view(-1)[j * c:(j + 1) * c].clone()
+            g_part._sum_, g_part._scatter_flat = (lambda x, group, op=None: x), g_own
+            try:
+                bad = pre(dm, {"tokens": g_from_full(g_ptoks, g_mesh, sh)})
+            finally:
+                g_part._sum_, g_part._scatter_flat = red
+            bad = g_whole(bad)
+            if g_rank == 0:
+                rec["prefill_fault_gap"] = float((bad - want["prefill"]).abs().max())
+        del out
+    rec["prefill_staged"] = dict(g_ep.HOST_STAGED)
+    cache = g_steps.distribute_cache(g_cache(g_cfg, g_b, g_L, g_f32), g_cfg, g_mesh, g_rules)
+    serve = g_steps.make_sharded_serve_step(g_cfg, g_mesh, g_rules)
+    g_fa_reset()
+    g_note.clear()
+    g_ep.HOST_STAGED.update(calls=0, bytes=0)
+    torch.cuda.reset_peak_memory_stats()
+    lgs, toks, ms = [], [], []
+    for pos in range(g_p + g_new):
+        t_in = g_from_full(want["fed"][pos].cuda(), g_mesh, g_rows_pl)
+        (nt, cache, lg), t = g_timed(lambda: serve(dm, cache, t_in, pos, logits=True))
+        lgs.append(lg.to_local().float().cpu())
+        toks.append(nt.to_local().cpu())
+        ms.append(t)
+    lgs, toks = g_whole(lg, torch.stack(lgs)), g_whole(nt, torch.stack(toks).float())[..., 0].long()
+    rec.update(peak_bytes=torch.cuda.max_memory_allocated() - g_base, base_bytes=g_base,
+               fa=dict(g_note),
+               fa_launches=g_fa_cuda.launches,
+               fa_by_dim={str(k): v for k, v in g_fa_cuda.launches_by_dim.items()},
+               staged=dict(g_ep.HOST_STAGED), cache=serve.partition.cache_kinds(),
+               modes=dict(g_col.Counter(serve.partition.modes.values())), ms=ms,
+               local_params=sum(p.to_local().numel() for p in dm.parameters()),
+               params=sum(p.numel() for p in dm.parameters()))
+    if g_run.get("fault"):  # the last step again, planted: each rank keeps its partial sums
+        red = g_part._sum_
+        g_part._sum_ = lambda x, group, op=None: x
+        try:
+            t_in = g_from_full(want["fed"][-1].cuda(), g_mesh, g_rows_pl)
+            bad = serve(dm, cache, t_in, g_p + g_new - 1, logits=True)[2]
+        finally:
+            g_part._sum_ = red
+        bad = g_whole(bad)
+        if g_rank == 0:
+            rec["decode_fault_gap"] = float((bad - want["logits"][-1]).abs().max())
+    if g_rank == 0:
+        got, ref = lgs, want["logits"]
+        top = ref.abs().amax(dim=-1)  # (steps, rows)
+        rec["gap"] = float((got - ref).abs().max())
+        rec["rel_gap"] = float(((got - ref).abs().amax(dim=-1) / top).max())
+        top2 = ref.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > g_spec["f32_tol"] * top
+        mine = toks
+        rec["decisive"] = [int(decisive.sum()), decisive.numel()]
+        rec["tokens_equal"] = bool(torch.equal(mine[decisive], ref.argmax(-1)[decisive]))
+        rec["tokens_agree"] = float((mine == ref.argmax(-1)).float().mean())
+        rec.update(plain_ms=want["ms"], plain_peak=want["peak"], logit_max=float(top.max()))
+    dist.barrier()
+    if g_rank == 0:
+        g_ref.unlink()
+    g_res.append(rec)
+    g_Path(f"{g_spec['out']}.{g_rank}").write_text(g_json.dumps(g_res))
+    del dm, cache, serve, lgs, want
+    g_gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+g_fa.flash_attention = g_fa0
+"""
+PG_END = "dist.destroy_process_group()\n"
 
 
 def _torchrun(stamp, label: str, root: Path, nproc: int, script: str, args: list,
@@ -3164,8 +3431,10 @@ def phase_distributed(stamp, ft: dict) -> dict:
     d_args = d_args[:d_args.index("--ckpt-dir")] + ["--mesh", "2,2"]  # no checkpoints
     (root / "e_spec.json").write_text(json.dumps(
         {"runs": DIST_E + DIST_F, "args": DIST_E_ARGS, "out": str(root / "e.json")}))
+    (root / "g_spec.json").write_text(json.dumps(
+        {"runs": DIST_G, "seed": SEED, "f32_tol": DIST_G_F32_TOL, "out": str(root / "g.json")}))
     try:
-        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN + E_RUN,
+        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN + E_RUN + G_RUN + PG_END,
                          [str(root / "ep.json"), str(SEED), str(B), str(S), str(DIST_EP_TIMED),
                           ",".join(map(str, DIST_EP_CF)), str(root / "tp.json"), str(DIST_STOP),
                           str(FT_KEPT), *d_args], timeout=DIST_TIMEOUT + DIST_E_TIMEOUT)
@@ -3256,10 +3525,102 @@ def phase_distributed(stamp, ft: dict) -> dict:
     e_ranks = [json.loads((root / f"e.json.{k}").read_text()) for k in range(4)]
     e = report_e(stamp, e_ranks)
     f = report_f(stamp, e_ranks)
-    print(f"time [{stamp}] distributed (b)+(c)+(d)+(e)+(f) 4 processes: {wall:.1f} s wall")
+    g = report_g(stamp, [json.loads((root / f"g.json.{k}").read_text()) for k in range(4)])
+    print(f"time [{stamp}] distributed (b)+(c)+(d)+(e)+(f)+(g) 4 processes: {wall:.1f} s wall")
     print(f"time [{stamp}] distributed phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": r0["launches"], "step_s": step_s, "peak_bytes": r0["peak_bytes"], "e": e,
-            "f": f}
+            "f": f, "g": g}
+
+
+def report_g(stamp, ranks: list) -> dict:
+    """(g)'s checks: each run's meshed prefill and decode wave against the
+    unmeshed steps on rank 0: in f32 the greedy tokens equal wherever the
+    unmeshed top two logits lie more than DIST_G_F32_TOL of the largest
+    apart, and every logit within DIST_G_F32_TOL of its row's largest; in
+    bf16 every logit within DIST_G_BF16_TOL, which the planted fault (row
+    products left unreduced) breaks; every rank's flash calls at its local
+    shapes (this rank's rows; its kv heads with its q heads, or every head
+    over its sequence shard with the log-sum-exp), the cache's layout.
+    Returns {label: rank 0's record} for the kernels records."""
+    out = {}
+    for run in DIST_G:
+        mine = [next(r for r in rk if r["label"] == run["label"]) for rk in ranks]
+        r0 = mine[0]
+        cfg = get_config(run["arch"])
+        cfg = dataclasses.replace(cfg, n_layers=run.get("n_layers") or cfg.n_layers)
+        f32 = run["f32"]
+        heads = run.get("rules", {}).get("shard_cache_heads", True) and not cfg.use_mla and (
+            cfg.n_kv_heads % 2 == 0)
+        rows, L = run["rows"] // 2, run["max_len"]
+        if cfg.use_mla:
+            d, dv, hq, hkv = cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim, cfg.n_heads, cfg.n_heads
+        else:
+            d = dv = cfg.head_dim
+            hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        want = ((rows, 1, hq // 2, L, hkv // 2, d, dv, False) if heads
+                else (rows, 1, hq, L // 2, hkv, d, dv, True))
+        steps_ = run["prompt"] + run["new"]
+        layers = cfg.n_layers
+        for r in mine:
+            fa = {k: v for k, v in r["fa"].items() if k != "empty shard"}
+            check(fa == {str(want): layers * steps_} and r["fa_launches"] == layers * steps_,
+                  f"distributed (g) {run['label']} rank {r['rank']}: flash calls {r['fa']} "
+                  f"({r['fa_launches']} launches), not {layers * steps_} at {want}")
+            check(r["staged"]["calls"] > 0, f"distributed (g) {run['label']} rank {r['rank']}: "
+                                            f"no collective went through the host")
+        kind = ("heads" if heads else "sequence")
+        check(set(r0["cache"]) == {kind}, f"distributed (g) {run['label']}: cache {r0['cache']}")
+        # the sequence's second shard holds no key until the prompt passes it
+        empty = sum(r.get("fa", {}).get("empty shard", 0) for r in mine)
+        if not heads:
+            check(empty > 0, f"distributed (g) {run['label']}: no step had an empty shard")
+        tol = DIST_G_F32_TOL if f32 else DIST_G_BF16_TOL
+        gap = r0["rel_gap"] if f32 else r0["gap"]
+        dec = r0["decisive"]
+        print(f"distributed (g) {run['label']}: {cfg.name} ({cfg.n_layers} layers) "
+              f"{'f32' if f32 else 'bf16'} on --mesh 2,2, the cache by {kind} ({r0['cache']}), "
+              f"modes {r0['modes']}; {r0['local_params']:,} of {r0['params']:,} parameters a rank; "
+              f"a wave of {run['rows']} prompts of {run['prompt']} tokens fed one at a time, then "
+              f"{run['new']} greedy steps, cache {L}: every rank's flash calls {r0['fa']} (rows, "
+              f"q positions, q heads, cache positions, kv heads, d, dv, lse: calls; "
+              f"{empty} calls on an empty shard over the 4 ranks)")
+        print(f"distributed (g) {run['label']}: logits against the unmeshed steps' on rank 0: "
+              f"max |gap| {r0['gap']:.3g} (of the largest: {r0['rel_gap']:.3g}; limit {tol}"
+              f"{' of the largest' if f32 else ' absolute'}; |logit| max {r0['logit_max']:.3g}); "
+              f"greedy tokens equal on {dec[0]} of {dec[1]} decisive (row, step)s: "
+              f"{r0['tokens_equal']} (all: {r0['tokens_agree']:.1%})")
+        check(gap <= tol, f"distributed (g) {run['label']}: logit gap {gap:.3g} > {tol}")
+        if f32:
+            check(r0["tokens_equal"] and dec[0] >= 0.9 * dec[1],
+                  f"distributed (g) {run['label']}: tokens {r0['tokens_equal']}, decisive {dec}")
+        if "prefill_gap" in r0:
+            ptol = DIST_G_F32_TOL * r0["prefill_max"] if f32 else DIST_G_BF16_TOL
+            print(f"distributed (g) {run['label']}: prefill {run['prefill'][0]} x "
+                  f"{run['prefill'][1]} tokens, last-position logits gathered: max |gap| "
+                  f"{r0['prefill_gap']:.3g} (limit {ptol:.3g}; |logit| max "
+                  f"{r0['prefill_max']:.3g}), modes {r0['prefill_modes']}")
+            check(r0["prefill_gap"] <= ptol, f"distributed (g) {run['label']}: prefill gap "
+                                             f"{r0['prefill_gap']:.3g} > {ptol:.3g}")
+        if run.get("fault"):
+            print(f"distributed (g) {run['label']}: planted fault (every all-reduce and "
+                  f"reduce-scatter skipped: each rank keeps its own partial sums): prefill gap {r0['prefill_fault_gap']:.3g}, decode gap "
+                  f"{r0['decode_fault_gap']:.3g}, against the limit {tol}")
+            check(min(r0["prefill_fault_gap"], r0["decode_fault_gap"]) > tol,
+                  f"distributed (g) {run['label']}: the planted fault passes the limit")
+        meshed_ms = statistics.median(r0["ms"][run["prompt"]:])
+        plain_ms = statistics.median(r0["plain_ms"][run["prompt"]:])
+        print(f"time [{stamp}] distributed (g) {run['label']} decode step (median of the "
+              f"{run['new']} greedy steps, host clock, synced): --mesh 2,2 {meshed_ms:.2f} ms "
+              f"(4 ranks sharing the card over gloo; {r0['staged']['calls']} collectives, "
+              f"{r0['staged']['bytes'] / 1e6:.1f} MB through host memory on rank 0 in the wave), "
+              f"unmeshed {plain_ms:.2f} ms; peak memory by rank "
+              + " ".join(f"{r['peak_bytes'] / 2**30:.3f}" for r in mine)
+              + f" GiB above what each held before the run ({r0['base_bytes'] / 2**30:.3f} GiB on "
+              f"rank 0), unmeshed {r0['plain_peak'] / 2**30:.3f} GiB in all"
+              + (f"; prefill --mesh 2,2 {r0['prefill_ms']:.1f} ms" if "prefill_ms" in r0 else ""))
+        out[run["label"]] = {**r0, "shape": want, "empty": empty, "meshed_ms": meshed_ms,
+                             "plain_ms_median": plain_ms}
+    return out
 
 
 def report_f(stamp, ranks: list) -> dict:
@@ -3345,7 +3706,8 @@ def report_f(stamp, ranks: list) -> dict:
 
 def report_e(stamp, ranks: list) -> dict:
     """(e)'s checks: each model's --mesh 2,2 step against its unmeshed step
-    on the card (loss and the grads' global norm within DIST_LOSS_RTOL),
+    on the card (loss and the grads' global norm within DIST_LOSS_RTOL;
+    none for a ``meshed_only`` run),
     every rank's flash and SSD calls at its local shapes (this rank's heads
     of the whole sequence of its dp group's row) and the kernels' launch
     counts. Returns {path: launches} of rank 0 for the kernels records."""
@@ -3356,14 +3718,15 @@ def report_e(stamp, ranks: list) -> dict:
         full = get_config(run["arch"])
         cfg = dataclasses.replace(full, n_layers=run["n_layers"])
         mesh = [r for rk in ranks for r in rk if r["arch"] == run["arch"] and r["meshed"]]
-        plain = next(r for r in ranks[0] if r["arch"] == run["arch"] and not r["meshed"])
+        plain = next((r for r in ranks[0] if r["arch"] == run["arch"] and not r["meshed"]), None)
         check(len(mesh) == 4 and all(r["losses"] == mesh[0]["losses"] and r["norm"] == mesh[0]["norm"]
                                      for r in mesh),
               f"distributed (e) {run['arch']}: losses / norms by rank "
               f"{[(r['losses'], r['norm']) for r in mesh]}")
         m0 = mesh[0]
-        loss_gap = abs(m0["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
-        norm_gap = abs(m0["norm"] - plain["norm"]) / abs(plain["norm"])
+        if plain is not None:
+            loss_gap = abs(m0["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+            norm_gap = abs(m0["norm"] - plain["norm"]) / abs(plain["norm"])
         # one remat step: the prefix layers' attention once, each unit layer
         # in its forward and its recompute
         units = n_units(cfg)
@@ -3390,9 +3753,9 @@ def report_e(stamp, ranks: list) -> dict:
                   f"({r['ssd_launches']} launches), not {want_ssd}: a score and a main kernel each")
             check(r["staged"]["calls"] > 0, f"distributed (e) {run['arch']} rank {r['rank']}: no "
                                             f"collective went through the host")
-        check(plain["fa_launches"] == n_fa and plain["ssd_launches"] == 2 * n_ssd,
-              f"distributed (e) {run['arch']} unmeshed: {plain['fa_launches']} flash, "
-              f"{plain['ssd_launches']} SSD launches")
+        check(plain is None or (plain["fa_launches"] == n_fa and plain["ssd_launches"] == 2 * n_ssd),
+              f"distributed (e) {run['arch']} unmeshed: {plain and plain['fa_launches']} flash, "
+              f"{plain and plain['ssd_launches']} SSD launches")
         what = (f"{cfg.n_layers} layers ({cfg.first_k_dense} dense MLA + {cfg.n_layers - cfg.first_k_dense} "
                 f"MLA + MoE of {cfg.n_routed_experts} experts: {cfg.n_routed_experts // 2} a rank)"
                 if cfg.use_mla else f"{cfg.n_layers} layers ({cfg.block_pattern.count('mamba2')} "
@@ -3407,19 +3770,25 @@ def report_e(stamp, ranks: list) -> dict:
               + " on every rank"
               + (f"; {m0['dropped']} assignments dropped past the capacity of the global batch "
                  f"(forward and recompute)" if cfg.n_routed_experts else ""))
-        print(f"distributed (e) {run['arch']}: loss {m0['losses'][0]:.6f} against the unmeshed "
-              f"step's {plain['losses'][0]:.6f} (gap {loss_gap:.2e}), grads' global norm "
-              f"{m0['norm']:.6f} against {plain['norm']:.6f} (gap {norm_gap:.2e}); limit "
-              f"{DIST_LOSS_RTOL}")
-        check(loss_gap <= DIST_LOSS_RTOL and norm_gap <= DIST_LOSS_RTOL,
-              f"distributed (e) {run['arch']}: loss gap {loss_gap:.3g}, norm gap {norm_gap:.3g}")
+        if plain is None:
+            print(f"distributed (e) {run['arch']}: loss {m0['losses'][0]:.6f}, grads' global norm "
+                  f"{m0['norm']:.6f}; the unmeshed comparison is cut (``meshed_only``)")
+            loss_gap = norm_gap = None
+        else:
+            print(f"distributed (e) {run['arch']}: loss {m0['losses'][0]:.6f} against the "
+                  f"unmeshed step's {plain['losses'][0]:.6f} (gap {loss_gap:.2e}), grads' global "
+                  f"norm {m0['norm']:.6f} against {plain['norm']:.6f} (gap {norm_gap:.2e}); limit "
+                  f"{DIST_LOSS_RTOL}")
+            check(loss_gap <= DIST_LOSS_RTOL and norm_gap <= DIST_LOSS_RTOL,
+                  f"distributed (e) {run['arch']}: loss gap {loss_gap:.3g}, norm gap "
+                  f"{norm_gap:.3g}")
         print(f"time [{stamp}] distributed (e) {run['arch']} step: --mesh 2,2 {m0['step_s']:.3f} s "
               f"(4 ranks sharing the card over gloo; {m0['staged']['calls']} collectives, "
               f"{m0['staged']['bytes'] / 1e9:.2f} GB through host memory on rank 0), the run "
-              f"{max(r['run_s'] for r in mesh):.1f} s with start-up; unmeshed {plain['step_s']:.3f} "
-              f"s, the run {plain['run_s']:.1f} s; peak memory by rank "
-              + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in mesh)
-              + f" GiB, unmeshed {plain['peak_bytes'] / 2**30:.2f} GiB")
+              f"{max(r['run_s'] for r in mesh):.1f} s with start-up; peak memory by rank "
+              + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in mesh) + " GiB"
+              + ("" if plain is None else f"; unmeshed {plain['step_s']:.3f} s, the run "
+                 f"{plain['run_s']:.1f} s, {plain['peak_bytes'] / 2**30:.2f} GiB"))
         out[run["arch"]] = {"flash": m0["fa_launches"], "ssd": m0["ssd_launches"],
                             "loss_gap": loss_gap, "norm_gap": norm_gap}
     return out
@@ -3493,6 +3862,26 @@ def phase_dryrun(stamp, ft: dict, dist_run: dict) -> dict:
           f"dryrun (a) 2x2: traced peak {peak2 / 2**30:.2f} GiB is {rel2:+.1%} off rank 0's "
           f"measured {measured2 / 2**30:.2f} GiB")
 
+    # (c) the distributed phase's (g) decode (qwen3-0.6b, bf16, the cache by
+    # kv head), rank 0 of a fake group of 4, against rank 0's measured peak
+    g = dist_run["g"]["qwen3 bf16 heads"]
+    run = next(r for r in DIST_G if r["label"] == "qwen3 bf16 heads")
+    g_cfg = dataclasses.replace(get_config(run["arch"]), n_layers=run["n_layers"])
+    art = dryrun.run_cell(g_cfg, ShapeConfig("g_decode", run["max_len"], run["rows"], "decode"),
+                          False, out_dir=root, hbm_bytes=hbm, mesh_shape=(2, 2))
+    peak3, measured3 = art["memory"]["peak_per_device"], g["peak_bytes"]
+    c = art["collectives"]
+    print(f"dryrun (c) {art['cell']}: the distributed phase's (g) decode step traced for rank 0 "
+          f"of a fake group of 4 ({art['partition']}): traced peak {peak3 / 2**30:.3f} GiB vs "
+          f"rank 0's measured {measured3 / 2**30:.3f} GiB over (g)'s wave: "
+          f"{peak3 / measured3 - 1:+.1%} (limit {DRYRUN_PEAK_TOL:.0%}); at the peak "
+          + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in art["memory"]["peak_by_category"].items())
+          + f" GiB; all-gathers {c['all-gather_count']}, all-reduces {c['all-reduce_count']}, "
+          f"{art['collective_bytes_per_device'] / 1e6:.3f} MB a device")
+    check(abs(peak3 / measured3 - 1) <= DRYRUN_PEAK_TOL,
+          f"dryrun (c): traced peak {peak3 / 2**30:.3f} GiB is {peak3 / measured3 - 1:+.1%} off "
+          f"rank 0's measured {measured3 / 2**30:.3f} GiB")
+
     # (b) the CLI on the production meshes, in a process of its own
     t_b = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", t["arch"], "--shape",
@@ -3526,7 +3915,8 @@ def phase_dryrun(stamp, ft: dict, dist_run: dict) -> dict:
     check(f2 < f1, f"dryrun (b): FLOPs per device {f1:.4e} (16x16) -> {f2:.4e} (2x16x16)")
     print(f"time [{stamp}] dryrun (b) the CLI's process: {wall_b:.1f} s wall for both meshes")
     print(f"time [{stamp}] dryrun phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"peak": peak, "measured": measured, "rel": rel, "rel_2x2": rel2}
+    return {"peak": peak, "measured": measured, "rel": rel, "rel_2x2": rel2,
+            "rel_g": peak3 / measured3 - 1}
 
 
 def phase_codesign(stamp, gen) -> dict:
@@ -4605,6 +4995,52 @@ def _time_fa_train(stamp, gen, fa, name, shape, path, launches, err) -> dict:
             "bound_by": bound_by, "library_ms": ms["library"]}
 
 
+# (g)'s decode shapes timed on one rank: the G_LSE case, the (g) run whose
+# launches it carries, the live keys (the wave's last step: 48 of the 64
+# slots; a full sequence shard of 32)
+G_TIMED = [("g heads", "qwen3 bf16 heads", 48), ("g sequence", "qwen3 bf16 sequence", 32),
+           ("g mla", "deepseek f32", 32)]
+
+
+def _time_g_decode(stamp, gen, fa, name, run, kv_len, err) -> dict:
+    """Flash attention at one of distributed (g)'s local decode shapes, in
+    the dtype that run served in (with the log-sum-exp where its cache is
+    split by sequence), beside its bound, its plain version and SDPA; the
+    kernels-line record with that run's launches on rank 0."""
+    b, sq, hq, skv, hkv, d, dv, lse = run["shape"]
+    shape = next(c[1] for c in G_LSE if c[0] == name)
+    check((b, sq, skv, hq, hkv, d) == shape[:6], f"{name}: (g) launched at {run['shape']}, "
+                                                 f"the kernels phase checked {shape}")
+    dtype = torch.float32 if "f32" in run["label"] else torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    pick = _rotating([_qkv(gen, b, 1, skv, hq, hkv, d, dtype, dv) for _ in range(6)])
+    kw = dict(causal=False, q_offset=0, kv_len=kv_len, sm_scale=scale, return_lse=lse)
+    ms = _interleaved_ms({
+        "plain": lambda: fa_ops._plain(*pick(), False, scale, 0, kv_len, lse),
+        "kernel": lambda: flash_attention(*pick(), **kw),
+        "library": lambda: (lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2),
+            scale=scale, enable_gqa=hq != hkv))(*pick()),
+    }, n=100)
+    item = torch.finfo(dtype).bits // 8
+    bytes_ = item * (b * hq * d + b * kv_len * hkv * (d + dv) + b * hq * dv) + 4 * b * hq * lse
+    peak = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+    bound, bound_by = _bound(bytes_, 2 * b * hq * kv_len * (d + dv), peak)
+    launches = next(v for k, v in run["fa"].items() if k != "empty shard")
+    label = (f"{run['label']} on one rank of --mesh 2,2: b={b} hq={hq} hkv={hkv} d={d}"
+             + (f" dv={dv}" if dv != d else "") + f" cache {skv} kv_len={kv_len} "
+             f"{str(dtype)[6:]}" + (" with its log-sum-exp" if lse else ""))
+    print(f"time [{stamp}] flash_attention {label} (the D = {compiled_dim(d, dv)} instance, "
+          f"n_split {n_split(b, hkv, kv_len, plan_blocks(1, skv, compiled_dim(d, dv))[1])}): "
+          f"eager calls: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, sdpa "
+          f"{ms['library']:.4f} ms (no log-sum-exp), bound {bound:.4f} ms ({bound_by}: "
+          f"{bytes_ / 1e6:.3f} MB at 3.35 TB/s); {launches} launches on each rank in (g)'s "
+          f"wave)")
+    return {**fa, "path": "distributed (g)", "shape": label, "launches": launches,
+            "max_abs_err": err[dtype], "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"]}
+
+
 def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches, errs,
                 loop, new_train) -> list:
     """Each kernel at its main-path shape beside its bound, its plain version
@@ -4694,6 +5130,9 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
     for name, shape, path in FA_TRAIN_NEW:
         records.append(_time_fa_train(stamp, gen, fa, name, shape, path,
                                       new_train[path]["launches"], errs[name]))
+    g = new_train["distributed"]["g"]
+    for name, label, kv_len in G_TIMED:
+        records.append(_time_g_decode(stamp, gen, fa, name, g[label], kv_len, errs[name]))
 
     # the SSD kernel at zamba2's training shape, B/C shared by the heads as
     # the model passes them (stride 0: the score kernel, then the main

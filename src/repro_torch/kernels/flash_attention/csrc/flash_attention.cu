@@ -56,7 +56,11 @@
 //    that b * Hkv * n_split covers the 132 SMs, never more than KV tiles);
 //    each part writes a partial (m, l, acc) in f32 to the wrapper's scratch,
 //    and `fa_combine_kernel`, launched next by the same C entry, merges them
-//    by log-sum-exp; one part writes the output directly.
+//    by log-sum-exp; one part writes the output directly. On request the
+//    instance also writes each row's log-sum-exp of its scaled scores, in
+//    f32 (the combine where there are parts, else the one part): a caller
+//    holding one shard of a cache merges its rows with other shards' by it.
+//    A row with no live key gives zeros and a log-sum-exp of -inf.
 //
 // The backward recomputes through the plain version
 // (kernels/flash_attention/ops.py); a backward kernel is later work.
@@ -77,6 +81,7 @@ constexpr int kDecodeRows = 8;  // q-heads of one kv-head a decode CTA holds at 
 constexpr int kDecodeThreads = 256;  // a decode CTA: latency-bound, so 8 warps
 constexpr int kDecodeWarps = kDecodeThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr unsigned kMinusInfBits = 0xff800000u;  // the log-sum-exp of a row with no live key
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
@@ -574,7 +579,7 @@ __device__ __forceinline__ int split_tile(int s, int n_tiles, int n_split) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecodeThreads, D > 128 ? 1 : 2)
-    fa_decode_kernel(const Args a, float* part, int n_split) {
+    fa_decode_kernel(const Args a, float* part, int n_split, float* lse) {
   constexpr int kStages = 4 / sizeof(T);
   constexpr int kVec = 16 / sizeof(T);
   constexpr int LD = D + kVec;  // an odd number of 16-byte units: no bank conflicts per key
@@ -822,18 +827,24 @@ __global__ void __launch_bounds__(kDecodeThreads, D > 128 ? 1 : 2)
       o[c] = from_f32<T>(l == 0.f ? 0.f : out[j] / l);
     }
   }
+  if (lse != nullptr && tid < rows) {  // rows (batch, position, q-head), q-heads fastest
+    const float l = l_s[tid];
+    lse[((long long)b * a.Sq + qi) * a.Hq + h0 + tid] =
+        l == 0.f ? __uint_as_float(kMinusInfBits) : m_s[tid] + logf(l);
+  }
 }
 
 // The split decode's merge: a warp per output row (batch, position, q-head)
 // weighs the n_split partials by log-sum-exp. A split with no live key has
 // m = kNegInf and l = 0, so it weighs nothing next to a live one; a row whose
-// l is 0 in total writes zeros.
+// l is 0 in total writes zeros (and a log-sum-exp of -inf where asked).
 constexpr int kCombineWarps = 4;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kCombineWarps * 32) fa_combine_kernel(const Args a,
                                                                        const float* part,
-                                                                       int n_split, int n_rows) {
+                                                                       int n_split, int n_rows,
+                                                                       float* lse) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
@@ -849,6 +860,7 @@ __global__ void __launch_bounds__(kCombineWarps * 32) fa_combine_kernel(const Ar
     for (int s = 0; s < n_split; ++s) x += pr[s * (D + 2) + c] * expf(pr[s * (D + 2) + D] - M);
     o[c] = from_f32<T>(l == 0.f ? 0.f : x / l);
   }
+  if (lse != nullptr && lane == 0) lse[row] = l == 0.f ? __uint_as_float(kMinusInfBits) : M + logf(l);
 }
 
 // ---------------------------------------------------------------------------
@@ -906,7 +918,8 @@ cudaError_t dispatch_mma<192>(const Args& a, int B, cudaStream_t stream) {
 }
 
 template <typename T, int D>
-cudaError_t launch_decode(const Args& a, int B, float* part, int n_split, cudaStream_t stream) {
+cudaError_t launch_decode(const Args& a, int B, float* part, int n_split, float* lse,
+                          cudaStream_t stream) {
   auto kernel = fa_decode_kernel<T, D>;
   static const cudaError_t configured =
       opt_in(kernel, decode_smem_bytes(kMaxBk, D, (int)sizeof(T)));
@@ -917,20 +930,21 @@ cudaError_t launch_decode(const Args& a, int B, float* part, int n_split, cudaSt
     return cudaErrorInvalidValue;
   const dim3 grid(n_split, a.Sq * groups, B * a.Hkv);
   kernel<<<grid, kDecodeThreads, decode_smem_bytes(a.bk, D, (int)sizeof(T)), stream>>>(
-      a, part, n_split);
+      a, part, n_split, n_split == 1 ? lse : nullptr);
   if (n_split == 1) return cudaGetLastError();
   const int n_rows = B * a.Sq * a.Hq;
   fa_combine_kernel<T, D><<<(n_rows + kCombineWarps - 1) / kCombineWarps, kCombineWarps * 32,
-                            0, stream>>>(a, part, n_split, n_rows);
+                            0, stream>>>(a, part, n_split, n_rows, lse);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(const Args& a, int B, int is_bf16, int bq, float* part, int n_split,
-                     cudaStream_t stream) {
+                     float* lse, cudaStream_t stream) {
   if (bq == 1)
-    return is_bf16 ? launch_decode<bf16, D>(a, B, part, n_split, stream)
-                   : launch_decode<float, D>(a, B, part, n_split, stream);
+    return is_bf16 ? launch_decode<bf16, D>(a, B, part, n_split, lse, stream)
+                   : launch_decode<float, D>(a, B, part, n_split, lse, stream);
+  if (lse != nullptr) return cudaErrorInvalidValue;  // only the decode instance writes it
   if (bq == kRowTile) return is_bf16 ? dispatch_mma<D>(a, B, stream) : launch_fma<D>(a, B, stream);
   return cudaErrorInvalidValue;
 }
@@ -958,10 +972,12 @@ extern "C" int fa_smem_bytes(int bq, int bk, int d, int is_bf16) {
 // aligned, o rows 4-byte aligned. For bq == 1 and n_split > 1, `part` is f32
 // scratch of B * Sq * Hq * n_split * (D + 2) floats: the decode kernel writes
 // the partials there and fa_combine_kernel, launched next on the same stream,
-// merges them into o. Launches on `stream` of device l->device (the caller's
-// current device is restored). Returns the launch's cudaError_t.
+// merges them into o. `lse`, where not null (bq == 1 only), is f32 of
+// B * Sq * Hq: each output row's log-sum-exp of its scaled live scores, -inf
+// for a row with none. Launches on `stream` of device l->device (the
+// caller's current device is restored). Returns the launch's cudaError_t.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, void* part,
-                          const FaLayout* l, int kv_len, int q_offset, int causal,
+                          void* lse, const FaLayout* l, int kv_len, int q_offset, int causal,
                           float scale, int n_split, void* stream) {
   if (l->Hkv < 1 || l->Hq % l->Hkv != 0 || l->bk < 1 || l->bk > kMaxBk)
     return cudaErrorInvalidValue;
@@ -975,14 +991,15 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o, 
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   const int B = l->B, bf = l->is_bf16, bq = l->bq;
   switch (l->D) {
-    case 16: err = dispatch<16>(a, B, bf, bq, p, n_split, s); break;
-    case 32: err = dispatch<32>(a, B, bf, bq, p, n_split, s); break;
-    case 64: err = dispatch<64>(a, B, bf, bq, p, n_split, s); break;
-    case 80: err = dispatch<80>(a, B, bf, bq, p, n_split, s); break;
-    case 128: err = dispatch<128>(a, B, bf, bq, p, n_split, s); break;
-    case 192: err = dispatch<192>(a, B, bf, bq, p, n_split, s); break;
+    case 16: err = dispatch<16>(a, B, bf, bq, p, n_split, ls, s); break;
+    case 32: err = dispatch<32>(a, B, bf, bq, p, n_split, ls, s); break;
+    case 64: err = dispatch<64>(a, B, bf, bq, p, n_split, ls, s); break;
+    case 80: err = dispatch<80>(a, B, bf, bq, p, n_split, ls, s); break;
+    case 128: err = dispatch<128>(a, B, bf, bq, p, n_split, ls, s); break;
+    case 192: err = dispatch<192>(a, B, bf, bq, p, n_split, ls, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (prev != l->device) cudaSetDevice(prev);

@@ -13,7 +13,10 @@ the kernel's ``FaLayout``, so a decode step's call does little more than
 read the pointers.
 
 The decode instance (``bq == 1``) cuts the live keys into ``n_split``
-parts by :func:`n_split`; that rule is not planned.
+parts by :func:`n_split`; that rule is not planned. On request
+(``lse=True``) it also returns each row's log-sum-exp of its scaled live
+scores, f32 (b, Sq, hq), -inf for a row with no live key: the partial that
+a rank holding one shard of a KV cache merges with the other shards'.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.fa_forward
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(_FaLayout), i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, p, ctypes.POINTER(_FaLayout), i, i, i, ctypes.c_float, i,
+                       p]
         fn.restype = ctypes.c_int
         lib.fa_smem_bytes.argtypes = [i, i, i, i]
         lib.fa_smem_bytes.restype = ctypes.c_int
@@ -137,9 +141,11 @@ def flash_attention_cuda(
     kv_len: int,
     bq: int,
     bk: int,
-) -> torch.Tensor:
+    lse: bool = False,
+):
     """One call of the kernel (a split decode also launches its merge);
-    returns a new (b, Sq, hq, d) tensor."""
+    returns a new (b, Sq, hq, d) tensor, and with ``lse`` (decode only) the
+    rows' f32 log-sum-exp (b, Sq, hq) beside it."""
     lay = _layout(q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
                   q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, bq, bk)
     if not 0 <= kv_len <= lay.Skv or q_offset < 0:
@@ -148,7 +154,10 @@ def flash_attention_cuda(
     # checked with the layout); out is new, so aligned by the allocator
     if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("q, k and v must start 16-byte aligned")
+    if lse and bq != 1:
+        raise ValueError(f"bq={bq}: only the decode instance (bq = 1) returns the log-sum-exp")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rows = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if lse else None
     parts, part = 1, None
     if bq == 1:
         parts = n_split(lay.B, lay.Hkv, live_keys(lay.Sq, kv_len, q_offset, causal), bk)
@@ -157,14 +166,15 @@ def flash_attention_cuda(
                                dtype=torch.float32, device=q.device)
     err = _lib().fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), ctypes.byref(lay), int(kv_len),
+        None if part is None else part.data_ptr(), None if rows is None else rows.data_ptr(),
+        ctypes.byref(lay), int(kv_len),
         int(q_offset), int(causal), float(scale), parts,
         torch._C._cuda_getCurrentRawStream(lay.device))
     if err:
         raise RuntimeError(f"flash attention launch failed with CUDA error {err}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_dim[lay.D] += 1
-    return out
+    return (out, rows) if lse else out
 
 
 @functools.lru_cache(maxsize=256)

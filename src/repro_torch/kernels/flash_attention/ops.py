@@ -151,12 +151,16 @@ def flash_attention(
     kv_len: Optional[int] = None,
     sm_scale: Optional[float] = None,
     blocks: Optional[Tuple[int, int]] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Drop-in for ``models.layers.mha``'s math; GQA-native, no padding of
     the sequence. ``kv_len`` (valid cache prefix) and ``q_offset`` (global
     position of q[:, 0]) are Python ints. v may be narrower or wider than q
     and k (dv != d); ``scale`` defaults to 1 / sqrt(d). The tile is planned
-    at the compiled D that the CUDA path pads to."""
+    at the compiled D that the CUDA path pads to. ``return_lse`` (decode,
+    no autograd): ``(out, lse)``, lse the rows' f32 log-sum-exp (b, Sq, hq)
+    of their scaled live scores, -inf where a row has no live key (its
+    output zeros); :func:`merge_lse` merges such partials."""
     b, Sq, hq, d = q.shape
     _, Skv, hkv, dv = v.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
@@ -170,6 +174,10 @@ def flash_attention(
     if blocks is not None:
         check_blocks(*blocks)
     args = (causal, scale, int(q_offset), kv_len, blocks)
+    if return_lse:
+        if Sq != 1:
+            raise ValueError(f"Sq={Sq}: the log-sum-exp comes from the decode instance (Sq = 1)")
+        return _forward(q, k, v, *args, lse=True)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, *args)
     return _forward(q, k, v, *args)  # no graph to record: skip autograd's dispatch
@@ -187,22 +195,42 @@ def pad_head_dims(q, k, v, D: int):
     return q, k, v
 
 
-def _forward(q, k, v, causal, scale, q_offset, kv_len, blocks):
+def _forward(q, k, v, causal, scale, q_offset, kv_len, blocks, lse=False):
     if q.is_cuda:
         dv = v.shape[-1]
         qp, kp, vp = pad_head_dims(q, k, v, compiled_dim(q.shape[-1], dv))
-        out = flash_attention_cuda(qp, kp, vp, causal=causal, scale=scale, q_offset=q_offset,
-                                   kv_len=kv_len, bq=blocks[0], bk=blocks[1])
-        return out if out.shape[-1] == dv else out[..., :dv]
-    return _plain(q, k, v, causal, scale, q_offset, kv_len)
+        res = flash_attention_cuda(qp, kp, vp, causal=causal, scale=scale, q_offset=q_offset,
+                                   kv_len=kv_len, bq=blocks[0], bk=blocks[1], lse=lse)
+        out, rows = res if lse else (res, None)
+        out = out if out.shape[-1] == dv else out[..., :dv]
+        return (out, rows) if lse else out
+    return _plain(q, k, v, causal, scale, q_offset, kv_len, lse)
 
 
-def _plain(q, k, v, causal, scale, q_offset, kv_len):
-    out = attention_ref(
+def _plain(q, k, v, causal, scale, q_offset, kv_len, lse=False):
+    res = attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len,
+        causal=causal, scale=scale, q_offset=q_offset, kv_len=kv_len, return_lse=lse,
     )
-    return out.transpose(1, 2)
+    if lse:
+        return res[0].transpose(1, 2), res[1].transpose(1, 2)
+    return res.transpose(1, 2)
+
+
+def merge_lse(parts: torch.Tensor) -> torch.Tensor:
+    """Attention over a cache split into shards, from each shard's partial:
+    ``parts`` (n, ..., dv + 1) f32, each shard's output over its keys with
+    its log-sum-exp in the last column (-inf: no live key, output zeros) ->
+    (..., dv + 1), the whole cache's output and log-sum-exp. Each output is
+    weighed by exp(lse - max lse); a row no shard has a key for is zeros and
+    -inf. Plain elementwise arithmetic: the reduction over the shards."""
+    out, lse = parts[..., :-1], parts[..., -1:]
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lse - top)  # 0 for a shard with no live key
+    total = w.sum(dim=0)
+    merged = (out * w).sum(dim=0) / torch.where(total > 0, total, 1.0)
+    return torch.cat([merged, top + torch.log(total)], dim=-1)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -20,7 +20,10 @@ def attention_ref(
     scale: float,
     q_offset: int = 0,
     kv_len: Optional[int] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """With ``return_lse``, also each row's log-sum-exp of its scaled live
+    scores in f32 (B, Hq, Sq), -inf for a row with none."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, Dv = v.shape
     g = Hq // Hkv
@@ -40,8 +43,10 @@ def attention_ref(
     p = torch.softmax(s, dim=-1)
     # rows with every key masked (decode padding): emit zeros like the kernel
     any_live = mask.any(dim=-1)[:, None]
-    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
-    return torch.where(any_live, out, 0.0).to(q.dtype)
+    out = torch.where(any_live, torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v), 0.0).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.where(any_live[..., 0], torch.logsumexp(s, dim=-1), -torch.inf)
 
 
 def split_kv_ref(

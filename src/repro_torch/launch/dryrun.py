@@ -4,8 +4,10 @@ reference's production meshes, with no device.
 
 For every cell, on the single-pod 16x16 mesh AND the 2x16x16 multi-pod
 mesh, the step the port runs (``launch/specs.build_cell``: partitioned
-for training, FSDP per unit and tensor parallel over "model"; data-parallel
-replicas with the whole weights for serving) is traced once for rank 0 of a fake
+for training, FSDP per unit and tensor parallel over "model"; for serving
+the inference layout, tensor parallel over "model" with the cache by
+``cache_specs``, except the xLSTM decode and ``fsdp_only`` serving, which
+run data-parallel replicas with the whole weights) is traced once for rank 0 of a fake
 process group of 256 or 512 ranks, on shape-only ``meta`` tensors, with
 the hand-written kernels switched off (their plain versions run: a kernel
 needs real device memory). One dispatch mode counts, op by op:
@@ -372,16 +374,25 @@ def _mesh(multi_pod: bool, mesh_shape: Optional[Sequence[int]]):
     return make_mesh(tuple(mesh_shape), axes, device_type="cpu")
 
 
-def _modes(part) -> Optional[dict]:
-    """A train step's partition: its branches by mode, and by name those
-    computed whole over "model" (no TP, no heads x rows)."""
+def _modes(fn):
+    """A step's partition: its branches by mode, by name those computed
+    whole over "model" (no TP, no heads x rows), and a decode step's cache
+    leaves by layout ("heads", "sequence", "sequence over dp", "channels",
+    "replica", or two of them); ``"replica"`` for a serving cell the port
+    does not partition."""
+    if getattr(fn, "compute", None) == "replica":
+        return "replica"
+    part = getattr(fn, "partition", None)
     if part is None:
         return None
     counts: Dict[str, int] = defaultdict(int)
     for mode in part.modes.values():
         counts[mode] += 1
-    return {"modes": dict(sorted(counts.items())),
-            "whole": sorted(k for k, v in part.modes.items() if v == "whole")}
+    out = {"modes": dict(sorted(counts.items())),
+           "whole": sorted(k for k, v in part.modes.items() if v == "whole")}
+    if part.layouts:
+        out["cache"] = part.cache_kinds()
+    return out
 
 
 def run_cell(arch: Union[str, ModelConfig], shape_name: Union[str, ShapeConfig],
@@ -449,7 +460,7 @@ def run_cell(arch: Union[str, ModelConfig], shape_name: Union[str, ShapeConfig],
         "chips": chips,
         "multi_pod": multi_pod,
         "tag": tag,
-        "compute": COMPUTE[shape.kind],
+        "compute": COMPUTE[getattr(fn, "compute", shape.kind)],
         "flops_per_device": tr["flops"],
         "bytes_per_device": tr["bytes"],
         "collective_bytes_per_device": colls.total_link_bytes,
@@ -476,7 +487,7 @@ def run_cell(arch: Union[str, ModelConfig], shape_name: Union[str, ShapeConfig],
         "memory_tpu_analytic": analytic,
         "microbatches": microbatches,
         "model_flops": model_flops(cfg, shape),
-        "partition": _modes(getattr(fn, "partition", None)),
+        "partition": _modes(fn),
         "hlo_lines": 0,
         "aten_ops": tr["ops"],
         "lower_s": t_build,

@@ -39,13 +39,34 @@ from repro_torch.sharding.specs import (
 META = "meta"
 
 #: what each kind of cell's artifact describes: the port's step as it runs
+#: ("replica": a serving cell the port does not partition, ``partitioned``)
 COMPUTE = {
     "train": "FSDP per unit over the dp dims; tensor and sequence parallel over model for "
              "attention, MLA, Mamba-2, the MLP, the expert banks and the vocabulary; other "
              "blocks whole over model; the MoE over the global batch",
-    "prefill": "dp replicas over (pod, data), whole weights; the model ranks repeat",
-    "decode": "dp replicas over (pod, data), whole weights; the model ranks repeat",
+    "prefill": "the inference layout (param_specs for_training=False): tensor and sequence "
+               "parallel over model on the prompt's sequence shards, units gathered over data "
+               "where the TP'd weights pass the budget; the last position's logits "
+               "vocab-sharded",
+    "decode": "the inference layout: tensor parallel over model on this rank's rows (one "
+              "token), row products all-reduced; the cache by cache_specs (kv heads or the "
+              "sequence over model, the sequence over the dp axes for a batch of one), "
+              "sequence shards merged by log-sum-exp; the greedy token vocab-sharded",
+    "replica": "dp replicas over (pod, data), whole weights; the model ranks repeat",
 }
+
+
+def partitioned(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules) -> bool:
+    """Whether the port partitions the cell's step. Serving is not
+    partitioned under ``fsdp_only`` (its prefill puts "model" on the
+    sequence with no tp dim) nor for an xLSTM decode (its mLSTM ``C`` is
+    split along ``dk`` where the heads do not divide): those keep the
+    replica layout."""
+    if shape.kind == "train":
+        return True
+    if rules.fsdp_only:
+        return False
+    return not (shape.kind == "decode" and {"mlstm", "slstm"} & set(cfg.block_pattern))
 
 
 def _shape(shape: Union[str, ShapeConfig]) -> ShapeConfig:
@@ -158,10 +179,11 @@ def _rows(tree, bdp):
 def reference_layout(arch, shape_name, mesh, args, rules: ShardingRules = ShardingRules()):
     """The reference's in-shardings of the cell's arguments, as ``(mesh,
     placements)``: what its ``build_cell`` gives ``jax.jit`` and what
-    ``dryrun.analytic_memory`` divides by. For a train cell it is the
-    port's own; for serving the reference's inference layout
-    (``param_specs(for_training=False)``, ``batch_specs``, ``cache_specs``),
-    which the port does not run (it serves without a mesh)."""
+    ``dryrun.analytic_memory`` divides by. They are the port's own: the
+    train layout (``state_specs``, ``batch_specs``), and for serving the
+    inference layout (``param_specs(for_training=False)``, ``batch_specs``,
+    ``cache_specs``), on which the port partitions prefill and decode
+    (``partitioned``; the replica cells hold whole weights instead)."""
     cfg = _cfg(arch)
     shape = _shape(shape_name)
     if shape.kind == "train":
@@ -195,11 +217,18 @@ def build_cell(
       places by ``state_specs`` and the batch placed by ``batch_specs``
       (partitioned: ``sharding/partition.py``); the ranks' agreement is
       taken as given (a shape-only flag has no value).
-    - prefill / decode: the port serves without a mesh, so each rank is a
-      data-parallel replica with the whole weights holding its own batch
-      rows and their cache rows (rows over the dp axes; replicated where
-      the batch does not divide). Decode runs at the last position of the
-      cache (``pos = seq_len - 1``).
+    - prefill: ``make_sharded_prefill_step`` on the weights
+      ``distribute_params`` places by ``param_specs(for_training=False)``
+      and the batch placed by ``batch_specs`` (the prompt's sequence over
+      "model"); out-sharding ``P(bdp, v_ax)``.
+    - decode: ``make_sharded_serve_step`` on the same weights, the cache
+      placed by ``cache_specs`` and the tokens ``P(bdp, None)``, at the
+      last position of the cache (``pos = seq_len - 1``).
+    - a serving cell the port does not partition (``partitioned``): each
+      rank is a data-parallel replica with the whole weights holding its
+      own batch rows and their cache rows (rows over the dp axes;
+      replicated where the batch does not divide); ``fn.compute`` is
+      ``"replica"``.
 
     ``cfg`` overrides the registry config; ``microbatches`` enables
     gradient accumulation for train cells. Like the reference's, a train
@@ -221,6 +250,8 @@ def build_cell(
         rep = _replicated(mesh)
         return fn, (state, batch), (st_sh, b_sh), (st_sh, {"loss": rep, "step": rep})
     bdp = _row_dp(shape, mesh, rules)
+    if partitioned(cfg, shape, rules):
+        return _sharded_serving(cfg, shape, mesh, rules, bdp)
     model = params_struct(cfg)
     p_sh = {n: _replicated(mesh) for n, _ in model.named_parameters()}
     if shape.kind == "prefill":
@@ -231,6 +262,7 @@ def build_cell(
         def prefill_fn(model, batch):
             return prefill(model, _local(batch))
 
+        prefill_fn.compute = "replica"
         return (prefill_fn, (model, _placed(b, b_sh)), (p_sh, b_sh),
                 named(P(bdp, None), mesh))
     serve = steps_mod.make_serve_step(cfg)
@@ -241,6 +273,27 @@ def build_cell(
     def decode_fn(model, cache, tokens, pos):
         return serve(model, _local(cache), tokens.to_local(), pos)
 
+    decode_fn.compute = "replica"
     tokens = _placed(_sds((shape.global_batch, 1), torch.int32), tok_sh)
     args = (model, _placed(cache, c_sh), tokens, shape.seq_len - 1)
     return decode_fn, args, (p_sh, c_sh, tok_sh, _replicated(mesh)), (tok_sh, c_sh)
+
+
+def _sharded_serving(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules, bdp):
+    """``build_cell``'s partitioned prefill or decode cell."""
+    hints_from_mesh(mesh, rules)
+    model = steps_mod.distribute_params(params_struct(cfg), cfg, mesh, rules)
+    p_sh = named(param_specs(model, cfg, mesh, rules, for_training=False), mesh)
+    v_ax = rules.tp_axis if cfg.vocab % _axis_sizes(mesh).get(rules.tp_axis, 1) == 0 else None
+    if shape.kind == "prefill":
+        b_sh = named(batch_specs(cfg, shape, mesh, rules), mesh)
+        batch = _placed(batch_struct(cfg, shape), b_sh)
+        fn = steps_mod.make_sharded_prefill_step(cfg, mesh, rules)
+        return fn, (model, batch), (p_sh, b_sh), named(P(bdp, v_ax), mesh)
+    fn = steps_mod.make_sharded_serve_step(cfg, mesh, rules)
+    cache = steps_mod.distribute_cache(cache_struct(cfg, shape), cfg, mesh, rules)
+    c_sh = [{n: (mesh, tuple(t.placements)) for n, t in layer.items()} for layer in cache]
+    tok_sh = named(P(bdp, None), mesh)
+    tokens = _placed(_sds((shape.global_batch, 1), torch.int32), tok_sh)
+    args = (model, cache, tokens, shape.seq_len - 1)
+    return fn, args, (p_sh, c_sh, tok_sh, _replicated(mesh)), (tok_sh, c_sh)

@@ -315,3 +315,111 @@ def make_sharded_train_step(
     # ``train_step.partition`` is the plan once a step has run
     train_step.grads = grads_phase
     return train_step
+
+
+# ------------------------------------------------------------------ #
+# serving on a mesh
+# ------------------------------------------------------------------ #
+def distribute_params(model, cfg: ModelConfig, mesh, rules=None):
+    """The whole weights on every rank -> the same Model of DTensors placed
+    by the serving layout, ``param_specs(..., for_training=False)``: tensor
+    parallel over "model", and FSDP over "data" where the TP'd weights
+    exceed ``rules.inference_weight_budget`` (weight-gathered serving)."""
+    from repro_torch.models.convert import distribute_model
+
+    return distribute_model(model, cfg, mesh, rules, for_training=False)
+
+
+def distribute_cache(cache, cfg: ModelConfig, mesh, rules=None) -> list:
+    """A decode cache made whole on every rank -> DTensors placed by
+    ``cache_specs``: K/V by head over "model" where the kv heads divide
+    (and ``shard_cache_heads``), else by sequence; MLA latents by sequence;
+    a batch that does not divide over the dp dims puts the sequence over
+    them; recurrent states by head, conv windows by channel."""
+    from repro_torch.sharding.place import from_full
+    from repro_torch.sharding.specs import ShardingRules, cache_specs, named
+
+    sh = named(cache_specs(cache, cfg, mesh, rules or ShardingRules()), mesh)
+    return [{n: from_full(t, *sh[i][n], copy=False) for n, t in layer.items()}
+            for i, layer in enumerate(cache)]
+
+
+def _placed_out(local: torch.Tensor, mesh, rows, tp_dim, vocab: bool, shape):
+    """A DTensor of this rank's output block: rows placed as ``rows`` (the
+    input's placements, Shard(0) kept), the last dim over the tp dim where
+    ``vocab``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in rows]
+    if vocab:
+        pl[tp_dim] = Shard(len(shape) - 1)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules=None):
+    """``make_prefill_step`` on a mesh: weights placed by
+    ``distribute_params``, the batch by ``batch_specs`` (the prompt's
+    sequence over "model"). (model, batch) -> the last position's logits,
+    a DTensor placed as the reference's out-sharding ``P(bdp, v_ax)``:
+    this rank's rows and, where the head is vocab-parallel, its vocab
+    shard (``Partition.prefill``). ``prefill_step.partition`` is the plan
+    once a step has run."""
+    from repro_torch.sharding.partition import Partition, dp_rows
+    from repro_torch.sharding.specs import ShardingRules
+
+    rules = rules or ShardingRules()
+
+    @torch.no_grad()
+    def prefill_step(model, batch):
+        part = getattr(prefill_step, "partition", None)
+        if part is None:
+            part = prefill_step.partition = Partition(cfg, model, mesh, rules,
+                                                      rows=dp_rows(batch, mesh, rules))
+        shards = {k: p.to_local() for k, p in model.named_parameters()}
+        logits = part.prefill(model, shards, part.local_batch(batch))
+        first = next(iter(batch.values()))
+        return _placed_out(logits, mesh, first.placements, part.tp_dim,
+                           part.modes["head"] == "vocab", (first.shape[0], cfg.vocab))
+
+    return prefill_step
+
+
+def make_sharded_serve_step(cfg: ModelConfig, mesh, rules=None):
+    """``make_serve_step`` on a mesh: weights placed by
+    ``distribute_params``, the cache by ``distribute_cache``, the tokens
+    ``P(bdp, None)``. (model, cache, tokens, pos) -> (next_tok, cache):
+    next_tok placed as the tokens, the cache's DTensors updated in place
+    (``Partition.decode``, the vocab-sharded greedy token
+    ``Partition.greedy``). ``logits=True`` also returns the logits, placed
+    as the prefill step's. ``serve_step.partition`` is the plan once a
+    step has run."""
+    from repro_torch.sharding.partition import Partition
+    from repro_torch.sharding.specs import ShardingRules
+
+    rules = rules or ShardingRules()
+
+    @torch.no_grad()
+    def serve_step(model, cache, tokens, pos, *, logits: bool = False):
+        part = getattr(serve_step, "partition", None)
+        if part is None:
+            part = serve_step.partition = Partition(cfg, model, mesh, rules, decode=True)
+        shards = {k: p.to_local() for k, p in model.named_parameters()}
+        local = part.local_cache(cache)
+        held = [dict(layer) for layer in local]
+        lg = part.decode(model, shards, local, tokens.to_local(), int(pos))
+        for layer, before in zip(local, held):  # a recurrent block's new states
+            for n, t in layer.items():
+                if t is not before[n]:
+                    before[n].copy_(t)
+        tok = part.greedy(lg)
+        next_tok = _placed_out(tok, mesh, tokens.placements, part.tp_dim, False,
+                               (tokens.shape[0], 1))
+        if not logits:
+            return next_tok, cache
+        return next_tok, cache, _placed_out(lg, mesh, tokens.placements, part.tp_dim,
+                                            part.modes["head"] == "vocab",
+                                            (tokens.shape[0], cfg.vocab))
+
+    return serve_step

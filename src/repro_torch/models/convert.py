@@ -69,15 +69,17 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, device="cuda", *, mesh=No
     return model
 
 
-def distribute_model(model: Model, cfg: ModelConfig, mesh, rules=None, *, device=None) -> Model:
+def distribute_model(model: Model, cfg: ModelConfig, mesh, rules=None, *, device=None,
+                     for_training: bool = True) -> Model:
     """Each parameter of ``model`` (whole on every rank) becomes a DTensor
-    placed by ``param_specs``; this rank keeps only its slice (the tensor
-    itself where the slice is all of it), on ``device`` (default: where the
+    placed by ``param_specs`` (the serving layout where not
+    ``for_training``); this rank keeps only its slice (the tensor itself
+    where the slice is all of it), on ``device`` (default: where the
     parameter is)."""
     from repro_torch.sharding.place import from_full
     from repro_torch.sharding.specs import ShardingRules, param_specs, placements
 
-    specs = param_specs(model, cfg, mesh, rules or ShardingRules())
+    specs = param_specs(model, cfg, mesh, rules or ShardingRules(), for_training=for_training)
     state = {n: from_full(p.detach(), mesh, placements(specs[n], mesh), device=device, copy=False)
              for n, p in model.named_parameters()}
     out = Model(cfg, generator=None, device="meta")

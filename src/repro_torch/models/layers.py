@@ -90,8 +90,11 @@ class Products:
     and give this rank's shard of the residual back, and whose norms sum
     their weights' grads over the ranks' heads or tokens. The MoE also takes the whole sequence of a
     shard (``whole``), the offset of this rank's experts (``first``), every
-    rank's expert outputs (``experts``) and this rank's shard of a whole
-    sequence (``shard``); Mamba-2's gated norm and the mLSTM and sLSTM
+    rank's expert outputs (``experts``), its routed sum (``routed``) and
+    this rank's shard of a whole sequence (``shard``); attention and MLA
+    write and read a decode cache through ``cache_write`` and ``attend``,
+    which the partitioned decode step (``Partition.decode``) gives a cache
+    split by head or by sequence; Mamba-2's gated norm and the mLSTM and sLSTM
     output norms sum their squares over the ranks' channels
     (``wide_norm``), and mLSTM's cell input and sLSTM's normed output are
     gathered over them (``gather``)."""
@@ -134,6 +137,35 @@ class Products:
     @staticmethod
     def experts(out: torch.Tensor) -> torch.Tensor:
         return out
+
+    @staticmethod
+    def routed(y: torch.Tensor) -> torch.Tensor:
+        """The MoE's routed sum, complete here (a partitioned decode sums
+        the ranks' partial sums of their experts)."""
+        return y
+
+    @staticmethod
+    def cache_write(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                    cache_len: int) -> int:
+        """Write each of ``new`` (b, S, ...) into ``cache`` at ``cache_len``
+        IN PLACE (JAX returns a new cache from dynamic_update_slice; here the
+        caller's cache tensors are updated); returns the length of the
+        cache to attend over. A partitioned decode writes where this rank's
+        shard of the cache holds the positions."""
+        for name, t in new.items():
+            S = t.shape[1]
+            if cache_len + S > cache[name].shape[1]:
+                raise ValueError(f"cache of {cache[name].shape[1]} slots cannot take "
+                                 f"{S} token(s) at position {cache_len}")
+            cache[name][:, cache_len:cache_len + S] = t
+        return cache_len + S
+
+    @staticmethod
+    def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int, kv_len: int,
+               sm_scale: Optional[float] = None) -> torch.Tensor:
+        """The new tokens' attention over the cache (``cache_write``'s
+        length); a partitioned decode merges the shards' partials."""
+        return mha(q, k, v, causal=False, q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
 
 
 WHOLE = Products()
@@ -206,7 +238,10 @@ def mha(
     kv_len: Optional[int] = None,  # valid cache length (decode)
     q_chunk: Optional[int] = None,  # the plain path's; None: _auto_q_chunk's
     sm_scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,  # decode: (out, the rows' f32 log-sum-exp (b, Sq, hq))
+):
+    """With ``return_lse`` a row with no live key gives zeros and a
+    log-sum-exp of -inf (a shard of a cache that holds none of its keys)."""
     b, Sq, hq, d = q.shape
     _, Skv, hkv, dv = v.shape
     g = hq // hkv
@@ -215,6 +250,7 @@ def mha(
         from repro_torch.kernels.flash_attention import flash_attention
         return flash_attention(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len, sm_scale=scale,
+            return_lse=return_lse,
         )
     if q_chunk is None:
         q_chunk = _auto_q_chunk(b, Sq, Skv, hq)
@@ -235,8 +271,17 @@ def mha(
             mask &= kpos[None, :] < kv_len
         s = torch.where(mask, s, NEG_INF)
         p = torch.softmax(s, dim=-1).to(v.dtype)
-        return torch.einsum("bhck,bkhd->bchd", p, v)
+        out = torch.einsum("bhck,bkhd->bchd", p, v)
+        if not return_lse:
+            return out
+        live = mask.any(dim=-1)  # (c,)
+        lse = torch.where(live[None, None], torch.logsumexp(s, dim=-1), -torch.inf)
+        return torch.where(live[None, :, None, None], out, 0.0), lse.permute(0, 2, 1)
 
+    if return_lse:
+        if Sq > q_chunk:
+            raise ValueError(f"Sq={Sq}: the log-sum-exp is returned for one q chunk")
+        return attend(q, q_offset + torch.arange(Sq, device=q.device))
     if Sq <= q_chunk:
         return attend(q, q_offset + torch.arange(Sq, device=q.device))
     if Sq % q_chunk:
@@ -277,8 +322,9 @@ class Attention(nn.Module):
         # the head counts of the weights this call is given: the config's, or
         # one rank's under tensor parallelism (``sharding/partition.py``)
         hd = cfg.head_dim
-        hq, hkv = self.wq.w.shape[1] // hd, self.wk.w.shape[1] // hd
         q, k, v = products.columns(x, (self.wq, self.wk, self.wv))
+        # a partitioned decode gathers the new token's columns: every head
+        hq, hkv = q.shape[-1] // hd, k.shape[-1] // hd
         b, S = q.shape[:2]
         q = q.reshape(b, S, hq, hd)
         k = k.reshape(b, S, hkv, hd)
@@ -291,19 +337,12 @@ class Attention(nn.Module):
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
         if cache is not None:
-            if cache_len + S > cache["k"].shape[1]:
-                raise ValueError(f"cache of {cache['k'].shape[1]} slots cannot take "
-                                 f"{S} token(s) at position {cache_len}")
-            # decode: write the new k/v at cache_len IN PLACE (JAX returns a
-            # new cache from dynamic_update_slice; here the caller's cache
-            # tensors are updated), then attend over the whole cache
-            cache["k"][:, cache_len:cache_len + S] = k
-            cache["v"][:, cache_len:cache_len + S] = v
-            out = mha(q, cache["k"], cache["v"], causal=False, q_offset=cache_len,
-                      kv_len=cache_len + S)
+            # decode: write the new k/v at cache_len, then attend over the cache
+            kv_len = products.cache_write(cache, {"k": k, "v": v}, cache_len)
+            out = products.attend(q, cache["k"], cache["v"], q_offset=cache_len, kv_len=kv_len)
         else:
             out = mha(q, k, v, causal=not cfg.encoder_only, q_offset=0)
-        return products.rows(out.reshape(b, S, hq * hd), self.wo)
+        return products.rows(out.reshape(b, S, -1), self.wo)
 
 
 # --------------------------------------------------------------------- #
@@ -342,7 +381,7 @@ class MLA(nn.Module):
         # computed whole on every rank, from the whole sequence
         q, down = products.columns(x, (self.wq, self.kv_down))
         b, S = q.shape[:2]
-        h = self.wq.w.shape[1] // (dn + dr)
+        h = q.shape[-1] // (dn + dr)  # a partitioned decode gathers every head's
         q = q.reshape(b, S, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         ckv = products.norm(down[..., :r], self.latent_norm, cfg.rms_eps)
@@ -350,15 +389,12 @@ class MLA(nn.Module):
         q_rope = apply_rope(q_rope, cos, sin)
         k_rope = apply_rope(down[..., r:].reshape(b, S, 1, dr), cos, sin)
         if cache is not None:
-            if cache_len + S > cache["ckv"].shape[1]:
-                raise ValueError(f"cache of {cache['ckv'].shape[1]} slots cannot take "
-                                 f"{S} token(s) at position {cache_len}")
-            # decode: write the latent and the rope key at cache_len IN PLACE,
-            # then up-project the whole cache
-            cache["ckv"][:, cache_len:cache_len + S] = ckv
-            cache["krope"][:, cache_len:cache_len + S] = k_rope.reshape(b, S, dr)
+            # decode: write the latent and the rope key at cache_len, then
+            # up-project the whole cache (a partitioned decode: its shard)
+            kv_len = products.cache_write(
+                cache, {"ckv": ckv, "krope": k_rope.reshape(b, S, dr)}, cache_len)
             ckv, k_rope = cache["ckv"], cache["krope"].reshape(b, -1, 1, dr)
-            causal, q_offset, kv_len = False, cache_len, cache_len + S
+            causal, q_offset = False, cache_len
         else:
             causal, q_offset, kv_len = True, 0, None
         Skv = ckv.shape[1]
@@ -367,9 +403,14 @@ class MLA(nn.Module):
         # the rope key is shared by the heads: a stride-0 view, copied once by cat
         k_full = torch.cat([k_nope, k_rope.to(k_nope.dtype).expand(b, Skv, h, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = mha(q_full, k_full, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                  sm_scale=1.0 / math.sqrt(dn + dr))
-        return products.rows(out.reshape(b, S, h * dv), self.wo)
+        scale = 1.0 / math.sqrt(dn + dr)
+        if cache is not None:
+            out = products.attend(q_full, k_full, v, q_offset=q_offset, kv_len=kv_len,
+                                  sm_scale=scale)
+        else:
+            out = mha(q_full, k_full, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      sm_scale=scale)
+        return products.rows(out.reshape(b, S, -1), self.wo)
 
 
 # --------------------------------------------------------------------- #

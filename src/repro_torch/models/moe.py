@@ -168,6 +168,7 @@ class MoE(nn.Module):
         y = weighted[:, 0]
         for j in range(1, k):
             y = y + weighted[:, j]
+        y = products.routed(y)
         split = xw is not x  # a shard in: the shard of the routed sum out
         if split:
             y = products.shard(y.reshape(b, s, d))

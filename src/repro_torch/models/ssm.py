@@ -172,12 +172,14 @@ def mamba2_apply(
     """Returns (y (b, L, d), new cache or None). With a cache, L == 1 and the
     cache dict is updated in place (JAX returns a new one).
 
-    Under tensor parallelism (``products`` of ``sharding/partition.py``; no
-    cache) the leaves hold this rank's heads: ``in_z``/``in_x``/``in_dt``
+    Under tensor parallelism (``products`` of ``sharding/partition.py``: the
+    train step's, with no cache, or the decode step's) the leaves hold this
+    rank's heads: ``in_z``/``in_x``/``in_dt``
     columns, the x conv's channels, ``A_log``/``D``/``dt_bias``, the
     ``gate_norm`` slice and ``out_proj`` rows; ``in_B``/``in_C`` and their
-    convs hold the groups those heads read. The head and group counts are
-    the weights'."""
+    convs hold the groups those heads read (in decode every group; the
+    cache may split their conv windows by channel). The head and group
+    counts are the weights'."""
     hp = cfg.ssm_head_dim
     z, xs_r, B_r, C_r, dt_raw = products.columns(u, (p.in_z, p.in_x, p.in_B, p.in_C, p.in_dt))
     b, L = z.shape[:2]
@@ -199,13 +201,26 @@ def mamba2_apply(
         y = y + xh.float() * p.D[None, None, :, None]
     else:
         # single-token recurrent step; L == 1
-        conv_x, x_t = conv_step(cache["conv_x"], xs_r[:, 0], p.conv_x_w, p.conv_x_b)
-        conv_B, B_t = conv_step(cache["conv_B"], B_r[:, 0], p.conv_B_w, p.conv_B_b)
-        conv_C, C_t = conv_step(cache["conv_C"], C_r[:, 0], p.conv_C_w, p.conv_C_b)
+        def conv(state, x_t, w, bias):
+            """A conv window that holds fewer channels than ``x_t`` (a
+            partitioned decode's cache: this rank's) steps on those, and
+            the step's outputs are gathered over the ranks."""
+            c = state.shape[-1]
+            if c == x_t.shape[-1]:
+                return conv_step(state, x_t, w, bias)
+            lo = products.first(c)
+            state, y = conv_step(state, x_t[:, lo:lo + c], w[:, lo:lo + c], bias[lo:lo + c])
+            return state, products.gather(y)
+
+        conv_x, x_t = conv(cache["conv_x"], xs_r[:, 0], p.conv_x_w, p.conv_x_b)
+        conv_B, B_t = conv(cache["conv_B"], B_r[:, 0], p.conv_B_w, p.conv_B_b)
+        conv_C, C_t = conv(cache["conv_C"], C_r[:, 0], p.conv_C_w, p.conv_C_b)
         x_t, B_t, C_t = silu(x_t), silu(B_t), silu(C_t)
         xh = x_t.reshape(b, nh, hp).float()
-        Bh = _heads(B_t, g, nh).float()
-        Ch = _heads(C_t, g, nh).float()
+        # every head's B/C (the groups are whole here), then this call's heads
+        g, h0 = B_t.shape[-1] // cfg.ssm_state, products.first(nh)
+        Bh = _heads(B_t, g, cfg.n_ssm_heads)[:, h0:h0 + nh].float()
+        Ch = _heads(C_t, g, cfg.n_ssm_heads)[:, h0:h0 + nh].float()
         dt = softplus(dt_raw[:, 0].float() + p.dt_bias)  # (b, nh)
         dA = torch.exp(dt * A)  # (b, nh)
         state = cache["state"] * dA[:, :, None, None] + torch.einsum(

@@ -101,6 +101,38 @@ and divides by the world size in f32. Where no mesh dim has more than one
 rank there is no collective and nothing is divided: the step is the
 unmeshed one op for op.
 
+Serving (``launch/steps.py`` ``make_sharded_prefill_step`` and
+``make_sharded_serve_step``) computes on the inference layout
+(``param_specs(for_training=False)``: TP over "model", FSDP over "data"
+only where the TP'd weights exceed ``inference_weight_budget``; the
+decode cache by ``cache_specs``), without autograd:
+
+- **Prefill** (``Partition.prefill``) is the train step's forward on the
+  sequence-sharded residual (units gathered over "data" where the weights
+  are FSDP'd), ending in the final norm and this rank's vocab shard of the
+  logits of the last position, which the last "model" rank's shard holds.
+- **Decode** (``Partition.decode``, a plan of its own: ``decode=True``):
+  the residual is this rank's rows (b, 1, d), the same on every "model"
+  rank; there is no sequence to shard. Column products compute this
+  rank's features; row products' partial sums are all-reduced in f32 and
+  rounded once (``_Decode``). Attention and MLA compute the new token's
+  q/k/v (q and the latent) on this rank's columns and gather them whole,
+  write the cache where this rank's shard holds ``pos`` and attend: a
+  cache split by kv head with this rank's q heads; a cache split by
+  sequence (over "model", or over the dp dims for a batch of one) with
+  every q head over this rank's shard, the shards' (output, log-sum-exp)
+  partials gathered and merged (``ops.merge_lse``); each rank then keeps
+  the output columns its ``wo`` rows take. MLA up-projects its latent
+  shard with ``kv_up`` gathered whole. Mamba-2 runs on this rank's heads;
+  its B/C conv windows, split by channel in the cache, step on this
+  rank's channels and their outputs are gathered. The MoE routes every
+  token droplessly on every rank, runs this rank's experts, and sums the
+  ranks' routed outputs over "model" in f32; experts that do not divide
+  run whole (gathered over "data" where FSDP'd). The greedy token of
+  vocab-sharded logits is each rank's largest logit and its first index,
+  gathered, the largest taken and a tie going to the lowest index, as
+  ``jnp.argmax`` does.
+
 A group of ranks sharing a card over gloo exchanges CUDA buffers through
 host memory for the all-gathers and reduce-scatters
 (``moe_ep.HOST_STAGED`` counts them with the expert-parallel layer's).
@@ -118,7 +150,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import DTYPE, dense, gelu, normed, rms_norm
+from repro_torch.kernels.flash_attention.ops import merge_lse
+from repro_torch.models.layers import DTYPE, dense, gelu, mha, normed, rms_norm
 from repro_torch.models.model import (Block, Mamba2Block, MLSTMBlock, SLSTMBlock, cross_entropy,
                                       n_units)
 from repro_torch.models.moe import Batch
@@ -364,6 +397,10 @@ class _TensorParallel:
         backward reduce-scatters their grads in f32."""
         return _GatherSeq.apply(out, 0, self.group, self.n)
 
+    @staticmethod
+    def routed(y: torch.Tensor) -> torch.Tensor:
+        return y  # every expert's outputs are gathered (``experts``)
+
     def columns(self, x: torch.Tensor, mods) -> list:
         wb = [t for m in mods for t in (m.w, m.b)]
         return list(_Columns.apply(x, self.group, self.n, *wb))
@@ -386,6 +423,144 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum_(g.float().clone(), ctx.group).to(g.dtype), None
+
+
+@dataclass(frozen=True)
+class CacheLayout:
+    """How a decode cache leaf lies on the mesh: ``start`` the first
+    position of this rank's sequence shard, ``seq`` the (group, size) of
+    each mesh dim that splits the sequence (major to minor), ``heads``
+    whether "model" splits its kv heads, ``kind`` its name in a dry-run
+    artifact."""
+
+    start: int = 0
+    seq: Tuple[Tuple[object, int], ...] = ()
+    heads: bool = False
+    kind: str = "replica"
+
+    @property
+    def parts(self) -> int:
+        return math.prod(n for _, n in self.seq)
+
+
+class _Decode:
+    """``layers.Products`` of the partitioned decode step, for one branch.
+    The input is this rank's rows (b, S, d), the same on every rank of the
+    tp group. ``split``: the branch's weights keep their split over it
+    (columns this rank's output features, rows its input features);
+    ``gather_cols``: the column products' outputs are gathered whole
+    (attention and MLA: the new token's q/k/v, or q and the latent);
+    ``layout``: {cache leaf: ``CacheLayout``} of the branch's layer."""
+
+    def __init__(self, group, n: int, rank: int, split: bool, gather_cols: bool = False,
+                 layout: Optional[Dict[str, CacheLayout]] = None) -> None:
+        self.group, self.n, self.rank = group, n, rank
+        self.split, self.gather_cols = split and n > 1, gather_cols
+        self.layout = layout or {}
+        self.cols = None  # the columns ``attend``'s output holds: ((c0, c1), of width)
+
+    @staticmethod
+    def norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+        return rms_norm(x, w, eps)
+
+    def wide_norm(self, x: torch.Tensor, w: torch.Tensor, eps: float, width: int) -> torch.Tensor:
+        if not self.split:
+            return rms_norm(x, w, eps)
+        xf = x.float()
+        var = _sum_((xf * xf).sum(dim=-1, keepdim=True), self.group) / width
+        return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+    @staticmethod
+    def whole(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def first(self, n_local: int) -> int:
+        return self.rank * n_local if self.split else 0
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's features side by side (the last dim, rank order)."""
+        return _gather_dim(x, x.dim() - 1, self.group, self.n) if self.n > 1 else x
+
+    def experts(self, out: torch.Tensor) -> torch.Tensor:
+        """This rank's experts' outputs in every expert's place (the others
+        zeros): the combine gives this rank's partial routed sum."""
+        if not self.split:
+            return out
+        full = out.new_zeros((out.shape[0] * self.n, *out.shape[1:]))
+        full[self.rank * out.shape[0]:(self.rank + 1) * out.shape[0]] = out
+        return full
+
+    def _reduce(self, y: torch.Tensor, dtype) -> torch.Tensor:
+        return _sum_(y.float().contiguous(), self.group).to(dtype)
+
+    def routed(self, y: torch.Tensor) -> torch.Tensor:
+        return self._reduce(y, y.dtype) if self.split else y
+
+    def columns(self, x: torch.Tensor, mods) -> list:
+        outs = [dense(x, m.w, m.b) for m in mods]
+        if not (self.split and self.gather_cols):
+            return outs
+        # one all-gather for all the products: (n, ..., every product's columns)
+        every = _gather_dim(torch.cat(outs, dim=-1)[None], 0, self.group, self.n)
+        parts = every.split([o.shape[-1] for o in outs], dim=-1)
+        return [t.movedim(0, -2).reshape(*t.shape[1:-1], -1) for t in parts]
+
+    def rows(self, y: torch.Tensor, mod) -> torch.Tensor:
+        w, partial = mod.w, self.split
+        if mod.b is not None:
+            raise ValueError("a row-split weight with a bias")
+        if self.cols is not None and y.shape[-1] != w.shape[0]:
+            (c0, c1), width = self.cols
+            if w.shape[0] == width:  # whole rows, this rank's heads
+                w, partial = w[c0:c1], True
+            else:  # every head; this rank's rows
+                r0 = self.rank * w.shape[0]
+                y, partial = y[..., r0:r0 + w.shape[0]], True
+        self.cols = None
+        if not partial or self.n == 1:
+            return dense(y, w)
+        return self._reduce(y.float() @ w.float(), torch.promote_types(y.dtype, w.dtype))
+
+    def cache_write(self, cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+                    cache_len: int) -> int:
+        """Each of ``new`` (b, S, ...) at ``cache_len`` where this rank's
+        shard holds those positions (this rank's kv heads of it where the
+        heads split); returns the number of live keys of this rank's
+        shard."""
+        for name, t in new.items():
+            lay, c = self.layout[name], cache[name]
+            if lay.heads:
+                hl = c.shape[2]
+                t = t[:, :, self.rank * hl:(self.rank + 1) * hl]
+            S, n_loc = t.shape[1], c.shape[1]
+            if cache_len + S > n_loc * lay.parts:
+                raise ValueError(f"cache of {n_loc * lay.parts} slots cannot take {S} "
+                                 f"token(s) at position {cache_len}")
+            a, e = max(cache_len, lay.start), min(cache_len + S, lay.start + n_loc)
+            if a < e:
+                c[:, a - lay.start:e - lay.start] = t[:, a - cache_len:e - cache_len]
+        return max(0, min(cache_len + S - lay.start, n_loc))
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offset: int,
+               kv_len: int, sm_scale: Optional[float] = None) -> torch.Tensor:
+        """This rank's q heads over its kv heads (a cache split by head),
+        or every q head over its shard of the sequence, the shards' partials
+        gathered and merged by log-sum-exp."""
+        lay = next(iter(self.layout.values()))
+        hq, dv = q.shape[2], v.shape[-1]
+        c0, c1 = 0, hq * dv
+        if lay.heads:
+            hl = hq // self.n
+            q = q[:, :, self.rank * hl:(self.rank + 1) * hl]
+            c0, c1 = self.rank * hl * dv, (self.rank + 1) * hl * dv
+        self.cols = ((c0, c1), hq * dv)
+        if not lay.seq:
+            return mha(q, k, v, causal=False, q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
+        out, lse = mha(q, k, v, causal=False, kv_len=kv_len, sm_scale=sm_scale, return_lse=True)
+        parts = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+        for group, n in lay.seq:
+            parts = _gather_dim(parts, 0, group, n)
+        return merge_lse(parts)[..., :-1].to(q.dtype)
 
 
 class _GlobalBatch(Batch):
@@ -545,9 +720,15 @@ class Partition:
     group's rows (the same on the ranks of its tp group), computed from
     its parameter slices ``shards`` and its block of the batch. ``rows``,
     the dp group's rows in a (micro)batch, decides where heads x rows
-    fits (None: wherever the heads allow it)."""
+    fits (None: wherever the heads allow it). ``decode``: the plan of the
+    partitioned decode step (``decode``), whose residual is one token
+    replicated over "model": attention, MLA, the MLP, Mamba-2 and the
+    expert banks in mode "tp" where their weights keep a split over it,
+    else "whole"; xLSTM has none. ``prefill`` runs the train plan's
+    forward."""
 
-    def __init__(self, cfg: ModelConfig, model, mesh, rules, rows: Optional[int] = None) -> None:
+    def __init__(self, cfg: ModelConfig, model, mesh, rules, rows: Optional[int] = None,
+                 decode: bool = False) -> None:
         from torch.distributed.tensor import Shard
 
         self.cfg = cfg
@@ -571,7 +752,8 @@ class Partition:
         # batch's placements refine it, ``local_batch``)
         self.over = _GlobalBatch(self.pgs, self.sizes, self.coord,
                                  [i for i, n in enumerate(self.sizes) if n > 1 and i != tp_dim])
-        self.ep = bool(self.tp > 1 and hints_mod._STATE.get("ep_shardmap"))
+        self.ep = bool(self.tp > 1 and hints_mod._STATE.get("ep_shardmap")) and not decode
+        self.layouts: list = []  # the decode cache's {leaf: CacheLayout} by layer (``local_cache``)
 
         params = dict(model.named_parameters())
         place = {k: tuple(p.placements) for k, p in params.items()}
@@ -606,17 +788,21 @@ class Partition:
                 if getattr(blk, part, None) is not None:
                     self.modes[f"{pre}.{part}"] = "local" if self.tp == 1 else "whole"
             if self.tp > 1 and isinstance(blk, Mamba2Block):
-                self._mamba2(pre, params, on_tp, keep, cols)
+                self._mamba2(pre, params, on_tp, keep, cols, groups=not decode)
             if self.tp > 1 and isinstance(blk, (MLSTMBlock, SLSTMBlock)):
+                if decode:
+                    raise ValueError(f"{cfg.name}: the xLSTM decode is not partitioned")
                 self._xlstm(pre, blk, mesh, take)
             if self.tp == 1 or not isinstance(blk, Block):
                 continue
-            if cfg.use_mla and cfg.n_heads % self.tp == 0 and all(
+            if decode:
+                self._decode_attention(pre, params, on_tp, keep)
+            elif cfg.use_mla and cfg.n_heads % self.tp == 0 and all(
                     on_tp(f"{pre}.attn.{w}.w", -1) for w in ("wq", "kv_up")) \
                     and on_tp(f"{pre}.attn.wo.w", 0):  # heads; kv_down and the latent whole
                 self.modes[f"{pre}.attn"] = "tp"
                 keep.update(f"{pre}.attn.{w}.w" for w in ("wq", "kv_up", "wo"))
-            if not cfg.use_mla and cfg.n_heads % self.tp == 0 and on_tp(f"{pre}.attn.wq.w", -1) \
+            elif not cfg.use_mla and cfg.n_heads % self.tp == 0 and on_tp(f"{pre}.attn.wq.w", -1) \
                     and on_tp(f"{pre}.attn.wo.w", 0):
                 self.modes[f"{pre}.attn"] = "tp"
                 keep.update(k for k in params if k.startswith(f"{pre}.attn.w")
@@ -706,10 +892,23 @@ class Partition:
                              and i * P <= int(k.split(".")[1]) < (i + 1) * P])
                       for i in range(n_units(cfg))]
 
-    def _mamba2(self, pre: str, params, on_tp, keep: set, cols: dict) -> None:
+    def _decode_attention(self, pre: str, params, on_tp, keep: set) -> None:
+        """The decode plan's mode "tp" for the attention (MLA) of block
+        ``pre``: ``wq``, ``wk`` and ``wv`` (``wq`` and ``kv_down``) split
+        by columns and ``wo`` by rows at rest, kept so; ``kv_up`` gathered
+        whole."""
+        mods = ("wq", "kv_down") if self.cfg.use_mla else ("wq", "wk", "wv")
+        if all(on_tp(f"{pre}.attn.{w}.w", -1) for w in mods) and on_tp(f"{pre}.attn.wo.w", 0):
+            self.modes[f"{pre}.attn"] = "tp"
+            keep.update(k for k in params for w in (*mods, "wo")
+                        if k.startswith(f"{pre}.attn.{w}."))
+
+    def _mamba2(self, pre: str, params, on_tp, keep: set, cols: dict, groups: bool = True) -> None:
         """Mode "tp" for the Mamba-2 core of block ``pre`` where its SSD heads
         divide over the ranks, each rank's heads read whole B/C groups or
-        share one, and the leaves split by head are split so at rest."""
+        share one, and the leaves split by head are split so at rest.
+        ``groups``: narrow ``in_B``/``in_C`` and their convs to the groups
+        this rank's heads read (the decode step keeps them whole)."""
         cfg, c = self.cfg, f"{pre}.core."
         nh, g, n = cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_state
         if nh % self.tp:
@@ -726,7 +925,7 @@ class Partition:
         keep.update(split)
         r, di = self.tp_rank, cfg.d_inner // self.tp
         cols[f"{c}gate_norm"] = (-1, ((r * di, (r + 1) * di),))
-        if g > 1:  # the groups this rank's heads read
+        if g > 1 and groups:  # the groups this rank's heads read
             g0, g1 = r * hl // per, ((r + 1) * hl - 1) // per + 1
             for w in ("in_B.w", "in_C.w", "conv_B_w", "conv_B_b", "conv_C_w", "conv_C_b"):
                 cols[c + w] = (-1, ((g0 * n, g1 * n),))
@@ -980,3 +1179,144 @@ class Partition:
                 x, aux = unit_fn(x, aux, i)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
         return self.ce(root, x, x0, batch) + aux
+
+    # -------------------------------------------------------------- #
+    # serving
+    # -------------------------------------------------------------- #
+    def _last_logits(self, w, x: torch.Tensor) -> torch.Tensor:
+        """``models.model.lm_logits`` of one position ``x`` (b, 1, d), the
+        same on every rank of the tp group: this rank's vocab shard where
+        the head is vocab-parallel, else the whole vocabulary."""
+        h = rms_norm(x, w["final_norm"], self.cfg.rms_eps)
+        return h @ w["embed"].T if self.cfg.tie_embeddings else dense(h, w["lm_head.w"])
+
+    @torch.no_grad()
+    def prefill(self, model, shards: Dict[str, torch.Tensor], batch: Dict) -> torch.Tensor:
+        """``launch.steps.make_prefill_step`` partitioned: the train plan's
+        forward on the sequence-sharded residual, no remat; returns the
+        last position's logits (b, V / tp) or (b, V) (``_last_logits``).
+        ``batch`` this rank's block (``local_batch``)."""
+        cfg = self.cfg
+        root = gather_group(self.root, shards)
+        x, _ = self.embed(root, batch)
+        positions = torch.arange(x.shape[1] * self.tp, device=x.device)
+        for j, blk in enumerate(model.prefix):
+            x, _ = self._block(blk, f"prefix.{j}", root, x, positions, False)
+        P = len(cfg.block_pattern)
+        for i in range(n_units(cfg)):
+            w = gather_group(self.units[i], shards)
+            for j in range(i * P, (i + 1) * P):
+                x, _ = self._block(model.blocks[j], f"blocks.{j}", w, x, positions, False)
+            del w
+        last = x[:, -1:]
+        if self.tp > 1:  # the last position lies on the last "model" rank's shard
+            last = _gather_dim(last.contiguous(), 1, self.tp_pg, self.tp)[:, -1:]
+        return self._last_logits(root, last)[:, 0]
+
+    def local_cache(self, cache: list) -> list:
+        """A decode cache of DTensors placed by ``cache_specs`` -> this
+        rank's local tensors (the DTensors' own storage), recording each
+        leaf's layout in ``layouts``."""
+        from torch.distributed.tensor import Shard
+
+        self.layouts, out = [], []
+        for layer in cache:
+            lays, local = {}, {}
+            for name, t in layer.items():
+                pl = tuple(t.placements)
+                local[name] = t.to_local()
+                on = [i for i, p in enumerate(pl) if isinstance(p, Shard) and self.sizes[i] > 1]
+                tp_dim = pl[self.tp_dim].dim if self.tp_dim in on else None
+                if name in ("k", "v", "ckv", "krope"):
+                    seq = [i for i in on if pl[i].dim == 1]
+                    idx = 0
+                    for i in seq:
+                        idx = idx * self.sizes[i] + self.coord[i]
+                    heads = name in ("k", "v") and tp_dim == 2
+                    kind = [k for k, there in (("heads", heads),
+                                               ("sequence", self.tp_dim in seq),
+                                               ("sequence over dp",
+                                                any(i != self.tp_dim for i in seq))) if there]
+                    lays[name] = CacheLayout(idx * local[name].shape[1],
+                                             tuple((self.pgs[i], self.sizes[i]) for i in seq),
+                                             heads, ", ".join(kind) or "replica")
+                else:  # recurrent states: by head, conv windows by channel
+                    lays[name] = CacheLayout(kind={None: "replica", 1: "heads"}.get(
+                        tp_dim, "channels"))
+            self.layouts.append(lays)
+            out.append(local)
+        return out
+
+    def cache_kinds(self) -> Dict[str, int]:
+        """The decode cache's leaves by layout (``CacheLayout.kind``)."""
+        counts: Dict[str, int] = {}
+        for lays in self.layouts:
+            for lay in lays.values():
+                counts[lay.kind] = counts.get(lay.kind, 0) + 1
+        return dict(sorted(counts.items()))
+
+    def _decode_split(self, pre: str, layer: int):
+        """The ``split`` of block ``pre`` in the decode step: each branch
+        on this rank's rows, attention (which holds the layer's cache)
+        through ``_Decode`` always, the others where their mode is "tp"."""
+
+        def run(name: str, fn, h: torch.Tensor, ln: torch.Tensor, eps: float):
+            mode = self.modes[f"{pre}.{name}"]
+            a = rms_norm(h, ln, eps)
+            if name == "attn":
+                return fn(a, products=_Decode(self.tp_pg, self.tp, self.tp_rank, mode == "tp",
+                                              True, self.layouts[layer]))
+            if mode == "tp":
+                return fn(a, products=_Decode(self.tp_pg, self.tp, self.tp_rank, True))
+            return fn(a)
+
+        return run
+
+    def _embed_tokens(self, w, tokens: torch.Tensor) -> torch.Tensor:
+        if self.modes["embed"] != "vocab":
+            return w["embed"][tokens]
+        v = w["embed"].shape[0]  # this rank's vocab rows; one rank's term nonzero: exact
+        ids = tokens - self.tp_rank * v
+        inside = (ids >= 0) & (ids < v)
+        tok = torch.where(inside[..., None], w["embed"][ids.clamp(0, v - 1)], 0.0)
+        return _sum_(tok.float(), self.tp_pg).to(tok.dtype)
+
+    @torch.no_grad()
+    def decode(self, model, shards: Dict[str, torch.Tensor], cache: list, tokens: torch.Tensor,
+               pos: int) -> torch.Tensor:
+        """``models.model.decode_step`` partitioned (a plan made with
+        ``decode=True``): ``cache`` this rank's local cache (``local_cache``;
+        written in place, a recurrent block's new states put in its dict),
+        ``tokens`` this rank's rows (b, 1), ``pos`` the tokens already in
+        the cache. Returns the new token's logits (``_last_logits``)."""
+        cfg = self.cfg
+        root = gather_group(self.root, shards)
+        x = self._embed_tokens(root, tokens)
+        positions = torch.arange(pos, pos + 1, device=x.device)
+
+        def block(blk, pre: str, w, layer: int):
+            return functional_call(blk, _sub(w, pre + "."), (x, positions, cache[layer], pos),
+                                   {"split": self._decode_split(pre, layer)})[0]
+
+        for j, blk in enumerate(model.prefix):
+            x = block(blk, f"prefix.{j}", root, j)
+        P, k0 = len(cfg.block_pattern), cfg.first_k_dense
+        for i in range(n_units(cfg)):
+            w = gather_group(self.units[i], shards)
+            for j in range(i * P, (i + 1) * P):
+                x = block(model.blocks[j], f"blocks.{j}", w, k0 + j)
+            del w
+        return self._last_logits(root, x)[:, 0]
+
+    def greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """The next token (b, 1) of ``decode``'s logits: with a vocab-sharded
+        head each rank's largest logit and its first index, gathered over
+        "model", the largest taken, a tie going to the lowest index."""
+        idx = logits.argmax(dim=-1)
+        if self.modes["head"] != "vocab":
+            return idx[:, None]
+        val = logits.gather(-1, idx[:, None])[:, 0]
+        pair = torch.stack([val.double(), (idx + self.tp_rank * logits.shape[-1]).double()], -1)
+        every = _gather_dim(pair[None], 0, self.tp_pg, self.tp)  # (tp, b, 2), rank order
+        best = every[..., 0].argmax(dim=0)  # the first rank with the largest value
+        return every[..., 1].gather(0, best[None])[0].long()[:, None]

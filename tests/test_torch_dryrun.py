@@ -283,3 +283,46 @@ def test_importing_the_dry_run_loads_neither_jax_nor_repro():
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+SERVING_CACHE = {"qwen3-0.6b_smoke": {"heads": 4}, "qwen2-moe-a2.7b_smoke": {"heads": 4},
+                 "zamba2-2.7b_smoke": {"channels": 15, "heads": 7}}
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "2x2x2"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_cells_are_partitioned_and_name_their_layout(cell, arch, kind, mesh):
+    """A serving cell traces the partitioned step on the inference layout:
+    its ``partition`` names each branch's mode (every block branch "tp" at
+    these widths) and a decode cell's cache leaves by layout; the tp ranks
+    no longer repeat the whole model."""
+    from repro_torch.launch.specs import COMPUTE
+
+    art = cell(arch, kind, mesh)
+    assert art["compute"] == COMPUTE[kind]
+    part = art["partition"]
+    assert isinstance(part, dict) and part["whole"] == []
+    assert set(part["modes"]) <= {"tp", "vocab"}, part
+    if kind == "decode":
+        assert part["cache"] == SERVING_CACHE[arch]
+    else:
+        assert "cache" not in part
+    assert art["collectives"]["all-reduce_count" if kind == "decode" else "all-gather_count"] > 0
+
+
+@pytest.mark.parametrize("arch,shape,rules", [
+    ("xlstm-1.3b_smoke", "decode", None),
+    ("qwen3-0.6b_smoke", "decode", "fsdp_only"),
+    ("qwen3-0.6b_smoke", "prefill", "fsdp_only"),
+])
+def test_unpartitioned_serving_says_replica(tmp_path, arch, shape, rules):
+    """The xLSTM decode and ``fsdp_only`` serving keep the replica layout,
+    and their artifacts say so."""
+    from repro_torch.launch.specs import COMPUTE
+    from repro_torch.sharding.specs import ShardingRules
+
+    art = dryrun.run_cell(arch, SHAPES[shape], False, out_dir=tmp_path, mesh_shape=(2, 2),
+                          rules=ShardingRules(fsdp_only=True) if rules else None)
+    assert art["partition"] == "replica" and art["compute"] == COMPUTE["replica"]
+    assert not dist.is_initialized()

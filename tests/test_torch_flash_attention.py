@@ -370,3 +370,88 @@ def test_legalize_keeps_d192_within_the_opt_in(bq):
             assert smem_bytes(bq, bk, 192, dtype) <= SMEM_OPT_IN
     assert max_bk(64, 192, torch.bfloat16) == 64 and max_bk(64, 192, torch.float32) == 96
     assert max_bk(1, 192, torch.float32) == max_bk(64, 128, torch.float32) == 128
+
+
+# --------------------------------------------------------------------- #
+# the decode instance's log-sum-exp (a partitioned decode merges shards by it)
+# --------------------------------------------------------------------- #
+LSE_CASES = [  # (b, skv, hq, hkv, d, dv, kv_len)
+    (2, 64, 8, 2, 64, 64, 37),
+    (1, 48, 4, 4, 16, 16, 48),
+    (3, 40, 6, 2, 32, 24, 0),  # no live key: zeros, -inf
+    (2, 32, 4, 4, 24, 16, 1),  # MLA-like d != dv
+]
+
+
+def _jax_lse(q, k, kv_len, scale):
+    """The reference attention's log-sum-exp of the scaled live scores
+    (-inf where none is live), from its own arrays: (b, 1, hq)."""
+    g = q.shape[2] // k.shape[2]
+    kk = jnp.repeat(k, g, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", q.astype(jnp.float32), kk.astype(jnp.float32)) * scale
+    live = jnp.arange(k.shape[1]) < kv_len
+    s = jnp.where(live, s, -jnp.inf)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1)).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d,dv,kv_len", LSE_CASES)
+def test_plain_lse_matches_the_reference_attention(b, skv, hq, hkv, d, dv, kv_len, dtype):
+    """The plain version's (out, lse) of one decode row: out against the
+    reference's ``attention_ref``, lse against the log-sum-exp of the
+    reference's scores (exactly -inf and zeros where kv_len is 0, no
+    NaN); ``mha``'s plain path gives the same pair."""
+    rng = np.random.default_rng(b + skv + kv_len)
+    arrs = [rng.standard_normal(s, np.float32) for s in ((b, 1, hq, d), (b, skv, hkv, d),
+                                                         (b, skv, hkv, dv))]
+    q, k, v = _torch(arrs, dtype)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = flash_attention(q, k, v, causal=False, kv_len=kv_len, sm_scale=scale,
+                               return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, 1, hq)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    jq, jk, _ = _jax(arrs, dtype)
+    want = _jax_lse(jq, jk, kv_len, scale)
+    if kv_len == 0:
+        assert torch.all(lse == -torch.inf) and torch.count_nonzero(out) == 0
+    else:
+        np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+        jout = jax_attention_ref(*[jnp.swapaxes(a, 1, 2) for a in _jax(arrs, dtype)],
+                                 causal=False, scale=scale, kv_len=kv_len)
+        np.testing.assert_allclose(_np(out), _np(jnp.swapaxes(jout, 1, 2)), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+    m_out, m_lse = mha(q, k, v, causal=False, kv_len=kv_len, sm_scale=scale, return_lse=True)
+    assert torch.equal(m_lse, lse) if kv_len == 0 else torch.allclose(m_lse, lse, atol=1e-5)
+    assert torch.allclose(m_out.float(), out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_merging_shard_partials_is_the_whole_attention(shards):
+    """A cache split into ``shards`` sequence shards, some past kv_len
+    (empty): each shard's plain (out, lse) merged by ``merge_lse`` equals
+    attention over the whole cache, output and log-sum-exp, in f32."""
+    from repro_torch.kernels.flash_attention.ops import merge_lse
+
+    rng = np.random.default_rng(shards)
+    b, skv, hq, hkv, d, kv_len = 2, 64, 8, 2, 32, 21
+    q, k, v = _torch([rng.standard_normal(s, np.float32) for s in
+                      ((b, 1, hq, d), (b, skv, hkv, d), (b, skv, hkv, d))], "float32")
+    want, want_lse = flash_attention(q, k, v, causal=False, kv_len=kv_len, return_lse=True)
+    n = skv // shards
+    parts = []
+    for j in range(shards):
+        live = max(0, min(kv_len - j * n, n))
+        o, lse = flash_attention(q, k[:, j * n:(j + 1) * n], v[:, j * n:(j + 1) * n],
+                                 causal=False, kv_len=live, return_lse=True)
+        parts.append(torch.cat([o, lse[..., None]], dim=-1))
+    got = merge_lse(torch.stack(parts))
+    torch.testing.assert_close(got[..., :-1], want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got[..., -1], want_lse, rtol=1e-6, atol=1e-6)
+    empty = merge_lse(torch.stack([parts[-1], parts[-1]]))  # no shard holds a key
+    assert torch.count_nonzero(empty[..., :-1]) == 0 and torch.all(empty[..., -1] == -torch.inf)
+
+
+def test_lse_only_from_the_decode_instance():
+    q = torch.zeros(1, 2, 2, 16)
+    with pytest.raises(ValueError, match="decode instance"):
+        flash_attention(q, q, q, causal=True, return_lse=True)

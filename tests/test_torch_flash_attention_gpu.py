@@ -286,3 +286,37 @@ def test_head_dims_above_192_raise_on_the_card():
         flash_attention(q, q, v, causal=True)
     with pytest.raises(ValueError, match="up to 192"):
         flash_attention(v, v, q, causal=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d,kv_len,bk", [
+    (8, 128, 16, 8, 128, 77, 32),  # qwen3's heads, the keys in parts: the combine writes it
+    (8, 128, 16, 8, 128, 128, 128),  # one part: the decode kernel writes the lse
+    (8, 128, 16, 8, 128, 0, 32),  # an empty shard: zeros and -inf, no NaN
+    (4, 256, 16, 16, 192, 200, 64),  # MLA's D = 192 instance over a latent shard
+    (4, 256, 16, 16, 192, 0, 64),
+])
+def test_decode_lse_matches_plain_on_gpu(b, skv, hq, hkv, d, kv_len, bk, dtype):
+    """The decode instance's f32 log-sum-exp (bq = 1), from the combine
+    kernel where the rule splits the keys and from the decode kernel where
+    it does not, against the plain version's; rows with no live key give
+    zeros and -inf."""
+    _need_gpu()
+    q, k, v = _inputs(kv_len + d, b, 1, skv, hq, hkv, d, dtype)
+    kw = dict(causal=False, scale=1.0 / math.sqrt(d), q_offset=0, kv_len=kv_len)
+    out, lse = flash_attention_cuda(q, k, v, bq=1, bk=bk, lse=True, **kw)
+    torch.cuda.synchronize()
+    want, want_lse = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   return_lse=True, **kw)
+    want, want_lse = want.transpose(1, 2), want_lse.transpose(1, 2)
+    assert lse.shape == (b, 1, hq) and lse.dtype == torch.float32
+    assert not torch.isnan(lse).any() and not torch.isnan(out).any()
+    if kv_len == 0:
+        assert torch.all(lse == -torch.inf) and torch.count_nonzero(out) == 0
+    else:
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert torch.equal(flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw), out)
