@@ -189,14 +189,26 @@ Phases (any failure raises and the exit code is non-zero):
      and the step time; then train_ft's straight-run step-4 checkpoint
      restored with ``shardings=`` onto the 2x2 mesh as cuda DTensors, each
      rank's slice of every leaf the file's bit for bit; (e) the entry point
-     on ``--mesh 2,2`` for zamba2-2.7b cut to one unit and deepseek-v2-lite
-     cut to 3 layers, and (f) for xlstm-1.3b cut to one unit (5 mLSTM + 1
-     sLSTM, each on 2 of its 4 heads a rank), 2 x 2048, one step each:
-     loss and the grads' global norm within 2e-2 of the unmeshed step of
-     the same cut on rank 0, the flash and SSD calls at every rank's local
-     shapes ((e)), the partition's modes and the compute shapes of
-     ``wq``, ``w_i``, ``up``, ``r``, ``wx`` and ``ffn_up`` ((f)), peak
-     memory, step time and the bytes staged through the host;
+     on ``--mesh 2,2`` for zamba2-2.7b cut to one unit (meshed only) and
+     deepseek-v2-lite cut to 2 layers, and (f) for xlstm-1.3b cut to one
+     unit (5 mLSTM + 1 sLSTM, each on 2 of its 4 heads a rank), 2 x 2048 ((f): 1024),
+     one step each: loss and the grads' global norm within 2e-2 of the
+     unmeshed step of the same cut on rank 0, the flash and SSD calls at
+     every rank's local shapes ((e)), the partition's modes and the
+     compute shapes of ``wq``, ``w_i``, ``up``, ``r``, ``wx`` and
+     ``ffn_up`` ((f)), peak memory, step time and the bytes staged through the host; (g)
+     partitioned serving on ``--mesh 2,2`` against the unmeshed steps:
+     qwen3-0.6b (4 layers; bf16 and f32; the cache by head and by
+     sequence), deepseek-v2-lite (3 layers, f32), and (h2) qwen3 under
+     ``fsdp_only`` (2 rows: the prompt's sequence over "model", the
+     cache's over both dims) and (h3) xlstm-1.3b (one unit, its states by
+     head), in f32 within 1e-4 of the largest logit; (h1) one
+     ``fsdp_only`` step each of qwen3-0.6b (4 layers) and deepseek-v2-lite
+     (2 layers: MLA and the MoE), 2 x 2048, the sequence over "model",
+     attention context parallel on the flash kernel with ``q_offset``,
+     against the unmeshed step in bf16: loss, grad norm and the key
+     leaves' grads' norm within 2e-2, a skipped key-gather reduce-scatter
+     caught (qwen3);
   dryrun: the dry-run (``repro_torch.launch.dryrun``), shapes only, on the
      host: (a) one step of train_ft's straight run (qwen3-0.6b, 4 x 2048,
      AdamW, remat full) traced for a (1, 1) mesh on ``meta`` tensors with
@@ -709,9 +721,15 @@ def phase_kernels() -> dict:
               for name, shape, causal, q_offset, kv_len, dtypes in FA_FAMILIES for dtype in dtypes]
     # the train_ft and train_moe phases' shapes (qwen3 at 4 x 2048; MLA at 2 x 2048)
     cases += [(name, shape, True, 0, None, torch.bfloat16) for name, shape, _ in FA_TRAIN_NEW]
+    # (h)'s context-parallel shapes: a shard's queries against every key, q_offset its start
+    cases += [(name, shape, True, start, None, dtype) for name, shape, start, _ in FA_CONTEXT
+              for dtype in (torch.bfloat16, torch.float32)]
     # bf16 with many keys: also held to the row-scaled limit, whose teeth are shown
     rows_checked = ({"causal prefill", "train (zamba2)"} | {c[0] for c in FA_D192 if c[4] is None}
-                    | {c[0] for c in FA_FAMILIES if c[4] is None} | {c[0] for c in FA_TRAIN_NEW})
+                    | {c[0] for c in FA_FAMILIES if c[4] is None} | {c[0] for c in FA_TRAIN_NEW}
+                    # a shard whose queries reach the last key (the first shard's causal
+                    # rows never read the tail that the planted fault drops)
+                    | {c[0] for c in FA_CONTEXT if c[2] + c[1][1] == c[1][2]})
     errs = {"fa_decode": 0.0}
     for name, shape, causal, q_offset, kv_len, dtype in cases:
         b_, sq, skv, _, hkv_, d_ = shape[:6]
@@ -751,7 +769,8 @@ def phase_kernels() -> dict:
             errs["fa_train"] = err
         if name in FAMILY_ERRS and dtype == torch.bfloat16:
             errs[FAMILY_ERRS[name]] = err
-        if name in {c[0] for c in FA_TRAIN_NEW}:
+        if name in {c[0] for c in FA_TRAIN_NEW} or (
+                name in {c[0] for c in FA_CONTEXT} and dtype == torch.bfloat16):
             errs[name] = err
         print(line)
 
@@ -2290,6 +2309,21 @@ FA_TRAIN_NEW = [
     ("MLA train --mesh 2,2, one rank's heads d=192 dv=128", (1, 2048, 2048, 8, 8, 192, 128),
      "distributed (e) deepseek"),
 ]
+# context parallelism under fsdp_only on --mesh 2,2 (the distributed
+# phase's (h)): a rank's shard of a row's positions, causal from the
+# shard's start (q_offset), against the gathered keys. (name, (b, sq, skv,
+# hq, hkv, d[, dv]), q_offset, the (h1) run whose launches it carries):
+# (h1)'s training steps (2 x 2048: a row a "data" rank, 1024 positions a
+# "model" rank; qwen3's 16 q and 8 kv heads of 128, MLA's 16 heads of d 192
+# and dv 128) and (h2)'s prefill (2 x 512: 256 positions a rank)
+FA_CONTEXT = [("context q_offset 0", (1, 1024, 2048, 16, 8, 128), 0, "qwen3-0.6b"),
+              ("context q_offset 1024", (1, 1024, 2048, 16, 8, 128), 1024, "qwen3-0.6b"),
+              ("context MLA q_offset 0 d=192 dv=128", (1, 1024, 2048, 16, 16, 192, 128), 0,
+               "deepseek-v2-lite-16b"),
+              ("context MLA q_offset 1024 d=192 dv=128", (1, 1024, 2048, 16, 16, 192, 128), 1024,
+               "deepseek-v2-lite-16b"),
+              ("context prefill q_offset 0", (1, 256, 512, 16, 8, 128), 0, None),
+              ("context prefill q_offset 256", (1, 256, 512, 16, 8, 128), 256, None)]
 
 
 def _ft_args(t, ckpt_dir: Path, metrics: Path, every: int) -> list:
@@ -2732,16 +2766,16 @@ DIST_EP_TIMED = 3  # timed forward calls of each path
 DIST_Y_TOL, DIST_AUX_RTOL, DIST_GRAD_TOL = 2e-4, 1e-5, 2e-3  # tests/test_moe_ep.py's
 DIST_TIMEOUT = 420
 # (e): zamba2-2.7b cut to one unit (5 Mamba-2 blocks and 1 attention
-# block) and deepseek-v2-lite cut to its dense prefix layer and 2 MoE
-# layers, at full width; train_moe's 2 x 2048 batch, one step through the
+# block) and deepseek-v2-lite cut to its dense prefix layer and one MoE
+# layer, at full width; train_moe's 2 x 2048 batch, one step through the
 # training entry point on --mesh 2,2 and unmeshed. train_moe's 6 layers
 # (3.4 B parameters, 16.6 GiB a rank on an H100 80GB in processes of
 # their own) ran out of the card's memory on two ranks after (b)-(d) in
-# the same processes; 4 layers (2.2 B) left room, 3 leave time for (f)
-# (zamba2's unmeshed comparison is out, ``meshed_only``, to make room
-# for (g): its --mesh 2,2 step and launches are still checked)
+# the same processes; 4 layers (2.2 B) left room, 3 left time for (f)
+# and 2 for (h) (zamba2's unmeshed comparison is out, ``meshed_only``, to
+# make room for (g): its --mesh 2,2 step and launches are still checked)
 DIST_E = [dict(arch="zamba2-2.7b", n_layers=6, meshed_only=True),
-          dict(arch="deepseek-v2-lite-16b", n_layers=3)]
+          dict(arch="deepseek-v2-lite-16b", n_layers=2)]
 DIST_E_ARGS = ["--steps", "1", "--batch", "2", "--seq", "2048", "--lr", "3e-4", "--warmup", "2",
                "--optimizer", "adamw", "--seed", str(SEED), "--log-every", "1", "--deterministic"]
 # (f): xlstm-1.3b at full width cut to one unit (5 mLSTM blocks and 1 sLSTM
@@ -2752,8 +2786,10 @@ DIST_E_ARGS = ["--steps", "1", "--batch", "2", "--seq", "2048", "--lr", "3e-4", 
 # unmeshed step's grad norm is itself 4.2e-2 off the f32 step's (xLSTM's
 # gate grads are rounding noise in bf16), above DIST_LOSS_RTOL, so the
 # grad norm is held in f32; the bf16 norms' gaps are printed
-# (cut to 2 x 256, ``f32_seq``, to make room for (g))
-DIST_F = [dict(arch="xlstm-1.3b", n_layers=6, f32=True, f32_seq=256,
+# (cut to 2 x 256, ``f32_seq``, to make room for (g); the bf16 step
+# through the entry point to 2 x 1024, ``seq``, to make room for (h): its
+# sLSTM is a loop over positions)
+DIST_F = [dict(arch="xlstm-1.3b", n_layers=6, f32=True, f32_seq=256, seq=1024,
                watch=["blocks.0.core.wq.w", "blocks.0.core.w_i.w", "blocks.0.core.up.w",
                       "blocks.5.core.r", "blocks.5.core.wx.w", "blocks.5.core.ffn_up.w"])]
 # (g): partitioned serving, 4 gloo ranks on --mesh 2,2 after (f):
@@ -2782,16 +2818,42 @@ DIST_G = [
     dict(label="qwen3 f32 sequence", f32=True, rules=_G_SEQ, **_G_QWEN3),
     dict(label="deepseek f32", arch="deepseek-v2-lite-16b", n_layers=3, f32=True,
          prefill=(8, 512), **_G),
+    # (h2): the same qwen3 cut under fsdp_only in f32 with 2 rows, which do
+    # not divide over the 4 ranks' pool: the prefill's 2 x 512 prompt a row a
+    # "data" rank, its sequence over "model" (attention context parallel,
+    # 256 queries a rank); the decode's rows whole on every rank, the
+    # weights gathered per unit (2.2 s a step through host memory, the f32
+    # embedding 0.62 GB of it: an 8-token prompt and 4 greedy steps), the
+    # cache's 16 slots over (data, model), 4 a rank (the last shard empty),
+    # the shards' partials merged by log-sum-exp
+    dict(label="qwen3 f32 fsdp_only", f32=True, rules={"fsdp_only": True}, prefill=(2, 512),
+         **{**_G_QWEN3, "rows": 2, "prompt": 8, "new": 4, "max_len": 16}),
+    # (h3): xlstm-1.3b cut to one unit (5 mLSTM + 1 sLSTM) in f32, its 4
+    # heads 2 a "model" rank: the recurrent caches by head, the mLSTM's conv
+    # windows by channel (no attention: no flash call)
+    dict(label="xlstm f32", arch="xlstm-1.3b", n_layers=6, f32=True, **_G),
 ]
 DIST_G_F32_TOL = 1e-4
 DIST_G_BF16_TOL = MODEL_LOGIT_TOL
+# (h1): the fsdp_only training steps (H_RUN below): qwen3-0.6b cut to 4
+# layers, with the planted fault, and deepseek-v2-lite cut to its dense
+# prefix layer and one MoE layer (MLA context parallel on its gathered
+# latent and rope key, the MoE on each rank's tokens counted over the
+# global batch). ``kv``: the leaves whose grads the key gather's backward
+# sums
+H_TRAIN = [dict(arch="qwen3-0.6b", n_layers=4, batch=2, seq=2048, fault=True,
+                kv=["attn.wk.w", "attn.wv.w"]),
+           dict(arch="deepseek-v2-lite-16b", n_layers=2, batch=2, seq=2048,
+                kv=["attn.kv_down.w"])]
 # (g)'s flash decode at one rank's local shapes (b, sq, cache, hq, hkv, d[,
 # dv]): qwen3's 4 rows on 8 of 16 q heads over 4 of 8 kv heads of the whole
 # 64-slot cache; every head over a 32-slot sequence shard (with the
 # log-sum-exp); MLA's 16 heads, d 192, dv 128 over a 32-slot latent shard
 G_LSE = [("g heads", (4, 1, 64, 8, 4, 128), (1, 33, 48, 64)),
          ("g sequence", (4, 1, 32, 16, 8, 128), (0, 16, 32)),
-         ("g mla", (4, 1, 32, 16, 16, 192, 128), (0, 20, 32))]
+         ("g mla", (4, 1, 32, 16, 16, 192, 128), (0, 20, 32)),
+         # (h2): both rows, every head over a 4-slot quarter of the cache
+         ("h sequence over dp", (2, 1, 4, 16, 8, 128), (0, 3, 4))]
 G_LSE_TOL = 1e-4  # the f32 log-sum-exp of the same f32 scores, summed in another order
 # (b)-(d) take ~75-85 s and (e) + (f) ~150-220 s on a normal host; a rank
 # that fails inside a collective leaves the others waiting until this limit
@@ -3116,7 +3178,9 @@ for e_run in e_spec["runs"]:
             t_run = time.perf_counter()
             try:
                 e_out = e_train.main(["--arch", e_cfg.name, *(["--mesh", "2,2"] if meshed else []),
-                                      *e_spec["args"]], fault_hook=fault_e, update_hook=hook_e)
+                                      *e_spec["args"],
+                                      *(["--seq", str(e_run["seq"])] if "seq" in e_run else [])],
+                                     fault_hook=fault_e, update_hook=hook_e)
             finally:
                 e_fa.flash_attention, e_ssm._ssd_fast = e_fa0, e_ssd0
                 e_part.gather_group, e_part.Partition.__init__ = e_gather0, e_init0
@@ -3210,6 +3274,7 @@ from repro_torch.kernels.flash_attention.flash_attention import (flash_attention
                                                               reset_launches as g_fa_reset)
 from repro_torch.launch import steps as g_steps
 from repro_torch.launch.mesh import make_mesh as g_make_mesh
+from repro_torch.launch.specs import row_dp as g_row_dp
 from repro_torch.models import init_cache as g_init_cache, moe_ep as g_ep
 from repro_torch.models.model import Model as g_Model, decode_step as g_decode_step
 from repro_torch.sharding import partition as g_part
@@ -3223,7 +3288,6 @@ g_rank = dist.get_rank()
 g_spec = g_json.loads(g_Path(__file__).with_name("g_spec.json").read_text())
 g_kernels.enable_kernels(True)
 g_mesh = g_make_mesh((2, 2), ("data", "model"), device_type="cuda")
-g_rows_pl = g_pl(g_P(("data",), None), g_mesh)
 g_fa0, g_note, g_res = g_fa.flash_attention, {}, []
 def g_fa_noted(q, k, v, **kw):  # the local shapes the model's attention launches at
     key = str((q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2], q.shape[3],
@@ -3258,6 +3322,8 @@ for g_run in g_spec["runs"]:
     g_cfg = g_dc.replace(g_full, n_layers=g_run.get("n_layers") or g_full.n_layers)
     g_f32, g_rules = g_run["f32"], g_Rules(**g_run.get("rules", {}))
     g_b, g_p, g_new, g_L = g_run["rows"], g_run["prompt"], g_run["new"], g_run["max_len"]
+    # the tokens' rows over the dp dims where they divide (the cell's P(bdp, None))
+    g_rows_pl = g_pl(g_P(g_row_dp(g_Shape("g", g_L, g_b, "decode"), g_mesh, g_rules), None), g_mesh)
     g_gen = torch.Generator().manual_seed(g_spec["seed"])
     g_prompt = torch.randint(0, g_cfg.vocab, (g_b, g_p), generator=g_gen).cuda()
     g_pb, g_ps = g_run.get("prefill") or (0, 0)
@@ -3374,6 +3440,148 @@ for g_run in g_spec["runs"]:
     dist.barrier()
 g_fa.flash_attention = g_fa0
 """
+# (h1) on the same ranks after (g): the sequence split over "model" under
+# fsdp_only (h_spec.json beside the script). For each of H_TRAIN's runs, a
+# model at full width cut in depth, one 2 x 2048 step of
+# make_sharded_train_step with ShardingRules(fsdp_only=True): the 2 rows do
+# not divide over the 4 ranks' pool, so a row a "data" rank and the
+# sequence over "model"; attention (MLA: its latent and rope key) context
+# parallel (this rank's 1024 queries against the 2048 gathered keys,
+# q_offset its shard's start), the MLP and the MoE per token (the MoE
+# counted over the global batch), the weights FSDP over both dims and
+# gathered per unit. Against the unmeshed step on rank 0: the loss, the
+# grads' global norm and the norm of the grads of the leaves that make the
+# gathered keys; the flash calls by local shape and q_offset; then, for a
+# run with ``fault``, the step again with the gather's backward
+# reduce-scatter skipped (planted: each rank keeps its own queries' partial
+# grads of its keys)
+H_RUN = """
+import collections as h_col, dataclasses as h_dc, gc as h_gc, json as h_json, math as h_math
+import time as h_time
+from pathlib import Path as h_Path
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Shard as h_Shard
+from repro_torch import kernels as h_kernels
+from repro_torch.configs import ShapeConfig as h_Shape, get_config as h_config
+from repro_torch.data import SyntheticLM as h_Synth
+from repro_torch.data.pipeline import _place as h_place
+from repro_torch.kernels import flash_attention as h_fa
+from repro_torch.kernels.flash_attention.flash_attention import (flash_attention_cuda as h_fa_cuda,
+                                                              reset_launches as h_fa_reset)
+from repro_torch.launch import steps as h_steps
+from repro_torch.launch.mesh import make_mesh as h_make_mesh
+from repro_torch.models import moe as h_moe, moe_ep as h_ep
+from repro_torch.models.model import Model as h_Model
+from repro_torch.optim import adamw as h_adamw
+from repro_torch.optim.optimizers import global_norm as h_gnorm
+from repro_torch.sharding import partition as h_part
+from repro_torch.sharding.hints import clear_hints as h_clear, hints_from_mesh as h_hints
+from repro_torch.sharding.specs import ShardingRules as h_Rules, batch_specs as h_bspecs
+if not dist.is_initialized():  # on its own
+    dist.init_process_group("gloo", init_method="env://")
+    torch.cuda.set_device(0)
+h_rank = dist.get_rank()
+h_spec = h_json.loads(h_Path(__file__).with_name("h_spec.json").read_text())
+h_kernels.enable_kernels(True)
+h_mesh = h_make_mesh((2, 2), ("data", "model"), device_type="cuda")
+h_rules = h_Rules(fsdp_only=True)
+h_note, h_fa0 = {}, h_fa.flash_attention
+def h_fa_noted(q, k, v, **kw):  # (rows, q positions, q heads, keys, kv heads, d, dv, q_offset)
+    key = str((q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2], q.shape[3],
+               v.shape[3], kw.get("q_offset", 0)))
+    h_note[key] = h_note.get(key, 0) + 1
+    return h_fa0(q, k, v, **kw)
+def h_timed(fn):
+    torch.cuda.synchronize()
+    t0 = h_time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, h_time.perf_counter() - t0
+h_out = {"rank": h_rank, "runs": {}}
+for h_run in h_spec["runs"]:
+    h_cfg = h_dc.replace(h_config(h_run["arch"]), n_layers=h_run["n_layers"])
+    h_np = h_Synth(h_cfg.vocab, seed=h_spec["seed"]).batch(0, h_run["batch"], h_run["seq"])
+    def h_model():
+        gen = torch.Generator(device="cuda").manual_seed(h_spec["seed"])
+        return h_Model(h_cfg, generator=gen, device="cuda")
+    def h_kv(grads, model=None):  # the norm of the key leaves' grads (slices: summed over ranks)
+        sq = torch.zeros((), dtype=torch.float32, device="cuda")
+        params = dict(model.named_parameters()) if model is not None else {}
+        for k, g in grads.items():
+            if k.endswith(tuple(h_run["kv"])):
+                reps = 1
+                if model is not None:  # the ranks that hold the same slice
+                    reps = h_mesh.size() // h_math.prod(h_mesh.size(i) for i, pl in enumerate(
+                        params[k].placements) if isinstance(pl, h_Shard))
+                sq = sq + torch.sum(torch.square(g.float())) / reps
+        if model is not None:
+            dist.all_reduce(sq)
+        return float(torch.sqrt(sq))
+    h_res = {}
+    if h_rank == 0:  # the unmeshed step
+        h_m = h_model()
+        (h_loss, h_g), h_s = h_timed(lambda: h_steps.make_grads_fn(h_cfg)(
+            h_m, {"tokens": torch.from_numpy(h_np["tokens"]).cuda()}))
+        h_res["plain"] = {"loss": float(h_loss), "norm": float(h_gnorm(h_g)), "kv": h_kv(h_g),
+                          "s": h_s}
+        del h_m, h_g
+        h_gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    h_hints(h_mesh, h_rules)
+    try:
+        h_opt = h_adamw(1e-4)
+        h_st = h_steps.distribute_state({"model": h_model(), "opt": h_opt.init({})}, h_cfg,
+                                        h_mesh, h_rules)
+        h_fn = h_steps.make_sharded_train_step(h_cfg, h_opt, h_mesh,
+                                               agree=h_steps.make_agree("cuda"), rules=h_rules)
+        h_placed = h_place(h_np, h_mesh, h_bspecs(h_cfg, h_Shape("h", h_run["seq"], h_run["batch"],
+                                                                "train"), h_mesh, h_rules), "cuda")
+        h_gc.collect()
+        torch.cuda.empty_cache()
+        h_fa.flash_attention = h_fa_noted
+        h_note.clear()  # the counts from here: the main path's step
+        h_fa_reset()
+        h_ep.HOST_STAGED.update(calls=0, bytes=0)
+        h_drops = h_moe.DROPPED["assignments"]
+        torch.cuda.reset_peak_memory_stats()
+        (h_loss, h_g, h_norm), h_s = h_timed(lambda: h_fn.grads(h_st["model"], h_placed))
+        h_res.update(mesh={"loss": float(h_loss), "norm": float(h_norm),
+                           "kv": h_kv(h_g, h_st["model"]), "s": h_s},
+                     fa=dict(h_note), fa_launches=h_fa_cuda.launches,
+                     fa_by_dim={str(k): v for k, v in h_fa_cuda.launches_by_dim.items()},
+                     staged=dict(h_ep.HOST_STAGED), peak_bytes=torch.cuda.max_memory_allocated(),
+                     modes=dict(h_col.Counter(h_fn.partition.modes.values())),
+                     sp=h_fn.partition.sp, drops=h_moe.DROPPED["assignments"] - h_drops,
+                     local_params=sum(p.to_local().numel() for p in h_st["model"].parameters()),
+                     params=sum(p.numel() for p in h_st["model"].parameters()))
+        h_fa.flash_attention = h_fa0
+        del h_g
+        if h_run.get("fault"):
+            h_scatter = h_part._scatter_dim
+            def h_skipped(x, dim, group, n):  # planted: this rank's own partial grads of its keys
+                c = x.shape[dim] // n
+                return x.narrow(dim, dist.get_rank(group) * c, c).contiguous()
+            h_part._scatter_dim = h_skipped
+            try:
+                h_loss, h_g, h_norm = h_fn.grads(h_st["model"], h_placed)
+            finally:
+                h_part._scatter_dim = h_scatter
+            h_res["fault"] = {"loss": float(h_loss), "norm": float(h_norm),
+                              "kv": h_kv(h_g, h_st["model"])}
+            del h_g
+        del h_st, h_fn, h_placed
+    finally:
+        h_fa.flash_attention = h_fa0
+        h_clear()
+    h_gc.collect()
+    torch.cuda.empty_cache()
+    h_out["runs"][h_run["arch"]] = h_res
+    dist.barrier()
+h_Path(f"{h_spec['out']}.{h_rank}").write_text(h_json.dumps(h_out))
+dist.barrier()
+"""
 PG_END = "dist.destroy_process_group()\n"
 
 
@@ -3409,11 +3617,14 @@ def phase_distributed(stamp, ft: dict) -> dict:
     """One launch of 4 gloo ranks sharing the card: (b) the expert-parallel
     MoE at qwen2-moe's width against the port's MoE, (c) the compressed
     all-reduce, (d) train --mesh 2,2 of qwen3-0.6b against train_ft's
-    straight run, (e) train --mesh 2,2 of zamba2-2.7b and deepseek-v2-lite
-    and (f) of xlstm-1.3b, each cut in depth, against their unmeshed
-    steps. Returns (d)'s flash launches (rank 0's), step time and rank 0's
-    peak memory, under "e" each (e) run's launches at its local shapes
-    (rank 0's) and under "f" (f)'s gaps."""
+    straight run, (e) train --mesh 2,2 of zamba2-2.7b (meshed only) and
+    deepseek-v2-lite and (f) of xlstm-1.3b, each cut in depth, against
+    their unmeshed steps, (g) partitioned serving, (h1) the fsdp_only
+    steps with the sequence over "model". Returns (d)'s flash launches
+    (rank 0's), step time and rank 0's peak memory, under "e" each (e)
+    run's launches at its local shapes (rank 0's), under "f" (f)'s gaps,
+    under "g" (g)'s records and under "h" (h1)'s launches by run and
+    q_offset."""
     t = TRAIN_FT
     cfg = get_config(t["arch"])
     root = ROOT / "chiprun_out" / "distributed"
@@ -3433,8 +3644,10 @@ def phase_distributed(stamp, ft: dict) -> dict:
         {"runs": DIST_E + DIST_F, "args": DIST_E_ARGS, "out": str(root / "e.json")}))
     (root / "g_spec.json").write_text(json.dumps(
         {"runs": DIST_G, "seed": SEED, "f32_tol": DIST_G_F32_TOL, "out": str(root / "g.json")}))
+    (root / "h_spec.json").write_text(json.dumps(
+        {"runs": H_TRAIN, "seed": SEED, "out": str(root / "h.json")}))
     try:
-        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN + E_RUN + G_RUN + PG_END,
+        wall = _torchrun(stamp, "dist_run", root, 4, EP_RUN + E_RUN + G_RUN + H_RUN + PG_END,
                          [str(root / "ep.json"), str(SEED), str(B), str(S), str(DIST_EP_TIMED),
                           ",".join(map(str, DIST_EP_CF)), str(root / "tp.json"), str(DIST_STOP),
                           str(FT_KEPT), *d_args], timeout=DIST_TIMEOUT + DIST_E_TIMEOUT)
@@ -3526,10 +3739,84 @@ def phase_distributed(stamp, ft: dict) -> dict:
     e = report_e(stamp, e_ranks)
     f = report_f(stamp, e_ranks)
     g = report_g(stamp, [json.loads((root / f"g.json.{k}").read_text()) for k in range(4)])
-    print(f"time [{stamp}] distributed (b)+(c)+(d)+(e)+(f)+(g) 4 processes: {wall:.1f} s wall")
+    h = report_h(stamp, [json.loads((root / f"h.json.{k}").read_text()) for k in range(4)])
+    print(f"time [{stamp}] distributed (b)+(c)+(d)+(e)+(f)+(g)+(h) 4 processes: {wall:.1f} s wall")
     print(f"time [{stamp}] distributed phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": r0["launches"], "step_s": step_s, "peak_bytes": r0["peak_bytes"], "e": e,
-            "f": f, "g": g}
+            "f": f, "g": g, "h": h}
+
+
+def report_h(stamp, ranks: list) -> dict:
+    """(h1)'s checks, for each of H_TRAIN's runs: the fsdp_only step with
+    the sequence over "model" against the unmeshed step on rank 0 (the
+    loss, the grads' global norm and the norm of the grads of the leaves
+    that make the gathered keys within DIST_LOSS_RTOL, in bf16), which the
+    planted fault (the gather's backward reduce-scatter skipped) must break
+    where the run has one; every rank's attention (MLA) in mode "context"
+    and its MLP (MoE) in mode "tokens", with flash launched at its local
+    shape (a row, its 1024 queries from q_offset 1024 * its "model"
+    coordinate, the 2048 gathered keys), forward and recompute of each unit
+    layer, once for a dense prefix layer. Returns {"arch q_offset":
+    launches} (ranks 0 and 1: (data 0, model 0) and (data 0, model 1))
+    for the kernels records."""
+    out, gaps_by, fault_by = {}, {}, {}
+    for t in H_TRAIN:
+        cfg = dataclasses.replace(get_config(t["arch"]), n_layers=t["n_layers"])
+        rs = [dict(r["runs"][t["arch"]], rank=r["rank"]) for r in ranks]
+        r0, plain = rs[0], rs[0]["plain"]
+        n = cfg.first_k_dense + 2 * n_units(cfg) * cfg.block_pattern.count("attn")
+        if cfg.use_mla:
+            d, dv, hkv = cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim, cfg.n_heads
+        else:
+            d, dv, hkv = cfg.head_dim, cfg.head_dim, cfg.n_kv_heads
+        for r in rs:
+            start = (r["rank"] % 2) * (t["seq"] // 2)
+            shape = (1, t["seq"] // 2, cfg.n_heads, t["seq"], hkv, d, dv, start)
+            check(r["fa"] == {str(shape): n} and r["fa_launches"] == n,
+                  f"distributed (h1) {t['arch']} rank {r['rank']}: flash calls {r['fa']} "
+                  f"({r['fa_launches']} launches), not {n} at {shape}")
+            check(r["modes"].get("context") == cfg.n_layers
+                  and r["modes"].get("tokens") == cfg.n_layers and r["sp"] == 2,
+                  f"distributed (h1) {t['arch']} rank {r['rank']}: modes {r['modes']}, sequence "
+                  f"split {r['sp']}")
+            check(r["staged"]["calls"] > 0, f"distributed (h1) {t['arch']} rank {r['rank']}: no "
+                                            f"collective went through the host")
+            check(all(r["mesh"][k] == r0["mesh"][k] for k in ("loss", "norm", "kv")),
+                  f"distributed (h1) {t['arch']}: losses and norms by rank "
+                  f"{[x['mesh'] for x in rs]}")
+            out.setdefault(f"{t['arch']} {start}", r["fa_launches"])
+        gaps = {k: abs(r0["mesh"][k] - plain[k]) / abs(plain[k]) for k in ("loss", "norm", "kv")}
+        what = (f"{cfg.first_k_dense} dense MLA + {cfg.n_layers - cfg.first_k_dense} MLA + MoE of "
+                f"{cfg.n_routed_experts} experts" if cfg.use_mla else f"{cfg.n_layers} layers")
+        print(f"distributed (h1) fsdp_only train on --mesh 2,2: {cfg.name} cut to {what}, "
+              f"{t['batch']} x {t['seq']} (a row a \"data\" rank, the sequence over \"model\"), "
+              f"one step: {r0['local_params']:,} of {r0['params']:,} parameters a rank; modes "
+              f"{r0['modes']}; flash calls by rank " + "; ".join(f"{r['fa']}" for r in rs)
+              + " (rows, q positions, q heads, keys, kv heads, d, dv, q_offset: calls)"
+              + (f"; {r0['drops']} assignments dropped past the capacity of the global batch"
+                 if cfg.n_routed_experts else ""))
+        line = (f"distributed (h1) {t['arch']} bf16 against the unmeshed step: loss "
+                f"{r0['mesh']['loss']:.6f} vs {plain['loss']:.6f}, grads' global norm "
+                f"{r0['mesh']['norm']:.6f} vs {plain['norm']:.6f}, the norm of "
+                f"{'/'.join(t['kv'])}'s grads {r0['mesh']['kv']:.6f} vs {plain['kv']:.6f}: gaps "
+                f"{gaps['loss']:.2e} {gaps['norm']:.2e} {gaps['kv']:.2e} (limit {DIST_LOSS_RTOL})")
+        check(max(gaps.values()) <= DIST_LOSS_RTOL, f"distributed (h1) {t['arch']}: gaps {gaps}")
+        if t.get("fault"):
+            fault = {k: abs(r0["fault"][k] - plain[k]) / abs(plain[k])
+                     for k in ("loss", "norm", "kv")}
+            line += (f"; planted (the key gather's backward reduce-scatter skipped): gaps "
+                     f"{fault['loss']:.2e} {fault['norm']:.2e} {fault['kv']:.2e}")
+            check(max(fault.values()) > DIST_LOSS_RTOL,
+                  f"distributed (h1) {t['arch']}: the planted fault passes the limit: {fault}")
+            fault_by[t["arch"]] = fault
+        print(line)
+        print(f"time [{stamp}] distributed (h1) {t['arch']} grads: --mesh 2,2 fsdp_only "
+              f"{r0['mesh']['s']:.3f} s (4 ranks sharing the card over gloo; "
+              f"{r0['staged']['calls']} collectives, {r0['staged']['bytes'] / 1e9:.2f} GB through "
+              f"host memory on rank 0), unmeshed {plain['s']:.3f} s; peak memory by rank "
+              + " ".join(f"{r['peak_bytes'] / 2**30:.2f}" for r in rs) + " GiB")
+        gaps_by[t["arch"]] = gaps
+    return {"launches": out, "gaps": gaps_by, "fault": fault_by}
 
 
 def report_g(stamp, ranks: list) -> dict:
@@ -3541,6 +3828,9 @@ def report_g(stamp, ranks: list) -> dict:
     products left unreduced) breaks; every rank's flash calls at its local
     shapes (this rank's rows; its kv heads with its q heads, or every head
     over its sequence shard with the log-sum-exp), the cache's layout.
+    (h2), under ``fsdp_only``: both rows on every rank, every head over a
+    quarter of the cache's sequence; (h3), the xLSTM: no flash call, its
+    recurrent caches by head and every mLSTM and sLSTM in mode "tp".
     Returns {label: rank 0's record} for the kernels records."""
     out = {}
     for run in DIST_G:
@@ -3549,30 +3839,42 @@ def report_g(stamp, ranks: list) -> dict:
         cfg = get_config(run["arch"])
         cfg = dataclasses.replace(cfg, n_layers=run.get("n_layers") or cfg.n_layers)
         f32 = run["f32"]
+        only = run.get("rules", {}).get("fsdp_only", False)
         heads = run.get("rules", {}).get("shard_cache_heads", True) and not cfg.use_mla and (
-            cfg.n_kv_heads % 2 == 0)
+            cfg.n_kv_heads % 2 == 0) and not only
         rows, L = run["rows"] // 2, run["max_len"]
         if cfg.use_mla:
             d, dv, hq, hkv = cfg.nope_head_dim + cfg.rope_head_dim, cfg.v_head_dim, cfg.n_heads, cfg.n_heads
         else:
             d = dv = cfg.head_dim
             hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        want = ((rows, 1, hq // 2, L, hkv // 2, d, dv, False) if heads
-                else (rows, 1, hq, L // 2, hkv, d, dv, True))
+        layers = cfg.n_layers - sum(n_units(cfg) for k in cfg.block_pattern if k != "attn")
+        if only:  # every row on every rank; the sequence over both dims
+            want, kind = (run["rows"], 1, hq, L // 4, hkv, d, dv, True), {"sequence over dp"}
+        elif heads:
+            want, kind = (rows, 1, hq // 2, L, hkv // 2, d, dv, False), {"heads"}
+        else:
+            want, kind = (rows, 1, hq, L // 2, hkv, d, dv, True), {"sequence"}
+        if not layers:  # the xLSTM: recurrent caches by head, conv windows by channel
+            want, kind = None, {"heads", "channels"}
         steps_ = run["prompt"] + run["new"]
-        layers = cfg.n_layers
         for r in mine:
             fa = {k: v for k, v in r["fa"].items() if k != "empty shard"}
-            check(fa == {str(want): layers * steps_} and r["fa_launches"] == layers * steps_,
+            check(fa == ({str(want): layers * steps_} if layers else {})
+                  and r["fa_launches"] == layers * steps_,
                   f"distributed (g) {run['label']} rank {r['rank']}: flash calls {r['fa']} "
                   f"({r['fa_launches']} launches), not {layers * steps_} at {want}")
             check(r["staged"]["calls"] > 0, f"distributed (g) {run['label']} rank {r['rank']}: "
                                             f"no collective went through the host")
-        kind = ("heads" if heads else "sequence")
-        check(set(r0["cache"]) == {kind}, f"distributed (g) {run['label']}: cache {r0['cache']}")
-        # the sequence's second shard holds no key until the prompt passes it
+        check(set(r0["cache"]) == kind, f"distributed (g) {run['label']}: cache {r0['cache']}")
+        if not layers:
+            check(r0["modes"].get("tp") == cfg.n_layers,
+                  f"distributed (g) {run['label']}: modes {r0['modes']}: not every mLSTM and "
+                  f"sLSTM on its heads")
+        kind = ", ".join(sorted(kind))
+        # a sequence shard holds no key until the prompt passes it
         empty = sum(r.get("fa", {}).get("empty shard", 0) for r in mine)
-        if not heads:
+        if layers and not heads:
             check(empty > 0, f"distributed (g) {run['label']}: no step had an empty shard")
         tol = DIST_G_F32_TOL if f32 else DIST_G_BF16_TOL
         gap = r0["rel_gap"] if f32 else r0["gap"]
@@ -3662,7 +3964,8 @@ def report_f(stamp, ranks: list) -> dict:
               f"{cfg.n_layers} layers ({cfg.block_pattern.count('mlstm')} mLSTM + "
               f"{cfg.block_pattern.count('slstm')} sLSTM of {nh} heads: {nh // h} a rank, mode "
               f"\"tp\"), {DIST_E_ARGS[DIST_E_ARGS.index('--batch') + 1]} x "
-              f"{DIST_E_ARGS[DIST_E_ARGS.index('--seq') + 1]}, one step: {m0['local_params']:,} of "
+              f"{run.get('seq', DIST_E_ARGS[DIST_E_ARGS.index('--seq') + 1])}, one step: "
+              f"{m0['local_params']:,} of "
               f"{m0['params']:,} parameters a rank; modes {m0['modes']}; compute shapes on every "
               f"rank {m0['shapes']}")
         print(f"distributed (f) {run['arch']} bf16: loss {m0['losses'][0]:.6f} against the "
@@ -4995,11 +5298,47 @@ def _time_fa_train(stamp, gen, fa, name, shape, path, launches, err) -> dict:
             "bound_by": bound_by, "library_ms": ms["library"]}
 
 
+def _time_fa_context(stamp, gen, fa, name, shape, start, launches, err, arch) -> dict:
+    """Flash attention at (h1)'s context-parallel shape (a shard's queries
+    from ``start`` against every key, causal, bf16) beside its bound (the
+    causal pairs of the shard's rows, and the keys they read), its plain
+    version and SDPA with an explicit boolean mask; the kernels-line record
+    with the launches at that q_offset on (h1)'s main path for ``arch``."""
+    b, sq, skv, hq, hkv, d = shape[:6]
+    dv = shape[6] if len(shape) > 6 else d
+    pick = _rotating([_qkv(gen, b, sq, skv, hq, hkv, d, torch.bfloat16, dv) for _ in range(2)])
+    mask = (torch.arange(sq, device="cuda")[:, None] + start
+            >= torch.arange(skv, device="cuda")[None, :])
+    ms = _interleaved_ms({
+        "plain": lambda: _plain(*pick(), causal=True, scale=1.0 / math.sqrt(d), q_offset=start),
+        "kernel": lambda: flash_attention(*pick(), causal=True, q_offset=start),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in pick()), attn_mask=mask, enable_gqa=hq != hkv),
+    }, n=10)
+    pairs = sq * start + sq * (sq + 1) // 2  # the live (query, key) pairs of the shard's rows
+    live = min(skv, start + sq)  # the keys those rows read
+    bytes_ = 2 * b * (sq * hq * (d + dv) + live * hkv * (d + dv))  # q, o; k, v read once; bf16
+    flops = 2 * b * hq * pairs * (d + dv)
+    bound, bound_by = _bound(bytes_, flops, BF16_FLOP_PER_S)
+    dims = f"d={d}" + (f" dv={dv}" if dv != d else "")
+    label = f"b={b} Sq={sq} Skv={skv} q_offset={start} hq={hq} hkv={hkv} {dims} causal bf16"
+    print(f"time [{stamp}] flash_attention distributed (h1) {arch} {label} (tile "
+          f"{plan_blocks(sq, skv, compiled_dim(d, dv))}): kernel {ms['kernel']:.4f} ms "
+          f"({flops / ms['kernel'] / 1e9:.1f} TFLOP/s), plain {ms['plain']:.4f} ms, sdpa with a "
+          f"boolean mask {ms['library']:.4f} ms, bound {bound:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.2f} GFLOP at 989 TFLOP/s bf16, {bytes_ / 1e6:.1f} MB at 3.35 TB/s "
+          f"({live} keys read); {bound / ms['kernel']:.1%} of it); {launches} launches on each "
+          f"rank at this q_offset in (h1)'s step")
+    return {**fa, "path": f"distributed (h1) {arch}", "shape": f"{name} {label}",
+            "launches": launches, "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": ms["library"]}
+
+
 # (g)'s decode shapes timed on one rank: the G_LSE case, the (g) run whose
 # launches it carries, the live keys (the wave's last step: 48 of the 64
 # slots; a full sequence shard of 32)
 G_TIMED = [("g heads", "qwen3 bf16 heads", 48), ("g sequence", "qwen3 bf16 sequence", 32),
-           ("g mla", "deepseek f32", 32)]
+           ("g mla", "deepseek f32", 32), ("h sequence over dp", "qwen3 f32 fsdp_only", 4)]
 
 
 def _time_g_decode(stamp, gen, fa, name, run, kv_len, err) -> dict:
@@ -5133,6 +5472,11 @@ def phase_times(stamp, plans, serve_launches, moe_launches, fam, train_launches,
     g = new_train["distributed"]["g"]
     for name, label, kv_len in G_TIMED:
         records.append(_time_g_decode(stamp, gen, fa, name, g[label], kv_len, errs[name]))
+    h = new_train["distributed"]["h"]["launches"]
+    for name, shape, start, arch in FA_CONTEXT:
+        if arch is not None:  # (h1)'s training shapes
+            records.append(_time_fa_context(stamp, gen, fa, name, shape, start,
+                                            h[f"{arch} {start}"], errs[name], arch))
 
     # the SSD kernel at zamba2's training shape, B/C shared by the heads as
     # the model passes them (stride 0: the score kernel, then the main

@@ -3,11 +3,12 @@ step of every (architecture x input-shape) cell costs a device on the
 reference's production meshes, with no device.
 
 For every cell, on the single-pod 16x16 mesh AND the 2x16x16 multi-pod
-mesh, the step the port runs (``launch/specs.build_cell``: partitioned
-for training, FSDP per unit and tensor parallel over "model"; for serving
-the inference layout, tensor parallel over "model" with the cache by
-``cache_specs``, except the xLSTM decode and ``fsdp_only`` serving, which
-run data-parallel replicas with the whole weights) is traced once for rank 0 of a fake
+mesh, the step the port runs (``launch/specs.build_cell``, partitioned
+in every cell: for training FSDP per unit and tensor parallel over
+"model"; for serving the inference layout, tensor parallel over "model"
+with the cache by ``cache_specs``; under ``fsdp_only`` FSDP over every
+dim with the sequence over "model" where the rows do not divide, context
+parallel attention) is traced once for rank 0 of a fake
 process group of 256 or 512 ranks, on shape-only ``meta`` tensors, with
 the hand-written kernels switched off (their plain versions run: a kernel
 needs real device memory). One dispatch mode counts, op by op:
@@ -376,12 +377,9 @@ def _mesh(multi_pod: bool, mesh_shape: Optional[Sequence[int]]):
 
 def _modes(fn):
     """A step's partition: its branches by mode, by name those computed
-    whole over "model" (no TP, no heads x rows), and a decode step's cache
-    leaves by layout ("heads", "sequence", "sequence over dp", "channels",
-    "replica", or two of them); ``"replica"`` for a serving cell the port
-    does not partition."""
-    if getattr(fn, "compute", None) == "replica":
-        return "replica"
+    whole over "model" (no TP, no heads x rows, no context parallelism),
+    and a decode step's cache leaves by layout ("heads", "sequence",
+    "sequence over dp", "channels", "dk", "whole", or two of them)."""
     part = getattr(fn, "partition", None)
     if part is None:
         return None

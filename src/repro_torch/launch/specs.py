@@ -39,34 +39,36 @@ from repro_torch.sharding.specs import (
 META = "meta"
 
 #: what each kind of cell's artifact describes: the port's step as it runs
-#: ("replica": a serving cell the port does not partition, ``partitioned``)
+#: (a key with "/fsdp_only" under ``ShardingRules(fsdp_only=True)``)
 COMPUTE = {
     "train": "FSDP per unit over the dp dims; tensor and sequence parallel over model for "
-             "attention, MLA, Mamba-2, the MLP, the expert banks and the vocabulary; other "
-             "blocks whole over model; the MoE over the global batch",
+             "attention, MLA, Mamba-2, mLSTM, sLSTM, the MLP, the expert banks and the "
+             "vocabulary; other blocks whole over model; the MoE over the global batch",
     "prefill": "the inference layout (param_specs for_training=False): tensor and sequence "
                "parallel over model on the prompt's sequence shards, units gathered over data "
                "where the TP'd weights pass the budget; the last position's logits "
                "vocab-sharded",
     "decode": "the inference layout: tensor parallel over model on this rank's rows (one "
               "token), row products all-reduced; the cache by cache_specs (kv heads or the "
-              "sequence over model, the sequence over the dp axes for a batch of one), "
-              "sequence shards merged by log-sum-exp; the greedy token vocab-sharded",
-    "replica": "dp replicas over (pod, data), whole weights; the model ranks repeat",
+              "sequence over model, the sequence over the dp axes for a batch of one; the "
+              "mLSTM and sLSTM states by head, or along dk where the heads do not divide, "
+              "their partial sums all-reduced), sequence shards merged by log-sum-exp; the "
+              "greedy token vocab-sharded",
+    "train/fsdp_only": "FSDP (ZeRO-3) per unit over every mesh dim, no tensor parallelism; "
+                       "where the rows do not divide over the whole pool, the sequence over "
+                       "model: attention and MLA context parallel (keys and values gathered "
+                       "over model, this rank's queries), the MLP and the MoE per token on the "
+                       "shard (the MoE over the global batch's row runs), other blocks whole "
+                       "over model",
+    "prefill/fsdp_only": "weights FSDP over every mesh dim, gathered per unit; the prompt's "
+                         "sequence over model where its rows do not divide over the pool: "
+                         "attention and MLA context parallel, the rest as in train; the last "
+                         "position's logits whole",
+    "decode/fsdp_only": "weights FSDP over every mesh dim, gathered per unit; each rank's rows "
+                        "(every row where the batch does not divide over the pool) at full "
+                        "width; the cache's sequence over the dp axes, its shards' partials "
+                        "merged by log-sum-exp",
 }
-
-
-def partitioned(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules) -> bool:
-    """Whether the port partitions the cell's step. Serving is not
-    partitioned under ``fsdp_only`` (its prefill puts "model" on the
-    sequence with no tp dim) nor for an xLSTM decode (its mLSTM ``C`` is
-    split along ``dk`` where the heads do not divide): those keep the
-    replica layout."""
-    if shape.kind == "train":
-        return True
-    if rules.fsdp_only:
-        return False
-    return not (shape.kind == "decode" and {"mlstm", "slstm"} & set(cfg.block_pattern))
 
 
 def _shape(shape: Union[str, ShapeConfig]) -> ShapeConfig:
@@ -149,15 +151,7 @@ def _placed(tree, sh):
     return [_placed(v, s) for v, s in zip(tree, sh)]
 
 
-def _local(tree):
-    if isinstance(tree, dict):
-        return {k: _local(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_local(v) for v in tree]
-    return tree.to_local()
-
-
-def _row_dp(shape: ShapeConfig, mesh, rules: ShardingRules):
+def row_dp(shape: ShapeConfig, mesh, rules: ShardingRules):
     """The dp axes that split the batch rows, or None where the batch does
     not divide over them (batch-1 long-context cells: replicated, as the
     reference's divisibility guard does)."""
@@ -167,23 +161,13 @@ def _row_dp(shape: ShapeConfig, mesh, rules: ShardingRules):
     return dp if (dp and shape.global_batch % dp_total == 0) else None
 
 
-def _rows(tree, bdp):
-    """Specs splitting dim 0 of every leaf over ``bdp`` (or replicating)."""
-    if isinstance(tree, torch.Tensor):
-        return P(bdp, *([None] * (tree.dim() - 1)))
-    if isinstance(tree, dict):
-        return {k: _rows(v, bdp) for k, v in tree.items()}
-    return [_rows(v, bdp) for v in tree]
-
-
 def reference_layout(arch, shape_name, mesh, args, rules: ShardingRules = ShardingRules()):
     """The reference's in-shardings of the cell's arguments, as ``(mesh,
     placements)``: what its ``build_cell`` gives ``jax.jit`` and what
     ``dryrun.analytic_memory`` divides by. They are the port's own: the
     train layout (``state_specs``, ``batch_specs``), and for serving the
     inference layout (``param_specs(for_training=False)``, ``batch_specs``,
-    ``cache_specs``), on which the port partitions prefill and decode
-    (``partitioned``; the replica cells hold whole weights instead)."""
+    ``cache_specs``), on which the port partitions prefill and decode."""
     cfg = _cfg(arch)
     shape = _shape(shape_name)
     if shape.kind == "train":
@@ -194,7 +178,7 @@ def reference_layout(arch, shape_name, mesh, args, rules: ShardingRules = Shardi
     p_sh = named(param_specs(model, cfg, mesh, rules, for_training=False), mesh)
     if shape.kind == "prefill":
         return (p_sh, named(batch_specs(cfg, shape, mesh, rules), mesh))
-    bdp = _row_dp(shape, mesh, rules)
+    bdp = row_dp(shape, mesh, rules)
     return (p_sh, named(cache_specs(args[1], cfg, mesh, rules), mesh),
             named(P(bdp, None), mesh), _replicated(mesh))
 
@@ -212,11 +196,12 @@ def build_cell(
     """Returns ``(fn, args, in_placements, out_placements)``: ``fn(*args)``
     runs one step of the cell as the port runs it, on this rank, with
     shape-only stand-ins (``meta`` tensors; DTensors of them where placed).
+    Every cell is partitioned (``sharding/partition.py``):
 
     - train: ``make_sharded_train_step`` on the state ``distribute_state``
-      places by ``state_specs`` and the batch placed by ``batch_specs``
-      (partitioned: ``sharding/partition.py``); the ranks' agreement is
-      taken as given (a shape-only flag has no value).
+      places by ``state_specs`` and the batch placed by ``batch_specs``;
+      the ranks' agreement is taken as given (a shape-only flag has no
+      value).
     - prefill: ``make_sharded_prefill_step`` on the weights
       ``distribute_params`` places by ``param_specs(for_training=False)``
       and the batch placed by ``batch_specs`` (the prompt's sequence over
@@ -224,24 +209,23 @@ def build_cell(
     - decode: ``make_sharded_serve_step`` on the same weights, the cache
       placed by ``cache_specs`` and the tokens ``P(bdp, None)``, at the
       last position of the cache (``pos = seq_len - 1``).
-    - a serving cell the port does not partition (``partitioned``): each
-      rank is a data-parallel replica with the whole weights holding its
-      own batch rows and their cache rows (rows over the dp axes;
-      replicated where the batch does not divide); ``fn.compute`` is
-      ``"replica"``.
 
-    ``cfg`` overrides the registry config; ``microbatches`` enables
-    gradient accumulation for train cells. Like the reference's, a train
-    cell installs the mesh's activation hints (``hints_from_mesh``)."""
+    ``fn.compute`` keys ``COMPUTE``: the kind, with "/fsdp_only" under
+    ``rules.fsdp_only``. ``cfg`` overrides the registry config;
+    ``microbatches`` enables gradient accumulation for train cells. Like
+    the reference's, a cell installs the mesh's activation hints
+    (``hints_from_mesh``)."""
     cfg = cfg or _cfg(arch)
     shape = _shape(shape_name)
     optimizer = adamw(1e-4)
+    hints_from_mesh(mesh, rules)
+    compute = shape.kind + ("/fsdp_only" if rules.fsdp_only else "")
     if shape.kind == "train":
-        hints_from_mesh(mesh, rules)
         fn = steps_mod.make_sharded_train_step(
             cfg, optimizer, mesh, agree=lambda ok: ok, rules=rules, remat=remat,
             microbatches=microbatches, remat_policy=rules.remat_policy,
         )
+        fn.compute = compute
         whole = state_struct(cfg, optimizer)
         st_sh = named(state_specs(whole, cfg, mesh, rules), mesh)
         b_sh = named(batch_specs(cfg, shape, mesh, rules), mesh)
@@ -249,48 +233,19 @@ def build_cell(
         batch = _placed(batch_struct(cfg, shape), b_sh)
         rep = _replicated(mesh)
         return fn, (state, batch), (st_sh, b_sh), (st_sh, {"loss": rep, "step": rep})
-    bdp = _row_dp(shape, mesh, rules)
-    if partitioned(cfg, shape, rules):
-        return _sharded_serving(cfg, shape, mesh, rules, bdp)
-    model = params_struct(cfg)
-    p_sh = {n: _replicated(mesh) for n, _ in model.named_parameters()}
-    if shape.kind == "prefill":
-        prefill = steps_mod.make_prefill_step(cfg)
-        b = batch_struct(cfg, shape)
-        b_sh = named(_rows(b, bdp), mesh)
-
-        def prefill_fn(model, batch):
-            return prefill(model, _local(batch))
-
-        prefill_fn.compute = "replica"
-        return (prefill_fn, (model, _placed(b, b_sh)), (p_sh, b_sh),
-                named(P(bdp, None), mesh))
-    serve = steps_mod.make_serve_step(cfg)
-    cache = cache_struct(cfg, shape)
-    c_sh = named(_rows(cache, bdp), mesh)
-    tok_sh = named(P(bdp, None), mesh)
-
-    def decode_fn(model, cache, tokens, pos):
-        return serve(model, _local(cache), tokens.to_local(), pos)
-
-    decode_fn.compute = "replica"
-    tokens = _placed(_sds((shape.global_batch, 1), torch.int32), tok_sh)
-    args = (model, _placed(cache, c_sh), tokens, shape.seq_len - 1)
-    return decode_fn, args, (p_sh, c_sh, tok_sh, _replicated(mesh)), (tok_sh, c_sh)
-
-
-def _sharded_serving(cfg: ModelConfig, shape: ShapeConfig, mesh, rules: ShardingRules, bdp):
-    """``build_cell``'s partitioned prefill or decode cell."""
-    hints_from_mesh(mesh, rules)
+    bdp = row_dp(shape, mesh, rules)
     model = steps_mod.distribute_params(params_struct(cfg), cfg, mesh, rules)
     p_sh = named(param_specs(model, cfg, mesh, rules, for_training=False), mesh)
-    v_ax = rules.tp_axis if cfg.vocab % _axis_sizes(mesh).get(rules.tp_axis, 1) == 0 else None
+    tp = None if rules.fsdp_only else rules.tp_axis
+    v_ax = tp if tp and cfg.vocab % _axis_sizes(mesh).get(tp, 1) == 0 else None
     if shape.kind == "prefill":
         b_sh = named(batch_specs(cfg, shape, mesh, rules), mesh)
         batch = _placed(batch_struct(cfg, shape), b_sh)
         fn = steps_mod.make_sharded_prefill_step(cfg, mesh, rules)
+        fn.compute = compute
         return fn, (model, batch), (p_sh, b_sh), named(P(bdp, v_ax), mesh)
     fn = steps_mod.make_sharded_serve_step(cfg, mesh, rules)
+    fn.compute = compute
     cache = steps_mod.distribute_cache(cache_struct(cfg, shape), cfg, mesh, rules)
     c_sh = [{n: (mesh, tuple(t.placements)) for n, t in layer.items()} for layer in cache]
     tok_sh = named(P(bdp, None), mesh)

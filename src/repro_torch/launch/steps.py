@@ -252,24 +252,25 @@ def make_sharded_train_step(
     from torch.distributed.tensor import Shard
 
     from repro_torch.runtime import PeerStepError
-    from repro_torch.sharding.partition import Partition, dp_rows
+    from repro_torch.sharding.partition import Partition, dp_rows, seq_dim
     from repro_torch.sharding.specs import ShardingRules
 
     rules = rules or ShardingRules()
 
     def grads_phase(model, batch):
         part = getattr(train_step, "partition", None)
-        if part is None:  # the plan is the state's placements': made once
+        if part is None:  # the plan is the state's and the batch's placements': made once
             part = train_step.partition = Partition(
-                cfg, model, mesh, rules, rows=dp_rows(batch, mesh, rules) // microbatches)
+                cfg, model, mesh, rules, rows=dp_rows(batch, mesh, rules) // microbatches,
+                seq=seq_dim(batch))
         # this rank's slices as leaves of the step (the state's storage)
         shards = {k: p.to_local().detach().requires_grad_(True)
                   for k, p in model.named_parameters()}
         loss, grads = _grads(lambda b: part.loss(model, shards, b, remat=remat,
                                                  remat_policy=remat_policy),
                              shards, part.local_batch(batch), microbatches)
-        # the loss of the dp groups' mean: the ranks of a tp group hold the same
-        rest = [i for i in range(mesh.ndim) if mesh.size(i) > 1 and i != part.tp_dim]
+        # the loss of the dp groups' mean: the ranks that split the sequence hold the same
+        rest = [i for i in range(mesh.ndim) if mesh.size(i) > 1 and i != part.sp_dim]
         if rest:
             flat = loss.float().reshape(1)
             for i in rest:
@@ -366,7 +367,7 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules=None):
     this rank's rows and, where the head is vocab-parallel, its vocab
     shard (``Partition.prefill``). ``prefill_step.partition`` is the plan
     once a step has run."""
-    from repro_torch.sharding.partition import Partition, dp_rows
+    from repro_torch.sharding.partition import Partition, dp_rows, seq_dim
     from repro_torch.sharding.specs import ShardingRules
 
     rules = rules or ShardingRules()
@@ -376,7 +377,8 @@ def make_sharded_prefill_step(cfg: ModelConfig, mesh, rules=None):
         part = getattr(prefill_step, "partition", None)
         if part is None:
             part = prefill_step.partition = Partition(cfg, model, mesh, rules,
-                                                      rows=dp_rows(batch, mesh, rules))
+                                                      rows=dp_rows(batch, mesh, rules),
+                                                      seq=seq_dim(batch))
         shards = {k: p.to_local() for k, p in model.named_parameters()}
         logits = part.prefill(model, shards, part.local_batch(batch))
         first = next(iter(batch.values()))

@@ -94,7 +94,12 @@ class Products:
     this rank's shard of a whole sequence (``shard``); attention and MLA
     write and read a decode cache through ``cache_write`` and ``attend``,
     which the partitioned decode step (``Partition.decode``) gives a cache
-    split by head or by sequence; Mamba-2's gated norm and the mLSTM and sLSTM
+    split by head or by sequence, and take their positions, keys and
+    attention through ``positions``, ``keys`` and ``attention``, which
+    context parallelism gives this rank's query shard against every key;
+    the xLSTM decode over a cache split along dk sums its contractions over
+    the ranks (``contracted``), gathers its state's slices (``whole_dk``)
+    and keeps this rank's (``slice_dk``); Mamba-2's gated norm and the mLSTM and sLSTM
     output norms sum their squares over the ranks' channels
     (``wide_norm``), and mLSTM's cell input and sLSTM's normed output are
     gathered over them (``gather``)."""
@@ -166,6 +171,45 @@ class Products:
         """The new tokens' attention over the cache (``cache_write``'s
         length); a partitioned decode merges the shards' partials."""
         return mha(q, k, v, causal=False, q_offset=q_offset, kv_len=kv_len, sm_scale=sm_scale)
+
+    @staticmethod
+    def positions(positions: torch.Tensor, S: int) -> torch.Tensor:
+        """The global positions of this call's ``S`` tokens; context
+        parallelism gives this rank's shard of the sequence's."""
+        return positions
+
+    @staticmethod
+    def keys(*ts: torch.Tensor) -> tuple:
+        """Every position's keys and values (or MLA's latent and rope key);
+        context parallelism gathers them over the ranks' sequence shards."""
+        return ts
+
+    @staticmethod
+    def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+        """Attention of this call's queries over ``keys``' keys (no cache);
+        context parallelism offsets the queries to this rank's shard."""
+        return mha(q, k, v, causal=causal, q_offset=0, sm_scale=sm_scale)
+
+    @staticmethod
+    def contracted(*xs: torch.Tensor) -> tuple:
+        """Sums over a contraction whose dim a partitioned decode splits over
+        the ranks (an mLSTM cache split along dk): summed over them; whole
+        here."""
+        return xs
+
+    @staticmethod
+    def whole_dk(*xs: torch.Tensor) -> tuple:
+        """Recurrent states whose last dim (a head's dk or hd) a partitioned
+        decode splits over the ranks: every rank's slices side by side;
+        whole here."""
+        return xs
+
+    @staticmethod
+    def slice_dk(x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``x``'s last dim where a partitioned decode
+        splits a head's dk or hd over the ranks; ``x`` here."""
+        return x
 
 
 WHOLE = Products()
@@ -332,7 +376,7 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             q = products.norm(q, self.q_norm, cfg.rms_eps)
             k = products.norm(k, self.k_norm, cfg.rms_eps)
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+        cos, sin = rope_cos_sin(products.positions(positions, S), hd, cfg.rope_theta)
         if not cfg.encoder_only:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -341,7 +385,8 @@ class Attention(nn.Module):
             kv_len = products.cache_write(cache, {"k": k, "v": v}, cache_len)
             out = products.attend(q, cache["k"], cache["v"], q_offset=cache_len, kv_len=kv_len)
         else:
-            out = mha(q, k, v, causal=not cfg.encoder_only, q_offset=0)
+            k, v = products.keys(k, v)
+            out = products.attention(q, k, v, causal=not cfg.encoder_only)
         return products.rows(out.reshape(b, S, -1), self.wo)
 
 
@@ -385,7 +430,7 @@ class MLA(nn.Module):
         q = q.reshape(b, S, h, dn + dr)
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         ckv = products.norm(down[..., :r], self.latent_norm, cfg.rms_eps)
-        cos, sin = rope_cos_sin(positions, dr, cfg.rope_theta)
+        cos, sin = rope_cos_sin(products.positions(positions, S), dr, cfg.rope_theta)
         q_rope = apply_rope(q_rope, cos, sin)
         k_rope = apply_rope(down[..., r:].reshape(b, S, 1, dr), cos, sin)
         if cache is not None:
@@ -394,9 +439,8 @@ class MLA(nn.Module):
             kv_len = products.cache_write(
                 cache, {"ckv": ckv, "krope": k_rope.reshape(b, S, dr)}, cache_len)
             ckv, k_rope = cache["ckv"], cache["krope"].reshape(b, -1, 1, dr)
-            causal, q_offset = False, cache_len
-        else:
-            causal, q_offset, kv_len = True, 0, None
+        else:  # every position's latent and rope key (gathered under context parallelism)
+            ckv, k_rope = products.keys(ckv, k_rope)
         Skv = ckv.shape[1]
         kv = self.kv_up(ckv).reshape(b, Skv, h, dn + dv)
         k_nope, v = kv[..., :dn], kv[..., dn:]
@@ -405,11 +449,10 @@ class MLA(nn.Module):
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         scale = 1.0 / math.sqrt(dn + dr)
         if cache is not None:
-            out = products.attend(q_full, k_full, v, q_offset=q_offset, kv_len=kv_len,
+            out = products.attend(q_full, k_full, v, q_offset=cache_len, kv_len=kv_len,
                                   sm_scale=scale)
         else:
-            out = mha(q_full, k_full, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-                      sm_scale=scale)
+            out = products.attention(q_full, k_full, v, causal=True, sm_scale=scale)
         return products.rows(out.reshape(b, S, -1), self.wo)
 
 

@@ -38,11 +38,14 @@ class Batch:
     """The tokens over which a MoE call counts its capacity, its slot order
     and its load-balance terms: the call's own, here (one group). The
     partitioned train step passes its dp groups' global batch: ``groups``
-    equal blocks of rows, this call's at ``index`` in row-major order,
-    ``sum_counts`` summing integer counts over the groups and ``sum``
-    summing an f32 tensor over them with an all-reduce as its backward."""
+    equal blocks of tokens, ``sum_counts`` summing integer counts over the
+    groups and ``sum`` summing an f32 tensor over them with an all-reduce
+    as its backward. A call's tokens are ``pieces`` equal runs, each
+    consecutive in the global batch's row-major order, at the global run
+    indices ``index`` (of ``groups * pieces``): one run of whole rows, or
+    one run a row where the sequence is split over ranks too."""
 
-    groups, index = 1, 0
+    groups, index, pieces = 1, (0,), 1
 
     @staticmethod
     def sum_counts(x: torch.Tensor) -> torch.Tensor:
@@ -141,8 +144,11 @@ class MoE(nn.Module):
             C = self.capacity(T, dropless)
             keep = slot < C
         else:
-            aux, cap, C, first = self._global(eidx, probs, pos[-1] + 1, over, dropless)
-            keep = slot + first[flat_e] < cap  # the global slot within the global capacity
+            if over.pieces not in (1, b):
+                raise ValueError(f"{b} rows in a call whose global batch has {over.pieces} runs "
+                                 f"of its rows")
+            aux, cap, C, first = self._global(eidx, probs, pos, over, dropless)
+            keep = slot + first < cap  # the global slot within the global capacity
         slot_c = torch.where(keep, slot, C)
         tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
         n_loc = self.w_gate.shape[0]
@@ -179,30 +185,37 @@ class MoE(nn.Module):
             y = y + products.rows(f(gs) * us, sh.down)
         return y.reshape(x.shape), aux
 
-    def _global(self, eidx: torch.Tensor, probs: torch.Tensor, counts: torch.Tensor,
+    def _global(self, eidx: torch.Tensor, probs: torch.Tensor, pos: torch.Tensor,
                 over: Batch, dropless: bool) -> Tuple[torch.Tensor, int, int, torch.Tensor]:
         """The global batch's aux loss (f_e and P_e means over all tokens,
         summed over the groups in f32 before their product), this group's
-        buffer slots and each expert's first global slot for this group.
-        ``counts``: (E,) this group's assignments per expert. Returns (aux,
-        the capacity of all tokens, slots: the most this group keeps on one
-        expert under it, a host int, at least 1, first (E,))."""
+        buffer slots and each assignment's offset to its global slot.
+        ``pos``: (T k, E) this group's running count of each expert's
+        assignments. Returns (aux, the capacity of all tokens, slots: the
+        most this group keeps on one expert under it, a host int, at least
+        1, first (T k,): the global slots before this run's on its expert,
+        less this group's own before it)."""
         cfg = self.cfg
-        e, G = cfg.n_routed_experts, over.groups
+        e, G, R = cfg.n_routed_experts, over.groups, over.pieces
         T = eidx.shape[0]
-        table = torch.zeros((G + 1, e), dtype=torch.int64, device=eidx.device)
-        table[over.index] = counts  # each group's counts; the last row: top-1 counts
-        table[G] = nn.functional.one_hot(eidx[:, 0], e).sum(dim=0)
+        ends = pos.view(R, -1, e)[:, -1] + 1  # the group's counts at each run's end
+        counts = torch.diff(ends, dim=0, prepend=torch.zeros_like(ends[:1]))
+        table = torch.zeros((G * R + 1, e), dtype=torch.int64, device=eidx.device)
+        table[list(over.index)] = counts  # each run's counts; the last row: top-1 counts
+        table[G * R] = nn.functional.one_hot(eidx[:, 0], e).sum(dim=0)
         table = over.sum_counts(table)
-        f_e = table[G].float() / (T * G)
+        f_e = table[G * R].float() / (T * G)
         P_e = over.sum(probs.sum(dim=0)) / (T * G)
         aux = e * torch.sum(f_e * P_e) * cfg.router_aux_coef
         C = self.capacity(T * G, dropless)
-        first = table[:over.index].sum(dim=0)
-        kept = torch.clamp(torch.minimum(counts, C - first), min=0)
+        before = torch.cumsum(table[:G * R], dim=0) - table[:G * R]
+        first = before[list(over.index)]  # (R, E): the global slots before each run's
+        kept = torch.clamp(torch.minimum(counts, C - first), min=0).sum(dim=0)
+        first = (first - (ends - counts)).repeat_interleave(pos.shape[0] // R, dim=0)
+        first = torch.gather(first, 1, eidx.reshape(-1, 1))[:, 0]
         if kept.is_meta:  # no values (the dry-run): a group within the capacity factor
             return aux, C, min(C, self.capacity(T, dropless)), first
-        most, dropped = torch.stack([kept.max(), (table[:G].sum(dim=0) - C).clamp(min=0).sum()]
-                                    ).tolist()
+        most, dropped = torch.stack([kept.max(), (table[:G * R].sum(dim=0) - C).clamp(min=0)
+                                     .sum()]).tolist()
         DROPPED["assignments"] += dropped
         return aux, C, max(1, most), first

@@ -351,7 +351,19 @@ def mlstm_apply(
     columns, the ``out_norm`` slice and ``down`` rows; the conv is whole.
     The cell input is computed on this rank's channels and gathered whole
     (``products.gather``): every q/k/v head reads all of it. The head
-    count is the gates'."""
+    count is the gates'.
+
+    The partitioned decode (``Partition.decode``) gives ``up``'s channels
+    of this rank's heads, the conv window and taps of those channels, the
+    ``out_norm`` slice and ``down`` rows of them, and either this rank's
+    heads of the rest (the cache split by head) or every head's slice of
+    dk in ``wq``/``wk`` with ``v`` and the gates whole (the cache split
+    along dk: ``C``/``n`` slices, ``m`` whole). The cell input and the
+    conv's output are gathered over the ranks' channels
+    (``products.gather``); along dk the partial sums of ``q . C`` and
+    ``q . n`` are summed over the ranks before the stabiliser's max
+    (``products.contracted``) and the output, whole, is cut to this
+    rank's channels (``products.slice_dk``)."""
     dh = cfg.d_inner // cfg.n_heads
     ag, i_raw, f_raw = products.columns(u, (p.up, p.w_i, p.w_f))
     a, gate = ag.chunk(2, dim=-1)
@@ -367,13 +379,17 @@ def mlstm_apply(
         y, _ = _mlstm_chunked(q, k, v, ilog, flog, chunk=min(chunk, L))
     else:
         conv, c_t = conv_step(cache["conv"], a[:, 0], p.conv_w, p.conv_b)
-        c_t = silu(c_t)
+        # every rank's channels of the cell input and the conv's output
+        a_t, c_t = products.gather(torch.stack([a[:, 0], silu(c_t)], dim=1)).unbind(1)
         # q is scaled in its own dtype (sqrt(dh) rounded to it, as JAX's weak
-        # constant is), THEN widened; the chunked path widens first
+        # constant is), THEN widened; the chunked path widens first. A
+        # partitioned decode gives q and k this rank's heads, or every
+        # head's slice of dk (the cache split along it)
         root = torch.tensor(math.sqrt(dh), dtype=c_t.dtype).item()
-        q = (p.wq(c_t).reshape(b, nh, dh) / root).float()
-        k = p.wk(c_t).reshape(b, nh, dh).float()
-        v = p.wv(a[:, 0]).reshape(b, nh, dh).float()
+        q, k = products.columns(c_t, (p.wq, p.wk))
+        q = (q.reshape(b, nh, -1) / root).float()
+        k = k.reshape(b, nh, -1).float()
+        v = products.columns(a_t, (p.wv,))[0].reshape(b, nh, -1).float()
         i_t, f_t = ilog[:, 0], flog[:, 0]  # (b, nh)
         m_prev, C_prev, n_prev = cache["m"], cache["C"], cache["n"]
         m_new = torch.maximum(f_t + m_prev, i_t)
@@ -384,9 +400,10 @@ def mlstm_apply(
         n_new = n_prev * fp[:, :, None] + ip[:, :, None] * k
         num = torch.einsum("bhd,bhde->bhe", q, C_new)
         den = torch.einsum("bhd,bhd->bh", q, n_new)
+        num, den = products.contracted(num, den)
         y = (num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None])[:, None]
         cache.update(conv=conv, C=C_new, n=n_new, m=m_new)
-    y = y.reshape(b, L, nh * dh).to(u.dtype)
+    y = products.slice_dk(y.reshape(b, L, nh * dh).to(u.dtype))
     y = products.wide_norm(y, p.out_norm, cfg.rms_eps, cfg.d_inner) * silu(gate)
     return products.rows(y, p.down), cache
 
@@ -475,7 +492,14 @@ def slstm_apply(
     them, ``r[:, heads]``, the ``out_norm`` slice; the loop runs on those
     heads alone. The normed output is gathered over the channels
     (``products.gather``) for the column ``ffn_up`` and the row
-    ``ffn_down``. The head count is ``r``'s."""
+    ``ffn_down``. The head count is ``r``'s. The partitioned decode
+    gives this rank's heads as in training (the cache split by head), or
+    ``wx`` and ``r`` whole with a cache split along hd: the ranks'
+    ``c``/``n``/``h`` slices are gathered (``products.whole_dk``: the
+    recurrent product reads every hd of a head), the cell runs whole
+    (``m`` is whole), and each rank keeps its slices of the state and its
+    channels of the output (``products.slice_dk``) for the ``out_norm``
+    slice."""
     nh, hd = p.r.shape[1], cfg.d_model // cfg.n_heads
     gx = products.columns(u, (p.wx,))[0]
     b, L = gx.shape[:2]
@@ -491,10 +515,12 @@ def slstm_apply(
             hs.append(carry[2])
         y = torch.stack(hs, dim=1).reshape(b, L, nh * hd)
     else:
-        c, n, h, m = _slstm_cell((cache["c"], cache["n"], cache["h"], cache["m"]), gx[:, 0], r)
+        c, n, h = products.whole_dk(cache["c"], cache["n"], cache["h"])
+        c, n, h, m = _slstm_cell((c, n, h, cache["m"]), gx[:, 0], r)
         y = h.reshape(b, 1, nh * hd)
-        cache.update(c=c, n=n, h=h, m=m)
-    y = products.gather(products.wide_norm(y.to(u.dtype), p.out_norm, cfg.rms_eps, cfg.d_model))
+        cache.update(c=products.slice_dk(c), n=products.slice_dk(n), h=products.slice_dk(h), m=m)
+    y = products.slice_dk(y.to(u.dtype))
+    y = products.gather(products.wide_norm(y, p.out_norm, cfg.rms_eps, cfg.d_model))
     return products.rows(gelu(p.ffn_up(y)), p.ffn_down), cache
 
 

@@ -91,6 +91,23 @@ explicit local tensors with explicit collectives:
   sequence and keeps this rank's shard (a per-token frontend or head
   computes its shard alone). The expert-parallel MoE (``ep_shardmap``)
   takes this rank's tokens as they are, with this rank's experts.
+- **The sequence split with no tensor parallelism** (``fsdp_only``, where
+  ``batch_specs`` puts the sequence on "model" because the rows do not
+  divide over the whole dp pool; ``Partition``'s sequence dim, ``seq_dim``
+  of the batch): the residual is this rank's sequence shard and every
+  weight is gathered per unit. Attention and MLA run context parallel
+  (mode "context", ``_Context``): q on the shard, k and v (MLA: the latent
+  and the rope key, 576 values a token against 4,096 of deepseek's
+  up-projected keys and values, so gathered before ``kv_up``, which every
+  rank then applies to the whole sequence) all-gathered over the sequence
+  group, their grads reduce-scattered in f32 and rounded once; the flash
+  kernel runs with the model's mask, ``q_offset`` the shard's start and
+  every key. The MLP and the MoE run per token on the shard (mode
+  "tokens"); the MoE counts capacity, slots and aux over the global batch
+  with each row's shard a run of its own in the global row-major order
+  (``_GlobalBatch`` with ``seq``). Mamba-2, mLSTM, sLSTM, the vision
+  projector and the head run whole (the sequence gathered, the shard
+  kept).
 
 Gradient convention: every rank back-propagates its own copy of its dp
 group's loss, and each collective's backward is its transpose
@@ -128,7 +145,21 @@ decode cache by ``cache_specs``), without autograd:
   rank's channels and their outputs are gathered. The MoE routes every
   token droplessly on every rank, runs this rank's experts, and sums the
   ranks' routed outputs over "model" in f32; experts that do not divide
-  run whole (gathered over "data" where FSDP'd). The greedy token of
+  run whole (gathered over "data" where FSDP'd). mLSTM and sLSTM follow
+  their cache (``_xlstm_decode``): by head (mode "tp": this rank's heads
+  of every state, as in training, the cell input and conv output gathered
+  over the channels, the norms' sums and the row products reduced), or
+  along dk where the heads do not divide (mode "dk": every head's dk slice
+  of the mLSTM's q/k, C and n, its partial q . C and q . n all-reduced in
+  f32 before the stabiliser's max, m whole; the sLSTM's c/n/h slices
+  gathered for the recurrent product and the cell run whole). Under
+  ``fsdp_only`` there is no tp group: each rank computes its rows (every
+  row, where they do not divide over the pool) at full width with the
+  weights gathered per unit (a vocabulary matrix split along d stays so:
+  each rank looks its tokens up and sums the logits' partial products on
+  its slice, ``vocab_d``), writes the new entry where its shard of the
+  cache's sequence (split over the dp dims) holds ``pos``, and merges the
+  shards' partials by log-sum-exp. The greedy token of
   vocab-sharded logits is each rank's largest logit and its first index,
   gathered, the largest taken and a tie going to the lowest index, as
   ``jnp.argmax`` does.
@@ -151,7 +182,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import merge_lse
-from repro_torch.models.layers import DTYPE, dense, gelu, mha, normed, rms_norm
+from repro_torch.models.layers import DTYPE, Products, dense, gelu, mha, normed, rms_norm
 from repro_torch.models.model import (Block, Mamba2Block, MLSTMBlock, SLSTMBlock, cross_entropy,
                                       n_units)
 from repro_torch.models.moe import Batch
@@ -356,7 +387,7 @@ class _Scale(torch.autograd.Function):
         return g * w, _sum_(part, ctx.group).to(w.dtype), None
 
 
-class _TensorParallel:
+class _TensorParallel(Products):
     """``layers.Products`` over the tp group: the columns gather this
     rank's sequence shard and compute its heads / features; the row product
     reduce-scatters its partial sums into this rank's shard."""
@@ -412,6 +443,35 @@ class _TensorParallel:
                                  torch.promote_types(y.dtype, mod.w.dtype)).transpose(0, 1)
 
 
+class _Context(Products):
+    """``layers.Products`` of context parallelism: attention or MLA on the
+    sequence split with no tensor parallelism (``fsdp_only``). The
+    projections run per token on this rank's sequence shard of the
+    ``n`` ranks' (``group``); the keys and values (MLA: the latent and the
+    shared rope key, up-projected after) are all-gathered over the group,
+    their grads reduce-scattered in f32 and rounded once; the queries of
+    this rank's shard, at its global positions, attend every key under
+    the model's own mask (causal, or none for an encoder) with
+    ``q_offset`` the shard's first position."""
+
+    def __init__(self, group, n: int, rank: int) -> None:
+        self.group, self.n, self.rank = group, n, rank
+
+    def positions(self, positions: torch.Tensor, S: int) -> torch.Tensor:
+        return positions.narrow(0, self.rank * S, S)
+
+    def keys(self, *ts: torch.Tensor) -> tuple:
+        b, s = ts[0].shape[:2]  # one all-gather for all of them, sequence-major per rank
+        flat = [t.reshape(b, s, -1) for t in ts]
+        every = _GatherSeq.apply(torch.cat(flat, dim=-1), 1, self.group, self.n)
+        return tuple(part.reshape(b, self.n * s, *t.shape[2:])
+                     for part, t in zip(every.split([f.shape[-1] for f in flat], dim=-1), ts))
+
+    def attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                  sm_scale: Optional[float] = None) -> torch.Tensor:
+        return mha(q, k, v, causal=causal, q_offset=self.rank * q.shape[1], sm_scale=sm_scale)
+
+
 class _Sum(torch.autograd.Function):
     """All-reduce sum (in f32); the backward all-reduces too."""
 
@@ -431,32 +491,42 @@ class CacheLayout:
     position of this rank's sequence shard, ``seq`` the (group, size) of
     each mesh dim that splits the sequence (major to minor), ``heads``
     whether "model" splits its kv heads, ``kind`` its name in a dry-run
-    artifact."""
+    artifact ("whole": no mesh dim splits it)."""
 
     start: int = 0
     seq: Tuple[Tuple[object, int], ...] = ()
     heads: bool = False
-    kind: str = "replica"
+    kind: str = "whole"
 
     @property
     def parts(self) -> int:
         return math.prod(n for _, n in self.seq)
 
 
-class _Decode:
+class _Decode(Products):
     """``layers.Products`` of the partitioned decode step, for one branch.
     The input is this rank's rows (b, S, d), the same on every rank of the
     tp group. ``split``: the branch's weights keep their split over it
     (columns this rank's output features, rows its input features);
     ``gather_cols``: the column products' outputs are gathered whole
     (attention and MLA: the new token's q/k/v, or q and the latent);
-    ``layout``: {cache leaf: ``CacheLayout``} of the branch's layer."""
+    ``layout``: {cache leaf: ``CacheLayout``} of the branch's layer;
+    ``picks``: {column module: the ranges of its whole output this branch
+    computes with} of modules kept at their split at rest whose compute
+    slice is another (the xLSTM's): their outputs are gathered and
+    narrowed, a token's few values in place of the weight; ``dk``: an
+    xLSTM whose recurrent cache is split along each head's dk (sLSTM: hd),
+    whose contractions over it are summed (``contracted``) and whose
+    states are gathered (``whole_dk``) and cut back (``slice_dk``)."""
 
     def __init__(self, group, n: int, rank: int, split: bool, gather_cols: bool = False,
-                 layout: Optional[Dict[str, CacheLayout]] = None) -> None:
+                 layout: Optional[Dict[str, CacheLayout]] = None, picks=None,
+                 dk: bool = False) -> None:
         self.group, self.n, self.rank = group, n, rank
         self.split, self.gather_cols = split and n > 1, gather_cols
+        self.dk = dk and self.split
         self.layout = layout or {}
+        self.picks = picks or {}
         self.cols = None  # the columns ``attend``'s output holds: ((c0, c1), of width)
 
     @staticmethod
@@ -496,8 +566,32 @@ class _Decode:
     def routed(self, y: torch.Tensor) -> torch.Tensor:
         return self._reduce(y, y.dtype) if self.split else y
 
+    def contracted(self, *xs: torch.Tensor) -> tuple:
+        """The ranks' partial sums over their slices of dk, summed in f32
+        (one all-reduce for all of ``xs``)."""
+        if not self.dk:
+            return xs
+        flat = self._reduce(torch.cat([x.reshape(-1) for x in xs]), xs[0].dtype)
+        return tuple(t.view_as(x) for t, x in zip(flat.split([x.numel() for x in xs]), xs))
+
+    def whole_dk(self, *xs: torch.Tensor) -> tuple:
+        """Every rank's slices of the states' last dim (one all-gather)."""
+        if not self.dk:
+            return xs
+        return tuple(self.gather(torch.stack(xs, dim=1)).unbind(1))
+
+    def slice_dk(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.dk:
+            return x
+        w = x.shape[-1] // self.n
+        return x.narrow(-1, self.rank * w, w)
+
     def columns(self, x: torch.Tensor, mods) -> list:
         outs = [dense(x, m.w, m.b) for m in mods]
+        for i, m in enumerate(mods):
+            if self.split and m in self.picks:  # every rank's columns, then this call's ranges
+                every = _gather_dim(outs[i], outs[i].dim() - 1, self.group, self.n)
+                outs[i] = torch.cat([every[..., a:b] for a, b in self.picks[m]], dim=-1)
         if not (self.split and self.gather_cols):
             return outs
         # one all-gather for all the products: (n, ..., every product's columns)
@@ -566,14 +660,27 @@ class _Decode:
 class _GlobalBatch(Batch):
     """``moe.Batch`` of the dp groups: the rows are split over mesh dims
     ``dims`` (major to minor), this rank's group at ``index``; the counts and
-    sums are all-reduced over each of those dims' groups in turn."""
+    sums are all-reduced over each of those dims' groups in turn. With
+    ``seq`` (the mesh dim that splits the sequence, where the MoE runs on
+    this rank's shard) and ``rows`` (this rank's rows), each of the rows
+    is a run of its own: row j's shard is run ``(g rows + j) n + k`` of
+    the global row-major order, g the row group and k this rank's place
+    among the n ranks of ``seq``."""
 
-    def __init__(self, pgs, sizes, coord, dims) -> None:
+    def __init__(self, pgs, sizes, coord, dims, seq: Optional[int] = None,
+                 rows: int = 1) -> None:
         self.pgs = [pgs[i] for i in dims]
         self.groups = math.prod(sizes[i] for i in dims)
-        self.index = 0
+        g = 0
         for i in dims:
-            self.index = self.index * sizes[i] + coord[i]
+            g = g * sizes[i] + coord[i]
+        self.index = (g,)
+        if seq is not None:
+            n, k = sizes[seq], coord[seq]
+            self.pgs.append(pgs[seq])
+            self.groups *= n
+            self.pieces = rows
+            self.index = tuple((g * rows + j) * n + k for j in range(rows))
 
     def sum_counts(self, x: torch.Tensor) -> torch.Tensor:
         for pg in self.pgs:
@@ -707,6 +814,17 @@ def dp_rows(batch: Dict, mesh, rules) -> int:
                                    and names[i] != rules.tp_axis)
 
 
+def seq_dim(batch: Dict) -> Optional[int]:
+    """The mesh dim that splits the sequence of ``batch`` (DTensors by
+    ``batch_specs``; under ``fsdp_only`` "model" where the rows do not
+    divide over the whole dp pool), or None."""
+    from torch.distributed.tensor import Shard
+
+    v = next(iter(batch.values()))
+    return next((i for i, pl in enumerate(v.placements) if isinstance(pl, Shard) and pl.dim == 1
+                 and v.device_mesh.size(i) > 1), None)
+
+
 def _sub(weights: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     n = len(prefix)
     return {k[n:]: v for k, v in weights.items() if k.startswith(prefix)}
@@ -717,18 +835,20 @@ class Partition:
     parameters' placements (``state_specs``) and the rules' tp axis:
     which branches are TP'd, each leaf's gathers and reductions, the
     groups. ``loss(model, shards, batch)`` is this rank's loss of its dp
-    group's rows (the same on the ranks of its tp group), computed from
+    group's rows (the same on the ranks that split its sequence), computed from
     its parameter slices ``shards`` and its block of the batch. ``rows``,
     the dp group's rows in a (micro)batch, decides where heads x rows
-    fits (None: wherever the heads allow it). ``decode``: the plan of the
+    fits (None: wherever the heads allow it). ``seq``: under
+    ``fsdp_only``, the mesh dim that splits the sequence (``seq_dim`` of
+    the batch; the tp dim otherwise). ``decode``: the plan of the
     partitioned decode step (``decode``), whose residual is one token
     replicated over "model": attention, MLA, the MLP, Mamba-2 and the
     expert banks in mode "tp" where their weights keep a split over it,
-    else "whole"; xLSTM has none. ``prefill`` runs the train plan's
-    forward."""
+    else "whole"; mLSTM and sLSTM by their cache's split
+    (``_xlstm_decode``). ``prefill`` runs the train plan's forward."""
 
     def __init__(self, cfg: ModelConfig, model, mesh, rules, rows: Optional[int] = None,
-                 decode: bool = False) -> None:
+                 decode: bool = False, seq: Optional[int] = None) -> None:
         from torch.distributed.tensor import Shard
 
         self.cfg = cfg
@@ -736,6 +856,7 @@ class Partition:
         self.sizes = tuple(mesh.size(i) for i in range(mesh.ndim))
         self.pgs = tuple(mesh.get_group(i) if n > 1 else None for i, n in enumerate(self.sizes))
         self.world = math.prod(self.sizes)
+        self.coord = tuple(mesh.get_coordinate())
         tp_dim = None
         if not rules.fsdp_only and rules.tp_axis in names:
             tp_dim = names.index(rules.tp_axis)
@@ -743,17 +864,25 @@ class Partition:
             tp_dim = None
         self.tp_dim = tp_dim
         self.tp = self.sizes[tp_dim] if tp_dim is not None else 1
-        self.tp_rank = mesh.get_coordinate()[tp_dim] if tp_dim is not None else 0
+        self.tp_rank = self.coord[tp_dim] if tp_dim is not None else 0
         self.tp_pg = self.pgs[tp_dim] if tp_dim is not None else None
         self.products = _TensorParallel(self.tp_pg, self.tp, self.tp_rank)
+        # the ranks that split the sequence: the tp group, or under
+        # ``fsdp_only`` the dim the batch puts the sequence on (``seq_dim``)
+        sp_dim = seq if rules.fsdp_only else tp_dim
+        self.sp_dim = sp_dim if sp_dim is not None and self.sizes[sp_dim] > 1 else None
+        self.sp = self.sizes[self.sp_dim] if self.sp_dim is not None else 1
+        self.sp_rank = self.coord[self.sp_dim] if self.sp_dim is not None else 0
+        self.sp_pg = self.pgs[self.sp_dim] if self.sp_dim is not None else None
+        self.context = _Context(self.sp_pg, self.sp, self.sp_rank)
         self.mesh_pgs = [pg for pg in self.pgs if pg is not None]
-        self.coord = tuple(mesh.get_coordinate())
         # the MoE's global batch: the rows split over the other dims (the
         # batch's placements refine it, ``local_batch``)
         self.over = _GlobalBatch(self.pgs, self.sizes, self.coord,
                                  [i for i, n in enumerate(self.sizes) if n > 1 and i != tp_dim])
         self.ep = bool(self.tp > 1 and hints_mod._STATE.get("ep_shardmap")) and not decode
         self.layouts: list = []  # the decode cache's {leaf: CacheLayout} by layer (``local_cache``)
+        self.picks: Dict = {}  # the decode's column modules whose outputs are gathered (``_Decode``)
 
         params = dict(model.named_parameters())
         place = {k: tuple(p.placements) for k, p in params.items()}
@@ -762,7 +891,9 @@ class Partition:
             pl = place[name][tp_dim] if tp_dim is not None else None
             return isinstance(pl, Shard) and pl.dim == dim % params[name].dim()
 
-        # the modes: "local" (tp == 1), "tp", "rows", "ep", "vocab", "whole"
+        # the modes: "local" (no split), "tp", "rows", "ep", "vocab", "whole"; the
+        # sequence split alone: "context" (attention, MLA), "tokens" (MLP, MoE);
+        # the decode's xLSTM: "tp" (by head), "dk"
         self.modes: Dict[str, str] = {}
         keep: set = set()  # leaves whose tp split the compute keeps
         cols: Dict[str, Tuple[int, Tuple[Tuple[int, int], ...]]] = {}
@@ -781,18 +912,37 @@ class Partition:
             elif ranges != ((0, size),):
                 cols[name] = (dim, ranges)
 
+        def pick(mod: str, ranges) -> None:
+            """The decode's column module ``mod`` computes with the
+            ``ranges`` of its output: its weight (and bias) kept at their
+            column split at rest, the outputs gathered and narrowed
+            (``_Decode.columns``); where that split is the slice or there is
+            none, ``take``'s."""
+            names = [f"{mod}.{leaf}" for leaf in ("w", "b") if f"{mod}.{leaf}" in params]
+            size, ranges = params[names[0]].shape[-1], tuple(ranges)
+            mine = ((self.tp_rank * size // self.tp, (self.tp_rank + 1) * size // self.tp),)
+            if ranges != mine and all(on_tp(name, -1) for name in names):
+                keep.update(names)
+                self.picks[model.get_submodule(mod)] = ranges
+            else:
+                for name in names:
+                    take(name, -1, ranges, 1)
+
         blocks = [(f"prefix.{j}", b) for j, b in enumerate(model.prefix)]
         blocks += [(f"blocks.{j}", b) for j, b in enumerate(model.blocks)]
+        alone = {"attn": "context", "ffn": "tokens", "moe": "tokens", "core": "whole"}
         for pre, blk in blocks:
             for part in ("attn", "ffn", "moe", "core"):
                 if getattr(blk, part, None) is not None:
-                    self.modes[f"{pre}.{part}"] = "local" if self.tp == 1 else "whole"
+                    self.modes[f"{pre}.{part}"] = (
+                        "whole" if self.tp > 1 else alone[part] if self.sp > 1 else "local")
             if self.tp > 1 and isinstance(blk, Mamba2Block):
                 self._mamba2(pre, params, on_tp, keep, cols, groups=not decode)
             if self.tp > 1 and isinstance(blk, (MLSTMBlock, SLSTMBlock)):
                 if decode:
-                    raise ValueError(f"{cfg.name}: the xLSTM decode is not partitioned")
-                self._xlstm(pre, blk, mesh, take)
+                    self._xlstm_decode(pre, blk, take, pick)
+                else:
+                    self._xlstm(pre, blk, mesh, take)
             if self.tp == 1 or not isinstance(blk, Block):
                 continue
             if decode:
@@ -850,10 +1000,10 @@ class Partition:
                 keep.update(k for k in params if k.startswith(f"{pre}.moe.")
                             and not k.startswith(f"{pre}.moe.router"))
         embed = "embed" in params
-        self.modes["embed"] = "local" if self.tp == 1 else (
+        self.modes["embed"] = "local" if self.sp == 1 else (
             "vocab" if embed and on_tp("embed", 0) else "whole")
         head = "embed" if cfg.tie_embeddings else "lm_head.w"
-        self.modes["head"] = "local" if self.tp == 1 else (
+        self.modes["head"] = "local" if self.sp == 1 else (
             "vocab" if on_tp(head, 0 if cfg.tie_embeddings else -1) else "whole")
         for name, mode in (("embed", self.modes["embed"]), (head, self.modes["head"])):
             if mode == "vocab" and name in params:
@@ -891,6 +1041,19 @@ class Partition:
         self.units = [group([k for k in params if k.startswith("blocks.")
                              and i * P <= int(k.split(".")[1]) < (i + 1) * P])
                       for i in range(n_units(cfg))]
+        # the decode's vocabulary matrices split along d (FSDP, no vocab
+        # split): {leaf: the mesh dims it is split over, major to minor};
+        # a step looks its tokens up and computes its logits' partial sums
+        # on this rank's d slice instead of gathering the matrix
+        self.vocab_d: Dict[str, Tuple[int, ...]] = {}
+        for name, d_dim, mode in (("embed", 1, self.modes["embed"]),
+                                  ("lm_head.w", 0, self.modes["head"])):
+            lf = next((x for x in self.root.leaves if x.name == name), None)
+            if decode and mode != "vocab" and lf is not None and lf.gather and lf.cols is None \
+                    and all(d == d_dim % params[name].dim() for _, d in lf.gather):
+                self.vocab_d[name] = tuple(sorted(i for i, _ in lf.gather))
+        self.root_decode = Group(tuple(x for x in self.root.leaves if x.name not in self.vocab_d),
+                                 self.pgs, self.sizes, scale)
 
     def _decode_attention(self, pre: str, params, on_tp, keep: set) -> None:
         """The decode plan's mode "tp" for the attention (MLA) of block
@@ -902,6 +1065,62 @@ class Partition:
             self.modes[f"{pre}.attn"] = "tp"
             keep.update(k for k in params for w in (*mods, "wo")
                         if k.startswith(f"{pre}.attn.{w}."))
+
+    def _xlstm_decode(self, pre: str, blk, take, pick) -> None:
+        """The decode plan of the mLSTM or sLSTM core of block ``pre``, by
+        its cache's split (``cache_specs``): mode "tp" where the heads
+        divide over "model" (the cache by head: this rank's heads of every
+        leaf, as in training), "dk" where each head's dk (sLSTM: hd) does
+        (the cache along it), else "whole". mLSTM: ``up``'s channels of this
+        rank's heads in each half, the conv's taps, ``out_norm`` and
+        ``down`` rows of them; by head ``wq``/``wk``/``wv`` and the gates of
+        its heads; along dk every head's dk slice of ``wq``/``wk``, the rest
+        whole. sLSTM: ``ffn_up`` columns, ``ffn_down`` rows and ``out_norm``
+        of this rank's channels; by head ``wx``'s z/i/f/o columns and ``r``
+        of its heads; along hd those whole. The column products whose slice is not their split
+        at rest (``up``, ``wx``; along dk ``wq``/``wk``/``wv``) gather their
+        outputs (``pick``)."""
+        cfg, c, n, k = self.cfg, f"{pre}.core.", self.tp, self.tp_rank
+        nh = cfg.n_heads
+        if isinstance(blk, MLSTMBlock):
+            di = cfg.d_inner
+            dh = di // nh
+            if nh % n and dh % n:
+                if di % n == 0:  # the conv window split by channel, nothing else
+                    raise ValueError(f"{cfg.name}: {nh} heads of {dh} on {n} ranks")
+                return
+            ch = (k * di // n, (k + 1) * di // n)  # this rank's heads' channels
+            pick(c + "up", (ch, (di + ch[0], di + ch[1])))
+            take(c + "conv_w", -1, (ch,), 1)
+            take(c + "conv_b", 0, (ch,), 1)
+            take(c + "down.w", 0, (ch,), 1)
+            take(c + "out_norm", 0, (ch,), 1)
+            if nh % n == 0:
+                for w in ("wq.w", "wk.w", "wv.w"):
+                    take(c + w, -1, (ch,), 1)
+                for w in ("w_i.w", "w_i.b", "w_f.w", "w_f.b"):
+                    take(c + w, -1, ((k * nh // n, (k + 1) * nh // n),), 1)
+            else:
+                sl = (k * dh // n, (k + 1) * dh // n)
+                for w in ("wq", "wk"):
+                    pick(c + w, tuple((h * dh + sl[0], h * dh + sl[1]) for h in range(nh)))
+                pick(c + "wv", ((0, di),))
+        else:
+            d, ffw = cfg.d_model, blk.core.ffn_up.w.shape[-1]
+            hd = d // nh
+            if nh % n and hd % n:
+                return
+            ch = (k * d // n, (k + 1) * d // n)
+            take(c + "out_norm", 0, (ch,), 1)
+            if nh % n == 0:
+                pick(c + "wx", tuple((g * d + ch[0], g * d + ch[1]) for g in range(4)))
+                take(c + "r", 1, ((k * nh // n, (k + 1) * nh // n),), 1)
+            else:
+                pick(c + "wx", ((0, 4 * d),))
+            f = ((k * ffw // n, (k + 1) * ffw // n),)
+            take(c + "ffn_up.w", -1, f, 1)
+            take(c + "ffn_down.w", 0, f, 1)
+        self.modes[f"{pre}.core"] = "tp" if nh % n == 0 else "dk"
 
     def _mamba2(self, pre: str, params, on_tp, keep: set, cols: dict, groups: bool = True) -> None:
         """Mode "tp" for the Mamba-2 core of block ``pre`` where its SSD heads
@@ -1009,35 +1228,37 @@ class Partition:
     # -------------------------------------------------------------- #
     def local_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """This rank's block of each batch DTensor: its dp group's rows and,
-        where tp > 1, its tp rank's sequence shard (dim 1)."""
+        where the sequence is split, its sequence shard (dim 1)."""
         from torch.distributed.tensor import Replicate, Shard
 
         out = {}
         for k, v in batch.items():
             want = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
                     for pl in v.placements]
-            if self.tp_dim is not None:
-                want[self.tp_dim] = Shard(1)
+            if self.sp_dim is not None:
+                want[self.sp_dim] = Shard(1)
             out[k] = (v if tuple(want) == tuple(v.placements)
                       else v.redistribute(v.device_mesh, want)).to_local()
             rows = [i for i, pl in enumerate(want)
-                    if i != self.tp_dim and isinstance(pl, Shard) and self.sizes[i] > 1]
+                    if i != self.sp_dim and isinstance(pl, Shard) and self.sizes[i] > 1]
         if batch:  # the dims that split the rows (not all of them where the batch does not divide)
-            self.over = _GlobalBatch(self.pgs, self.sizes, self.coord, rows)
+            # a MoE on this rank's sequence shard (no tp) counts each row's shard as a run
+            seq = self.sp_dim if self.tp == 1 else None
+            self.over = _GlobalBatch(self.pgs, self.sizes, self.coord, rows, seq,
+                                     next(iter(out.values())).shape[0])
         return out
 
     def _gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return _GatherSeq.apply(x, dim, self.tp_pg, self.tp)
-
+        return _GatherSeq.apply(x, dim, self.sp_pg, self.sp)
 
     def _shard(self, x: torch.Tensor) -> torch.Tensor:
-        s = x.shape[1] // self.tp
-        return x.narrow(1, self.tp_rank * s, s)
+        s = x.shape[1] // self.sp
+        return x.narrow(1, self.sp_rank * s, s)
 
     def _ids(self, x: torch.Tensor) -> torch.Tensor:
         """The whole sequence of this rank's rows of a batch tensor (an
         input: no autograd)."""
-        return _gather_dim(x, 1, self.tp_pg, self.tp) if self.tp > 1 else x
+        return _gather_dim(x, 1, self.sp_pg, self.sp) if self.sp > 1 else x
 
     def split(self, pre: str, w: Dict[str, torch.Tensor]):
         """The ``split`` of block ``pre`` (``models.model.Block``): each
@@ -1049,9 +1270,11 @@ class Partition:
             mode = self.modes[f"{pre}.{name}"]
             # a MoE counts over the dp groups' global batch
             kw = {"over": self.over} if name == "moe" and self.over.groups > 1 else {}
-            if mode == "local":
+            if mode in ("local", "tokens"):  # per token, on this rank's shard
                 return fn(rms_norm(h, ln, eps), **kw)
-            h = self.products.norm(h, ln, eps)
+            if mode == "context":  # this rank's queries over every rank's keys
+                return fn(rms_norm(h, ln, eps), products=self.context)
+            h = self.products.norm(h, ln, eps) if self.tp > 1 else rms_norm(h, ln, eps)
             if mode == "tp":  # this rank's heads / features / experts, partial sums reduced
                 return fn(h, products=self.products, **kw)
             if mode == "ep":  # this rank's tokens, with this rank's experts
@@ -1099,10 +1322,10 @@ class Partition:
 
     def ce(self, w, x, x0: int, batch) -> torch.Tensor:
         """The cross-entropy of ``models.model.loss_fn`` from this rank's
-        sequence shard of the final residual; the same on every rank of its
-        tp group."""
+        sequence shard of the final residual; the same on every rank that
+        splits its rows' sequence."""
         cfg, mode = self.cfg, self.modes["head"]
-        h = (rms_norm if mode == "local" else self.products.norm)(x, w["final_norm"], cfg.rms_eps)
+        h = (rms_norm if self.tp == 1 else self.products.norm)(x, w["final_norm"], cfg.rms_eps)
         head = (lambda a: a @ w["embed"].T) if cfg.tie_embeddings else (
             lambda a: dense(a, w["lm_head.w"]))
         per_position = cfg.frontend == "audio_stub" or cfg.encoder_only
@@ -1119,15 +1342,15 @@ class Partition:
         # the whole vocabulary at this rank's positions
         lg = head(h).float()
         s = h.shape[1]
-        pos = torch.arange(self.tp_rank * s, (self.tp_rank + 1) * s, device=h.device)
+        pos = torch.arange(self.sp_rank * s, (self.sp_rank + 1) * s, device=h.device)
         if per_position:
             lab, valid = labels[:, pos], pos >= 0
         else:  # position p predicts text token p - x0 + 1
             lab = labels[:, (pos - x0).clamp(0, labels.shape[1] - 1)]
-            valid = (pos >= x0) & (pos < s * self.tp - 1)
+            valid = (pos >= x0) & (pos < s * self.sp - 1)
         lse = torch.logsumexp(lg, dim=-1)
         tgt = torch.gather(lg, -1, lab[..., None])[..., 0]
-        return _Sum.apply(torch.where(valid, lse - tgt, 0.0).sum(), self.tp_pg) / labels.numel()
+        return _Sum.apply(torch.where(valid, lse - tgt, 0.0).sum(), self.sp_pg) / labels.numel()
 
     def _vocab_ce(self, lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy of vocab-sharded f32 logits (b, n, V / tp)."""
@@ -1156,7 +1379,7 @@ class Partition:
         cfg = self.cfg
         root = gather_group(self.root, shards)
         x, x0 = self.embed(root, batch)
-        positions = torch.arange(x.shape[1] * self.tp, device=x.device)
+        positions = torch.arange(x.shape[1] * self.sp, device=x.device)
         aux = 0.0
         for j, blk in enumerate(model.prefix):  # no remat, as in the reference
             x, a = self._block(blk, f"prefix.{j}", root, x, positions, False)
@@ -1186,8 +1409,19 @@ class Partition:
     def _last_logits(self, w, x: torch.Tensor) -> torch.Tensor:
         """``models.model.lm_logits`` of one position ``x`` (b, 1, d), the
         same on every rank of the tp group: this rank's vocab shard where
-        the head is vocab-parallel, else the whole vocabulary."""
+        the head is vocab-parallel, else the whole vocabulary (in decode,
+        from this rank's d slice of a head split along d, ``vocab_d``)."""
         h = rms_norm(x, w["final_norm"], self.cfg.rms_eps)
+        name = "embed" if self.cfg.tie_embeddings else "lm_head.w"
+        if name in self.vocab_d:  # this rank's d slice: partial sums in f32, reduced
+            wt = w[name].T if self.cfg.tie_embeddings else w[name]
+            idx = 0
+            for i in self.vocab_d[name]:
+                idx = idx * self.sizes[i] + self.coord[i]
+            part = h[..., idx * wt.shape[0]:(idx + 1) * wt.shape[0]].float() @ wt.float()
+            for i in self.vocab_d[name]:
+                _sum_(part, self.pgs[i])
+            return part.to(torch.promote_types(h.dtype, wt.dtype))
         return h @ w["embed"].T if self.cfg.tie_embeddings else dense(h, w["lm_head.w"])
 
     @torch.no_grad()
@@ -1199,7 +1433,7 @@ class Partition:
         cfg = self.cfg
         root = gather_group(self.root, shards)
         x, _ = self.embed(root, batch)
-        positions = torch.arange(x.shape[1] * self.tp, device=x.device)
+        positions = torch.arange(x.shape[1] * self.sp, device=x.device)
         for j, blk in enumerate(model.prefix):
             x, _ = self._block(blk, f"prefix.{j}", root, x, positions, False)
         P = len(cfg.block_pattern)
@@ -1209,8 +1443,8 @@ class Partition:
                 x, _ = self._block(model.blocks[j], f"blocks.{j}", w, x, positions, False)
             del w
         last = x[:, -1:]
-        if self.tp > 1:  # the last position lies on the last "model" rank's shard
-            last = _gather_dim(last.contiguous(), 1, self.tp_pg, self.tp)[:, -1:]
+        if self.sp > 1:  # the last position lies on the last sequence rank's shard
+            last = _gather_dim(last.contiguous(), 1, self.sp_pg, self.sp)[:, -1:]
         return self._last_logits(root, last)[:, 0]
 
     def local_cache(self, cache: list) -> list:
@@ -1239,10 +1473,10 @@ class Partition:
                                                 any(i != self.tp_dim for i in seq))) if there]
                     lays[name] = CacheLayout(idx * local[name].shape[1],
                                              tuple((self.pgs[i], self.sizes[i]) for i in seq),
-                                             heads, ", ".join(kind) or "replica")
-                else:  # recurrent states: by head, conv windows by channel
-                    lays[name] = CacheLayout(kind={None: "replica", 1: "heads"}.get(
-                        tp_dim, "channels"))
+                                             heads, ", ".join(kind) or "whole")
+                else:  # recurrent states: by head or along dk (hd), conv windows by channel
+                    split = "dk" if name in ("C", "n", "c", "h") else "channels"
+                    lays[name] = CacheLayout(kind={None: "whole", 1: "heads"}.get(tp_dim, split))
             self.layouts.append(lays)
             out.append(local)
         return out
@@ -1266,13 +1500,19 @@ class Partition:
             if name == "attn":
                 return fn(a, products=_Decode(self.tp_pg, self.tp, self.tp_rank, mode == "tp",
                                               True, self.layouts[layer]))
-            if mode == "tp":
-                return fn(a, products=_Decode(self.tp_pg, self.tp, self.tp_rank, True))
+            if mode in ("tp", "dk"):
+                return fn(a, products=_Decode(self.tp_pg, self.tp, self.tp_rank, True,
+                                              picks=self.picks, dk=mode == "dk"))
             return fn(a)
 
         return run
 
     def _embed_tokens(self, w, tokens: torch.Tensor) -> torch.Tensor:
+        if "embed" in self.vocab_d:  # this rank's d slice of each token's row, gathered
+            tok = w["embed"][tokens]
+            for i in reversed(self.vocab_d["embed"]):  # minor dims first, as the leaf's gather
+                tok = _gather_dim(tok, tok.dim() - 1, self.pgs[i], self.sizes[i])
+            return tok
         if self.modes["embed"] != "vocab":
             return w["embed"][tokens]
         v = w["embed"].shape[0]  # this rank's vocab rows; one rank's term nonzero: exact
@@ -1290,7 +1530,8 @@ class Partition:
         ``tokens`` this rank's rows (b, 1), ``pos`` the tokens already in
         the cache. Returns the new token's logits (``_last_logits``)."""
         cfg = self.cfg
-        root = gather_group(self.root, shards)
+        root = gather_group(self.root_decode, shards)
+        root.update({name: shards[name] for name in self.vocab_d})
         x = self._embed_tokens(root, tokens)
         positions = torch.arange(pos, pos + 1, device=x.device)
 

@@ -317,12 +317,29 @@ def test_serving_cells_are_partitioned_and_name_their_layout(cell, arch, kind, m
     ("qwen3-0.6b_smoke", "prefill", "fsdp_only"),
 ])
 def test_unpartitioned_serving_says_replica(tmp_path, arch, shape, rules):
-    """The xLSTM decode and ``fsdp_only`` serving keep the replica layout,
-    and their artifacts say so."""
+    """The xLSTM decode and ``fsdp_only`` serving, once replicas, trace the
+    partitioned step and say so: the xLSTM's mLSTM and sLSTM on their
+    heads with the cache by head (conv windows by channel); under
+    ``fsdp_only`` a batch of 2, which does not divide over the 4 ranks'
+    pool, puts the prompt's sequence over "model" (attention in mode
+    "context") and the cache's sequence over both dims."""
     from repro_torch.launch.specs import COMPUTE
     from repro_torch.sharding.specs import ShardingRules
 
-    art = dryrun.run_cell(arch, SHAPES[shape], False, out_dir=tmp_path, mesh_shape=(2, 2),
+    kind = SHAPES[shape]
+    if rules:
+        kind = ShapeConfig(kind.name, kind.seq_len, 2, kind.kind)
+    art = dryrun.run_cell(arch, kind, False, out_dir=tmp_path, mesh_shape=(2, 2),
                           rules=ShardingRules(fsdp_only=True) if rules else None)
-    assert art["partition"] == "replica" and art["compute"] == COMPUTE["replica"]
+    part = art["partition"]
+    assert isinstance(part, dict) and art["compute"] == COMPUTE[
+        shape + ("/fsdp_only" if rules else "")]
+    if not rules:
+        assert part["modes"] == {"tp": 6, "vocab": 2} and part["whole"] == []
+        assert part["cache"] == {"channels": 5, "heads": 19}
+    elif shape == "decode":
+        assert set(part["modes"]) == {"local"} and part["cache"] == {"sequence over dp": 4}
+    else:
+        assert part["modes"] == {"context": 2, "tokens": 2, "whole": 2}, part
+        assert part["whole"] == ["embed", "head"] and "cache" not in part
     assert not dist.is_initialized()

@@ -44,7 +44,10 @@ CASES = [(b, sq, skv, hq, hkv, d, causal, 0, None, dtype)
          for dtype in ("float32", "bfloat16")] + [
     # the serving decode shape: q at position kv_len-1 over a 512-slot cache
     (8, 1, 512, 16, 8, 128, False, kv - 1, kv, "bfloat16") for kv in (1, 37, 300, 512)
-] + [(2, 1024, 1024, 16, 8, 128, True, 0, None, "bfloat16")]  # causal prefill
+] + [(2, 1024, 1024, 16, 8, 128, True, 0, None, "bfloat16")] + [  # causal prefill
+    # context parallelism: one rank's half of qwen3-0.6b's 2048 positions
+    # against every key, q_offset its shard's start
+    (1, 1024, 2048, 16, 8, 128, True, start, None, "bfloat16") for start in (0, 1024)]
 
 
 @pytest.mark.gpu
@@ -320,3 +323,36 @@ def test_decode_lse_matches_plain_on_gpu(b, skv, hq, hkv, d, kv_len, bk, dtype):
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
     assert torch.equal(flash_attention_cuda(q, k, v, bq=1, bk=bk, **kw), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 1024])
+@pytest.mark.parametrize("hkv,d,dv", [(8, 128, 128), (16, 192, 128)], ids=["qwen3", "mla"])
+def test_context_shape_forward_and_backward_match_plain(start, hkv, d, dv):
+    """The context-parallel shapes (a 1024-query shard of 2048 positions,
+    causal, ``q_offset`` the shard's start; qwen3-0.6b's 16 q / 8 kv heads
+    of 128, deepseek-v2-lite's MLA at 16 heads of d 192 and dv 128) under
+    autograd: the kernel's forward and its plain-recompute backward against
+    ``attention_ref`` differentiated, bf16, at 3e-2 of each tensor's
+    largest entry."""
+    _need_gpu()
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device="cuda", dtype=torch.bfloat16).requires_grad_()
+        for shape in ((1, 1024, 16, d), (1, 2048, hkv, d), (1, 2048, hkv, dv)))
+    g = torch.from_numpy(rng.standard_normal((1, 1024, 16, dv), np.float32)).to(
+        device="cuda", dtype=torch.bfloat16)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=True, q_offset=start)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                         scale=1.0 / math.sqrt(d), q_offset=start).transpose(1, 2)
+    wgrads = torch.autograd.grad(want, (q, k, v), g)
+    for got_t, want_t in zip((out, *grads), (want, *wgrads)):
+        got_t, want_t = got_t.float(), want_t.float()
+        assert float((got_t - want_t).abs().max()) <= TOL["bfloat16"] * float(
+            want_t.abs().max()) + 1e-6
+    if start == 0:  # the first shard's queries read no key past the shard
+        assert float(grads[1][:, 1024:].abs().max()) == 0.0
