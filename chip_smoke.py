@@ -86,7 +86,8 @@ Phases (any failure raises and the exit code is non-zero):
      (host clock, card synchronised), programs first dispatched, device
      syncs and dispatches; (c) the mapping service on torch: 24 Poisson
      queries over 4 shapes through its HTTP front on 127.0.0.1 (p50/p99
-     ms), each answer equal to a numpy service's, a burst of 8 against
+     ms), each answer equal to a numpy service's, 120 cold queries of
+     distinct shapes on each in turns (cold p50/p99), a burst of 8 against
      queue cap 2 that must shed, and the breaker walk under injected
      jaxfail:0;jaxfail:1; the record goes to chiprun_out/search_engine.json
      (no kernel of the port runs in it: the kernels line is unchanged);
@@ -279,18 +280,23 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+
+import engine_ab  # noqa: E402  (the search engine's measurements)
 
 from repro_torch import codesign, kernels  # noqa: E402
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, register  # noqa: E402
 from repro_torch.core.architecture import H100_SXM, cloud_accelerator, h100_sm  # noqa: E402
-from repro_torch.core.cost import EvaluationEngine, TimeloopLikeModel  # noqa: E402
-from repro_torch.core.cost.analysis import get_context  # noqa: E402
-from repro_torch.core.genome_batch import random_genome_batch  # noqa: E402
-from repro_torch.core.mapspace import MapSpace  # noqa: E402
+from repro_torch.core.cost.analysis import (  # noqa: E402
+    get_context,
+    global_trace_count,
+    graph_count,
+    graph_pool_bytes,
+    reset_trace_registry,
+)
 from repro_torch.core.opstream import (  # noqa: E402
     RECONCILE_BAND,
     aggregate_stream_costs,
-    build_gemm,
     build_opstream,
     formula_model_flops,
     reconcile_model_flops,
@@ -4742,118 +4748,45 @@ def phase_whole_model(stamp, gen) -> dict:
 # ---------------------------------------------------------------------- #
 # search_engine: Union's search on the card (the engine's torch backend)
 # ---------------------------------------------------------------------- #
-# BERT-2's GEMM (benchmarks/workloads.py, dnn_layers(): n 256, nin 3072, non
-# 768, uint8) -- copied, that module imports the JAX package -- and the
-# prefill head of qwen3-0.6b (4096 tokens x 151936 x 1024, bf16), whose
-# exhaustive batches are large enough for the card to matter
-BERT2 = dict(M=256, N=768, K=3072, word_bytes=1)
-PREFILL_HEAD = dict(M=4096, N=151936, K=1024, word_bytes=2)
-# benchmarks/mappers_bench.py's matrix outside smoke mode, timeloop, EDP
-SEARCH_MAPPERS = [("random", {}), ("exhaustive", {"max_mappings": 3000}), ("genetic", {}),
-                  ("heuristic", {})]
-HEAD_CAP = 50_000
+# the top-level torch ops a replayed fused dispatch may issue: the copy of
+# the batch into the graph's input, the incumbent's fill, the copies out
+# (``.cpu()`` and ``.numpy()``); the program's body runs inside the graph
+DISPATCH_OPS = {"aten::copy_", "aten::fill_", "aten::to", "aten::_to_copy", "aten::detach",
+                "aten::resolve_conj", "aten::resolve_neg"}
 # warm timing rounds a (problem, mapper) cell, each backend once a round
 SEARCH_ROUNDS = 5
 # benchmarks/serve_bench.py's smoke service load: 24 Poisson arrivals at 25/s
 # over 4 GEMM shapes, budget 150; a burst of 8 cold queries at queue cap 2
-SERVE_REQUESTS, SERVE_SHAPES, SERVE_RATE, SERVE_BUDGET, SERVE_BURST = 24, 4, 25.0, 150, 8
+SERVE_REQUESTS, SERVE_SHAPES, SERVE_RATE, SERVE_BURST = 24, 4, 25.0, 8
+# cold queries a backend for (c)'s cold-query p50/p99
+COLD_QUERIES = engine_ab.COLD_QUERIES
 
 
-def _search_view(sol) -> tuple:
-    """Everything a search must reproduce bit for bit on another backend."""
-    r = sol.search
-    return (sol.mapping.to_dict(), sol.cost.latency_cycles, sol.cost.energy_pj,
-            sol.cost.utilization, sol.cost.breakdown, r.evaluated, r.considered, r.analyzed,
-            r.cache_hits, r.pruned, tuple(r.trajectory))
-
-
-def _on_card(problem, arch, before: int) -> int:
-    """The context's device dispatches since ``before``, after checking
-    that every fused runner it holds runs on the card."""
-    ctx = get_context(problem, arch)
-    devices = {key[2] for key in ctx._fused_runners}
+def _runners_on_card(problem, arch) -> None:
+    """Check that every fused runner the context holds runs on the card."""
+    devices = {key[2] for key in get_context(problem, arch)._fused_runners}
     check(devices == {"cuda"}, f"{problem.name}: fused runners on {devices}, not the card")
-    return ctx.device_dispatches - before
 
 
-def _timed_search(problem, arch, mapper, kw, backend, loop=True):
-    """One union_opt on ``backend`` (torch: on the card), host clock around
-    the search, the card synchronised before the clock stops."""
-    prior = os.environ.get("UNION_DEVICE_LOOP")
-    os.environ["UNION_DEVICE_LOOP"] = "1" if loop else "0"
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sol = union_opt(problem, arch, mapper=mapper, cost_model="timeloop", metric="edp",
-                        engine_backend=backend, engine_device="cuda", **kw)
-        torch.cuda.synchronize()
-        return sol, time.perf_counter() - t0
-    finally:
-        if prior is None:
-            del os.environ["UNION_DEVICE_LOOP"]
-        else:
-            os.environ["UNION_DEVICE_LOOP"] = prior
-
-
-def _profile_dispatch(stamp, problem, arch, rows, n=5) -> dict:
-    """torch.profiler over ``n`` warm dispatches of the engine's generic
-    fused runner (timeloop, EDP) at ``rows`` candidates: host wall ms a
-    dispatch (card synchronised), top-level torch ops and device kernels a
-    dispatch, device busy ms (None where the profiler saw no device kernel)
-    and the idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    eng = EvaluationEngine(TimeloopLikeModel(), problem, arch, backend="torch", device="cuda")
-    runner = eng._get_fused_runner()
-    sb = random_genome_batch(MapSpace(problem, arch), np.random.default_rng(SEED), rows).stacked()
-    check(runner(sb, math.inf) is not None, f"{problem.name}: the fused runner failed")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            runner(sb, math.inf)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n * 1e3
-    ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
-              and e.name.startswith("aten::")
-              and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))) / n
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / n / 1e3 if kern else None
-    kernels = sum(e.count for e in kern) / n
+def _profile_dispatch(stamp, problem, arch, rows) -> dict:
+    """``engine_ab.profile_dispatch`` over warm dispatches of the engine's
+    generic fused runner, each a replay of the bucket's CUDA graph,
+    printed; none of the top-level torch ops may be of the program's body
+    (only the copy in, the incumbent's fill and the copies out)."""
+    p = engine_ab.profile_dispatch(problem, arch, rows)
+    busy, wall = p["busy_ms"], p["wall_ms"]
     dev = ("device kernels and busy not measured (the profiler saw no device kernel)"
            if busy is None else
-           f"{kernels:.0f} device kernels, device busy {busy:.3f} ms (idle {1 - busy / wall:.1%})")
+           f"{p['kernels']:.0f} device kernels, device busy {busy:.3f} ms (idle {1 - busy / wall:.1%})")
+    check(p["graph_ms"] is not None, f"search_engine: {problem.name}: no graph at {p['padded']}")
     print(f"  dispatch profile [{stamp}] {problem.name} on {arch.name}, {rows} rows (padded "
-          f"{1 << max(0, (rows - 1).bit_length())}): wall {wall:.3f} ms, {ops:.0f} top-level torch "
-          f"ops, {dev}")
-    return {"problem": problem.name, "rows": rows, "wall_ms": wall, "ops": ops,
-            "kernels": kernels, "busy_ms": busy}
-
-
-def _gemm_query(m, n, k, budget=SERVE_BUDGET, deadline_s=None):
-    q = {"problem": {"kind": "gemm", "m": m, "n": n, "k": k},
-         "arch": {"kind": "edge", "aspect": [16, 16]}, "metric": "edp",
-         "mapper": {"name": "random", "kw": {"seed": 7}}, "budget": budget}
-    if deadline_s is not None:
-        q["deadline_s"] = deadline_s
-    return q
-
-
-def _post(port, payload, timeout=120.0):
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/mapping",
-                                 data=json.dumps(payload).encode(),
-                                 headers={"Content-Type": "application/json"})
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, json.loads(r.read())
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
-
-
-def _answer(env) -> tuple:
-    rec = env["record"]
-    return json.dumps(rec["mapping"], sort_keys=True), json.dumps(rec["cost"], sort_keys=True)
+          f"{p['padded']}), graph replay: wall {wall:.3f} ms under the profiler, "
+          f"{p['plain_wall_ms']:.3f} ms without, {p['ops']:.0f} top-level torch ops "
+          f"{json.dumps(p['op_names'])}, {dev}; the graph alone {p['graph_ms']:.3f} ms a replay "
+          f"on the device, {p['graph_launch_ms']:.3f} ms to launch")
+    check(set(p["op_names"]) <= DISPATCH_OPS and p["ops"] <= 16,
+          f"search_engine: a replayed dispatch ran ops of the program's body: {p['op_names']}")
+    return p
 
 
 def _check_torch_record(label, env) -> None:
@@ -4879,23 +4812,41 @@ def phase_search_engine(stamp, wm) -> dict:
         (``n_traces``), device syncs and dispatches;
     (c) the mapping service on torch: 24 Poisson queries over 4 shapes
         through the HTTP front on 127.0.0.1, each answer equal to a numpy
-        service's; a burst of 8 against queue cap 2 must shed; injected
+        service's, itself served over HTTP and timed in turns with it;
+        then 120 cold queries of distinct GEMM shapes to both in turns
+        (cold-query p50/p99 on both backends), each answer equal; a burst
+        of 8 against queue cap 2 must shed; injected
         ``jaxfail:0;jaxfail:1`` must walk the breaker closed -> open ->
         half_open -> closed with exactly the injected fallbacks.
+
+    The measurements are ``tools/engine_ab.py``'s, which times a parent
+    tree the same way. On the card each program runs as one CUDA graph per pow2 bucket: in
+    (a) and in every row of (b) the graphs captured must equal the traces
+    (``n_traces``); the graphs' memory pool is reported after each, and
+    the graphs are released at the end of the phase.
     """
     arch = h100_sm()
     out = {"device": stamp}
     # (a) --------------------------------------------------------------- #
+    g0, tr0 = graph_count(), global_trace_count()
     t0 = time.perf_counter()
     swept = union_opt_sweep(wm["tasks"], engine_backend="torch", engine_device="cuda")
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     st = swept.stats
+    graphs, pool = graph_count() - g0, graph_pool_bytes()
     print(f"search_engine [{stamp}] (a) the whole-model sweep on the card: {st['tasks']} entries, "
           f"{st['engines']} engine groups, {sweep_s:.3f} s host (numpy serial "
           f"{wm['sweep_s']['serial']:.3f} s); fused dispatches {st['fused_dispatches']}, programs "
-          f"first dispatched {st['n_traces']}, warmed buckets {st['warmed_buckets']}, device syncs "
+          f"first dispatched {st['n_traces']} (+ {st['warmed_buckets']} warmed), CUDA graphs "
+          f"captured {graphs} (pool "
+          f"{pool / 2**20:.1f} MiB), warmed buckets {st['warmed_buckets']}, device syncs "
           f"{st['device_syncs']}, backend fallbacks {st['backend_fallbacks']}")
+    # the searches' traces plus the warmup's (each warmed bucket of the
+    # shape-generic runner is a program first dispatched)
+    check(graphs == global_trace_count() - tr0 == st["n_traces"] + st["warmed_buckets"],
+          f"search_engine (a): {graphs} graphs captured for {global_trace_count() - tr0} traces "
+          f"({st['n_traces']} in the searches, {st['warmed_buckets']} warmed buckets)")
     check(_sweep_view(swept) == _sweep_view(wm["serial"]),
           "search_engine (a): the torch sweep differs from the numpy sweep")
     check(st["backend_fallbacks"] == 0 and st["fused_dispatches"] > 0,
@@ -4910,75 +4861,57 @@ def phase_search_engine(stamp, wm) -> dict:
           f"search_engine (a): runners on {devices}, {dispatches} device dispatches")
     out["sweep"] = {"tasks": st["tasks"], "torch_s": sweep_s, "numpy_s": wm["sweep_s"]["serial"],
                     "fused_dispatches": st["fused_dispatches"], "n_traces": st["n_traces"],
+                    "graphs": graphs, "pool_bytes": pool,
                     "device_syncs": st["device_syncs"], "device_dispatches": dispatches}
     # (b) --------------------------------------------------------------- #
     rows = []
-    bert = build_gemm(BERT2["M"], BERT2["N"], BERT2["K"], name="BERT-2",
-                      word_bytes=BERT2["word_bytes"])
-    head = build_gemm(PREFILL_HEAD["M"], PREFILL_HEAD["N"], PREFILL_HEAD["K"],
-                      name="prefill_head", word_bytes=PREFILL_HEAD["word_bytes"])
-    runs = [(bert, cloud_accelerator(), mp, kw, True) for mp, kw in SEARCH_MAPPERS]
-    runs += [(head, arch, "exhaustive", {"max_mappings": HEAD_CAP}, loop) for loop in (True, False)]
     print(f"search_engine [{stamp}] (b) mapper matrix, timeloop, EDP; evals/s = scored "
           f"candidates / host seconds (card synchronised); torch cold, then {SEARCH_ROUNDS} warm "
           f"rounds interleaved with numpy (median [min, max]):")
     print(f"  {'problem':13s} {'mapper':10s} {'loop':4s} {'numpy ev/s':>28s} {'torch cold':>10s} "
           f"{'torch warm ev/s':>28s} {'t/n':>5s} {'scored':>6s} {'pruned':>6s} {'fused':>5s} "
-          f"{'traces':>6s} {'syncs':>5s} {'dispatches':>10s}")
-    for problem, a, mp, kw, loop in runs:
-        sol_n, _dt = _timed_search(problem, a, mp, kw, "numpy", loop)
-        d0 = get_context(problem, a).device_dispatches
-        sol_c, dt_c = _timed_search(problem, a, mp, kw, "torch", loop)
-        dispatches = _on_card(problem, a, d0)  # the cold run's
-        # warm rounds, numpy and torch interleaved in alternating order so
-        # a drift of the shared host clock falls on both backends
-        times = {"numpy": [], "torch": []}
-        sols = [sol_c]
-        for i in range(SEARCH_ROUNDS):
-            for backend in (("numpy", "torch") if i % 2 == 0 else ("torch", "numpy")):
-                sol, dt = _timed_search(problem, a, mp, kw, backend, loop)
-                times[backend].append(dt)
-                if backend == "torch":
-                    sols.append(sol)
+          f"{'traces':>6s} {'graphs':>6s} {'syncs':>5s} {'dispatches':>10s}")
+    for problem, a, mp, kw, loop in engine_ab.mapper_runs(arch):
+        row, sol_n, sols = engine_ab.mapper_cell(problem, a, mp, kw, loop, SEARCH_ROUNDS)
+        _runners_on_card(problem, a)
+        check(row["graphs_cold"] == row["n_traces_cold"]
+              and row["graphs_warm"] == row["n_traces_warm"],
+              f"search_engine (b) {problem.name} {mp}: {row['graphs_cold']} graphs captured cold "
+              f"for {row['n_traces_cold']} traces, {row['graphs_warm']} warm for "
+              f"{row['n_traces_warm']}")
         for sol in sols:
-            check(_search_view(sol) == _search_view(sol_n),
+            check(engine_ab.search_view(sol) == engine_ab.search_view(sol_n),
                   f"search_engine (b) {problem.name} {mp}: torch differs from numpy")
             check(sol.search.backend_fallbacks == 0 and sol.search.fused_dispatches > 0,
                   f"search_engine (b) {problem.name} {mp}: fallbacks "
                   f"{sol.search.backend_fallbacks}, fused {sol.search.fused_dispatches}")
-        r = sol_c.search
-        ev = {b: sorted(r.scored / t for t in ts) for b, ts in times.items()}
-        med = {b: statistics.median(v) for b, v in ev.items()}
-        # the ratio is resolved when the two backends' ranges do not overlap
-        resolved = ev["torch"][0] > ev["numpy"][-1] or ev["numpy"][0] > ev["torch"][-1]
-        row = {"problem": problem.name, "mapper": mp, "kw": kw, "device_loop": loop,
-               "scored": r.scored, "pruned": r.pruned, "rounds": SEARCH_ROUNDS,
-               "numpy_evals_per_s": med["numpy"], "torch_warm_evals_per_s": med["torch"],
-               "numpy_evals_per_s_range": [ev["numpy"][0], ev["numpy"][-1]],
-               "torch_warm_evals_per_s_range": [ev["torch"][0], ev["torch"][-1]],
-               "torch_over_numpy": med["torch"] / med["numpy"], "resolved": resolved,
-               "torch_cold_evals_per_s": r.scored / dt_c, "numpy_s": times["numpy"],
-               "torch_cold_s": dt_c, "torch_warm_s": times["torch"],
-               "fused_dispatches": r.fused_dispatches,
-               "n_traces_cold": r.n_traces, "n_traces_warm": sols[-1].search.n_traces,
-               "device_syncs": r.device_syncs, "device_dispatches": dispatches}
         rows.append(row)
-        span = {b: f"{med[b]:9.0f} [{ev[b][0]:8.0f}, {ev[b][-1]:8.0f}]" for b in med}
+        med = {"numpy": (row["numpy_evals_per_s"], row["numpy_evals_per_s_range"]),
+               "torch": (row["torch_warm_evals_per_s"], row["torch_warm_evals_per_s_range"])}
+        span = {b: f"{m:9.0f} [{lo:8.0f}, {hi:8.0f}]" for b, (m, (lo, hi)) in med.items()}
         print(f"  {problem.name:13s} {mp:10s} {'on' if loop else 'off':4s} {span['numpy']:>28s} "
               f"{row['torch_cold_evals_per_s']:10.0f} {span['torch']:>28s} "
-              f"{row['torch_over_numpy']:5.2f}{'' if resolved else '~'} {r.scored:6d} "
-              f"{r.pruned:6d} {r.fused_dispatches:5d} {r.n_traces:6d} {r.device_syncs:5d} "
-              f"{dispatches:10d}")
+              f"{row['torch_over_numpy']:5.2f}{'' if row['resolved'] else '~'} "
+              f"{row['scored']:6d} {row['pruned']:6d} {row['fused_dispatches']:5d} "
+              f"{row['n_traces_cold']:6d} {row['graphs_cold']:6d} {row['device_syncs']:5d} "
+              f"{row['device_dispatches']:10d}")
     print("  (~: the backends' ranges overlap, the ratio is not resolved within host noise)")
+    print(f"  CUDA graphs captured: {graph_count()}, their pool "
+          f"{graph_pool_bytes() / 2**20:.1f} MiB")
     out["mappers"] = rows
     out["dispatch_profiles"] = [_profile_dispatch(stamp, p, a, r) for p, a in (
-        (bert, cloud_accelerator()), (head, arch)) for r in (256, 2048)]
+        (engine_ab.bert2(), cloud_accelerator()), (engine_ab.prefill_head(), arch))
+        for r in (256, 2048)]
     # (c) --------------------------------------------------------------- #
     state = Path(tempfile.mkdtemp(prefix="search-engine-"))
     try:
         out["service"] = _service_on_card(stamp, state)
     finally:
         shutil.rmtree(state, ignore_errors=True)
+    out["graphs"], out["pool_bytes"] = graph_count(), graph_pool_bytes()
+    # the phases after this one search on numpy: give the pool back
+    reset_trace_registry()
+    torch.cuda.empty_cache()
     target = Path(__file__).resolve().parent / "chiprun_out"
     target.mkdir(exist_ok=True)
     target.joinpath("search_engine.json").write_text(json.dumps(out, indent=1, default=str))
@@ -4990,38 +4923,59 @@ def _service_on_card(stamp, state: Path) -> dict:
     svc = MappingService(str(state / "torch"), backend="torch", device="cuda", deadline_s=30.0,
                          queue_cap=2, workers=2)
     twin = MappingService(str(state / "numpy"), backend="numpy", deadline_s=30.0)
-    httpd = serve_mapping(svc)
-    port = httpd.server_address[1]
+    httpd, twin_httpd = serve_mapping(svc), serve_mapping(twin)
+    port, twin_port = httpd.server_address[1], twin_httpd.server_address[1]
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    twin_th = threading.Thread(target=twin_httpd.serve_forever, daemon=True)
     th.start()
+    twin_th.start()
+
+    sizes = [32 + 16 * i for i in range(SERVE_SHAPES)]
+    bursts = [40 + 8 * i for i in range(SERVE_BURST)]
+    drills = [(32 + 16 * i, 32, 32) for i in range(4)]
+    # cold queries: shapes no other query of (c) asks for
+    cold_shapes = engine_ab.cold_shapes(
+        COLD_QUERIES, exclude=[(m, m, m) for m in sizes] + [(m, m + 8, m) for m in bursts] + drills)
     try:
         rng = random.Random(SEED)
-        sizes = [32 + 16 * i for i in range(SERVE_SHAPES)]
         lat, warm = [], 0
         for i in range(SERVE_REQUESTS):
             time.sleep(rng.expovariate(SERVE_RATE))
             m = rng.choice(sizes)
-            q = _gemm_query(m, m, m)
-            t0 = time.perf_counter()
-            code, env = _post(port, q)
-            lat.append((time.perf_counter() - t0) * 1e3)
-            check(code == 200 and env["ok"] and not env["budget_exhausted"],
-                  f"search_engine (c) query {i}: {code} {env}")
+            q = engine_ab.gemm_query(m, m, m)
+            # the two services in turns, each over its own HTTP front
+            envs = {}
+            for backend in (("torch", "numpy") if i % 2 == 0 else ("numpy", "torch")):
+                t0 = time.perf_counter()
+                code, envs[backend] = engine_ab.post(port if backend == "torch" else twin_port, q)
+                ms = (time.perf_counter() - t0) * 1e3
+                check(code == 200 and envs[backend]["ok"]
+                      and not envs[backend]["budget_exhausted"],
+                      f"search_engine (c) query {i} on {backend}: {code} {envs[backend]}")
+                if backend == "torch":
+                    lat.append(ms)
+            env = envs["torch"]
             if env["source"] == "store":
                 warm += 1
             else:
                 _check_torch_record(f"query {i}", env)
-            check(_answer(env) == _answer(twin.handle_query(q)),
+            check(engine_ab.answer(env) == engine_ab.answer(envs["numpy"]),
                   f"search_engine (c) query {i} ({m}^3): the torch answer differs from numpy's")
-        qs = sorted(lat)
-        p50, p99 = statistics.median(lat), qs[min(len(qs) - 1, int(0.99 * len(qs)))]
+        p50, p99 = engine_ab.p50_p99(lat)
+        # the cold series: each shape a search on both services, in turns
+        cold = engine_ab.cold_series({"torch": port, "numpy": twin_port}, cold_shapes)
+        for (m, n, k), env, twin_env in zip(cold_shapes, cold["torch"].pop("envs"),
+                                            cold["numpy"].pop("envs")):
+            _check_torch_record(f"cold query {m}x{n}x{k}", env)
+            check(engine_ab.answer(env) == engine_ab.answer(twin_env),
+                  f"search_engine (c) cold query {m}x{n}x{k}: torch's answer differs from numpy's")
 
-        def burst_one(i):
-            m = 40 + 8 * i
-            return _post(port, _gemm_query(m, m + 8, m, budget=400, deadline_s=5.0)), m
+        def burst_one(m):
+            q = engine_ab.gemm_query(m, m + 8, m, budget=400, deadline_s=5.0)
+            return engine_ab.post(port, q), m
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_BURST) as ex:
-            burst = list(ex.map(burst_one, range(SERVE_BURST)))
+            burst = list(ex.map(burst_one, bursts))
         shed = sum(1 for (code, _e), _m in burst if code == 429)
         served = [(env, m) for (code, env), m in burst if code == 200 and env.get("ok")]
         check(shed >= 1 and shed + len(served) == SERVE_BURST,
@@ -5030,21 +4984,27 @@ def _service_on_card(stamp, state: Path) -> dict:
         for env, m in served:
             if not env["budget_exhausted"]:
                 _check_torch_record(f"burst {m}", env)
-                check(_answer(env) == _answer(twin.handle_query(
-                    _gemm_query(m, m + 8, m, budget=400))),
+                check(engine_ab.answer(env) == engine_ab.answer(twin.handle_query(
+                    engine_ab.gemm_query(m, m + 8, m, budget=400))),
                       f"search_engine (c) burst {m}: the torch answer differs from numpy's")
         metrics = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                                     timeout=30).read())
     finally:
         httpd.shutdown()
+        twin_httpd.shutdown()
         svc.drain()
         th.join(timeout=30)
-    check(not th.is_alive(), "search_engine (c): the HTTP thread did not stop")
+        twin_th.join(timeout=30)
+    check(not th.is_alive() and not twin_th.is_alive(),
+          "search_engine (c): an HTTP thread did not stop")
     check(metrics["shed"] == shed and metrics["store_hits"] == warm,
           f"search_engine (c) metrics disagree with the run: {metrics}")
     print(f"search_engine [{stamp}] (c) mapping service on the card (HTTP on 127.0.0.1, "
           f"{SERVE_REQUESTS} Poisson queries at {SERVE_RATE}/s over {SERVE_SHAPES} shapes, budget "
-          f"{SERVE_BUDGET}): p50 {p50:.3f} ms, p99 {p99:.3f} ms, {warm} journal-served; burst of "
+          f"{engine_ab.SERVE_BUDGET}): p50 {p50:.3f} ms, p99 {p99:.3f} ms, {warm} journal-served; "
+          f"{COLD_QUERIES} cold queries of distinct shapes, the numpy service in turns: torch p50 "
+          f"{cold['torch']['p50_ms']:.3f} ms p99 {cold['torch']['p99_ms']:.3f} ms, numpy p50 "
+          f"{cold['numpy']['p50_ms']:.3f} ms p99 {cold['numpy']['p99_ms']:.3f} ms; burst of "
           f"{SERVE_BURST} at queue cap 2: {shed} shed, {len(served)} served; metrics "
           + json.dumps({k: metrics[k] for k in ("queries", "store_hits", "searches", "partials",
                                                  "shed", "seeded", "seed_misfires",
@@ -5053,10 +5013,10 @@ def _service_on_card(stamp, state: Path) -> dict:
                            deadline_s=None, breaker_threshold=2, probe_interval=2,
                            fault_spec="jaxfail:0;jaxfail:1")
     envs = []
-    for i in range(4):
-        q = _gemm_query(32 + 16 * i, 32, 32, budget=96)
+    for i, (m, n, k) in enumerate(drills):
+        q = engine_ab.gemm_query(m, n, k, budget=96)
         env = drill.handle_query(q)
-        check(env["ok"] and _answer(env) == _answer(twin.handle_query(q)),
+        check(env["ok"] and engine_ab.answer(env) == engine_ab.answer(twin.handle_query(q)),
               f"search_engine (c) breaker query {i}: the answer differs from numpy's")
         envs.append(env)
     br = drill.metrics()["breaker"]
@@ -5070,6 +5030,7 @@ def _service_on_card(stamp, state: Path) -> dict:
     print(f"search_engine (c) breaker drill (jaxfail:0;jaxfail:1, threshold 2, probe interval 2): "
           f"{' '.join(br['transitions'])}; backends {backends}; fallbacks {fallbacks}")
     return {"p50_ms": p50, "p99_ms": p99, "latencies_ms": lat, "warm": warm, "shed": shed,
+            "cold": cold,
             "served": len(served), "metrics": metrics, "breaker": br}
 
 

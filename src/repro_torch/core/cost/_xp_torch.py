@@ -48,8 +48,11 @@ class TorchNamespace:
     def __init__(self, device) -> None:
         self.device = torch.device(device)
         # device copies of host constants, by value: the cores divide by
-        # the same few bandwidths, frequencies and PE counts every dispatch
+        # the same few bandwidths, frequencies and PE counts every dispatch.
+        # Made at a program's first (eager) dispatch, they are read, never
+        # copied, by the CUDA graph captured after it.
         self._scalars: Dict[float, torch.Tensor] = {}
+        self._indices: Dict[tuple, torch.Tensor] = {}
 
     def _dtype(self, dtype):
         return _DTYPES.get(dtype, dtype) if dtype is not None else None
@@ -63,6 +66,16 @@ class TorchNamespace:
         t = self._scalars.get(key)
         if t is None:
             t = self._scalars[key] = torch.tensor(key, dtype=torch.float64,
+                                                  device=self.device)
+        return t
+
+    def index(self, idx) -> torch.Tensor:
+        """A host index list as an int64 tensor on the device, memoized by
+        value like :meth:`scalar`."""
+        key = tuple(int(i) for i in idx)
+        t = self._indices.get(key)
+        if t is None:
+            t = self._indices[key] = torch.tensor(key, dtype=torch.int64,
                                                   device=self.device)
         return t
 

@@ -26,9 +26,12 @@ results are exactly the ones the naive nested-loop formulation produces.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
+import threading
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -61,16 +64,18 @@ BACKEND_ERRORS = (ImportError, RuntimeError)
 # (program identity, padded batch size) combination here at its first
 # dispatch; the set's size is therefore the number of DISTINCT array
 # programs (one per pow2 batch bucket) the process has run -- the
-# counterpart of the reference's jit traces, and the unit a CUDA-graph
-# capture of each program would be keyed by. Shape-generic programs
-# register under their structural ShapeClassKey -- content-different
-# contexts in one shape class share a single entry per bucket -- while the
-# per-context programs register under the context's identity. Engines
-# sample ``global_trace_count()`` deltas around their dispatches to
-# attribute programs to a search (``EngineStats.n_traces``).
+# counterpart of the reference's jit traces, and the key of the CUDA graph
+# each program is captured into on the card (``_dispatch_program``).
+# Shape-generic programs register under their structural ShapeClassKey --
+# content-different contexts in one shape class share a single entry per
+# bucket -- while the per-context programs register under the context's
+# serial (``_CTX_SERIALS``; not its ``id()``, which an evicted context
+# hands on to a new one, whose programs are new traces). Engines sample ``global_trace_count()`` deltas around their
+# dispatches to attribute programs to a search (``EngineStats.n_traces``).
 # ---------------------------------------------------------------------- #
 _GENERIC_PROGRAMS: Dict[tuple, object] = {}
 _TRACE_COMBOS: set = set()
+_CTX_SERIALS = itertools.count()
 
 
 def global_trace_count() -> int:
@@ -85,10 +90,242 @@ def _record_trace(program_key, padded_batch: int) -> None:
 
 
 def reset_trace_registry() -> None:
-    """Drop trace accounting AND the shared generic-program cache (test
-    isolation helper; programs are rebuilt on demand)."""
-    _TRACE_COMBOS.clear()
-    _GENERIC_PROGRAMS.clear()
+    """Drop trace accounting, the shared generic-program cache AND the
+    captured CUDA graphs (test isolation helper; programs are rebuilt and
+    recaptured on demand)."""
+    global _GRAPH_POOL, _GRAPH_CAPTURES
+    with _GRAPH_LOCK:
+        _TRACE_COMBOS.clear()
+        _GENERIC_PROGRAMS.clear()
+        _GRAPHS.clear()
+        for owner in list(_GRAPH_OWNERS):
+            owner._torch_graphs.clear()
+        _GRAPH_OWNERS.clear()
+        _GRAPH_POOL = None
+        _GRAPH_CAPTURES = 0
+
+
+# ---------------------------------------------------------------------- #
+# CUDA graphs: the counterpart of the reference's jit cache. On a CUDA
+# device each trace key -- (program key, padded batch) -- runs eagerly at
+# its first dispatch (which fills the namespace's scalar memo, so no
+# host-to-device copy is left for the capture, and warms the allocator),
+# is then captured ONCE into a ``torch.cuda.CUDAGraph`` over static input
+# buffers, and every later dispatch copies its inputs in and replays. So
+# one trace is one graph. A value that enters a program at dispatch time
+# (the batch, the incumbent, a shape-generic parameter pack) must be one
+# of its inputs: any other value is baked into the graph at capture.
+#
+# The graphs share one memory pool. That is sound because dispatches run
+# one at a time (``_GRAPH_LOCK``) on one stream and each copies its
+# outputs out -- to the host, or by a clone -- before releasing the lock:
+# a replay may overwrite the outputs of any graph captured before it.
+# The shape-generic programs' graphs live in ``_GRAPHS``; a per-context
+# program's live on its context (``_torch_graphs``) and are freed with it
+# when the context cache evicts it. A failed capture raises RuntimeError into the callers' backend boundary
+# (a logged degrade to numpy, counted); nothing retries it eagerly. On the
+# CPU the programs run eagerly, as they always did.
+# ---------------------------------------------------------------------- #
+_GRAPHS: Dict[tuple, "_Graph"] = {}
+# the contexts holding graphs, so that a registry reset frees theirs too
+_GRAPH_OWNERS: "weakref.WeakSet" = weakref.WeakSet()
+_GRAPH_LOCK = threading.RLock()
+_GRAPH_POOL = None
+_GRAPH_STREAMS: Dict[str, object] = {}
+_GRAPH_CAPTURES = 0
+
+
+def graph_count() -> int:
+    """CUDA graphs captured since the last :func:`reset_trace_registry`:
+    one per trace key a CUDA device dispatched (0 on the CPU), including
+    those freed since with their evicted contexts."""
+    return _GRAPH_CAPTURES
+
+
+def graph_pool_bytes() -> int:
+    """Bytes of device memory the graphs' shared pool holds (0 before the
+    first capture): the intermediates and outputs of every graph; the
+    static input buffers live outside it."""
+    if _GRAPH_POOL is None:
+        return 0
+    import torch
+
+    pool = tuple(_GRAPH_POOL)
+    return sum(int(s["total_size"]) for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool)
+
+
+def _flatten(tree, leaves: list):
+    """The structure of a program's output (tuples and dicts of tensors),
+    appending its leaves to ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_flatten(v, leaves) for v in tree)
+    leaves.append(tree)
+    return len(leaves) - 1
+
+
+def _unflatten(spec, leaves):
+    if isinstance(spec, dict):
+        return {k: _unflatten(v, leaves) for k, v in spec.items()}
+    if isinstance(spec, tuple):
+        return tuple(_unflatten(v, leaves) for v in spec)
+    return leaves[spec]
+
+
+def _pack(out):
+    """A program's output as one flat 1-D tensor per dtype (so a dispatch
+    copies each dtype out once) and the layout to rebuild it:
+    ``(flat, (spec, slots))``, ``slots[i] = (group, offset, shape)``."""
+    import torch
+
+    leaves: list = []
+    spec = _flatten(out, leaves)
+    groups: Dict[object, List[int]] = {}
+    for i, a in enumerate(leaves):
+        groups.setdefault(a.dtype, []).append(i)
+    flat, slots = [], [None] * len(leaves)
+    for g, idx in enumerate(groups.values()):
+        off = 0
+        for i in idx:
+            slots[i] = (g, off, tuple(leaves[i].shape))
+            off += leaves[i].numel()
+        flat.append(torch.cat([leaves[i].reshape(-1) for i in idx]))
+    return flat, (spec, slots)
+
+
+def _unpack(flat, layout):
+    """The output tree of a packed dispatch, its leaves views of ``flat``
+    (numpy arrays or device tensors)."""
+    spec, slots = layout
+    leaves = []
+    for g, off, shape in slots:
+        n = 1
+        for s in shape:
+            n *= s
+        leaves.append(flat[g][off: off + n].reshape(shape))
+    return _unflatten(spec, leaves)
+
+
+def _device_args(args):
+    """A program's dispatch arguments as the program takes them: a float
+    (the incumbent) becomes a 0-dim float64 tensor on the batch's device,
+    as the reference's ``jnp.asarray(float(incumbent))``; tensors and
+    parameter packs pass through."""
+    import torch
+
+    dev = args[0].device
+    return [torch.full((), a, dtype=torch.float64, device=dev)
+            if isinstance(a, float) else a for a in args]
+
+
+def _run_packed(core, args):
+    """``core`` on ``args`` (the stacked batch first, unstacked into tt,
+    st, perm), its output packed."""
+    stk = args[0]
+    return _pack(core(stk[0], stk[1], stk[2], *args[1:]))
+
+
+class _Graph:
+    """One captured program: the graph, the core it was captured from, its
+    static inputs (and, per slot, the parameter pack last copied in), and
+    its packed static outputs."""
+
+    __slots__ = ("graph", "core", "static", "loaded", "flat", "layout")
+
+    def __init__(self, core, args) -> None:
+        import torch
+
+        dev = args[0].device
+        self.core = core
+        self.static = [{k: v.clone() for k, v in a.items()} if isinstance(a, dict)
+                       else a.clone() for a in _device_args(args)]
+        # a pack (a dict) is copied in only when another pack was last
+        self.loaded = [a if isinstance(a, dict) else None for a in args]
+        stream = _GRAPH_STREAMS.get(str(dev))
+        if stream is None:
+            stream = _GRAPH_STREAMS[str(dev)] = torch.cuda.Stream(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=_graph_pool(), capture_error_mode="thread_local")
+            try:
+                self.flat, self.layout = _run_packed(core, self.static)
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is already invalid; the first error stands
+                raise
+            self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def load(self, args) -> None:
+        for i, (s, a) in enumerate(zip(self.static, args)):
+            if isinstance(a, dict):
+                if self.loaded[i] is not a:
+                    for k, v in a.items():
+                        s[k].copy_(v)
+                    self.loaded[i] = a
+            elif isinstance(a, float):
+                s.fill_(a)
+            else:
+                s.copy_(a)
+
+
+def _graph_pool():
+    global _GRAPH_POOL
+    if _GRAPH_POOL is None:
+        import torch
+
+        _GRAPH_POOL = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOL
+
+
+def _captures(device) -> bool:
+    """Whether dispatches on ``device`` run as captured graphs."""
+    return device.type == "cuda"
+
+
+def _dispatch_program(pkey, core, args, keep: bool = False, owner=None):
+    """Run the array program ``core`` under trace key ``(pkey, padded
+    batch)``: the one path all four torch dispatch sites share.
+
+    ``args[0]`` is the stacked batch, ``[3, B, n_levels, D]`` int64 on the
+    device, passed to ``core`` as ``(tt, st, perm)``; the rest follow it
+    (the incumbent as a float, a parameter pack as a dict of device
+    tensors). Returns the output tree as host numpy arrays, or, with
+    ``keep``, as device tensors that outlive the next replay (the device
+    loop buffers them across generations). On CUDA the first dispatch at
+    a key runs eagerly and captures the graph; later ones replay it. The
+    graph of a per-context program is kept on its ``owner`` context, that
+    of a shape-generic program (no owner) process-wide.
+    """
+    stk = args[0]
+    key = (pkey, int(stk.shape[1]))
+    _record_trace(*key)
+    if not _captures(stk.device):
+        flat, layout = _run_packed(core, _device_args(args))
+        return _unpack(flat if keep else [f.numpy() for f in flat], layout)
+    global _GRAPH_CAPTURES
+    with _GRAPH_LOCK:
+        graphs = _GRAPHS if owner is None else owner._torch_graphs
+        g = graphs.get(key)
+        if g is None or g.core is not core:
+            flat, layout = _run_packed(core, _device_args(args))
+            graphs[key] = _Graph(core, args)
+            if owner is not None:
+                _GRAPH_OWNERS.add(owner)
+            _GRAPH_CAPTURES += 1
+        else:
+            g.load(args)
+            g.graph.replay()
+            flat, layout = ([f.clone() for f in g.flat] if keep else g.flat), g.layout
+        # copied out under the lock: the next replay may overwrite g.flat
+        if not keep:
+            flat = [f.cpu().numpy() for f in flat]
+    return _unpack(flat, layout)
 
 
 def _xp_torch(device):
@@ -113,6 +350,16 @@ def device_scalar(xp, v):
     if xp is np:
         return v
     return xp.scalar(v)
+
+
+def device_index(xp, idx):
+    """A host index list as an operand of an array program: an int64
+    numpy array on numpy, a memoized int64 tensor on the torch namespace's
+    device -- so a program's repeat dispatches (and the CUDA graph
+    captured from it) copy nothing from the host."""
+    if xp is np:
+        return np.asarray(idx, dtype=np.int64)
+    return xp.index(idx)
 
 
 def exact_divisor(xp, v):
@@ -390,6 +637,10 @@ class AnalysisContext:
         # torch programs by device: {device: core}
         self._torch_batch_cores: Dict[str, object] = {}
         self._torch_lb_cores: Dict[str, object] = {}
+        # their CUDA graphs by trace key (``_dispatch_program``), freed with
+        # the context; the serial keys its traces
+        self._torch_graphs: Dict[tuple, object] = {}
+        self._serial = next(_CTX_SERIALS)
         # the torch backend broke (import, device or dispatch failure):
         # engines on this context degrade to numpy (see the engine's
         # ``_check_backend_degraded``); a circuit breaker may re-arm it
@@ -893,22 +1144,17 @@ class AnalysisContext:
             )
         return tt, st, perm, B
 
-    @staticmethod
-    def _upload(xp, tt, st, perm):
-        """The three int64 matrices as device tensors, in ONE host-to-device
-        copy (stacked host-side, split into views on the device)."""
-        return tuple(xp.asarray(np.stack([tt, st, perm])).unbind(0))
-
     def _torch_device_padded(self, sb: StackedBatch, xp, select=None):
-        """Pow2-padded device matrices ``(tt, st, perm, B)`` for one
-        dispatch. Without ``select`` they are memoized on the handle, so a
-        batch whose lower bound and scores run as two programs uploads
-        once."""
+        """``(stk, B)`` for one dispatch: the pow2-padded matrices stacked
+        as one ``[3, B2, n_levels, D]`` int64 device tensor (tt, st, perm;
+        ONE host-to-device copy) and the unpadded batch size. Without
+        ``select`` they are memoized on the handle, so a batch whose lower
+        bound and scores run as two programs uploads once."""
         dev = str(xp.device)
         if select is None and sb.devp is not None and sb.devp[0] == dev:
             return sb.devp[1]
         tt, st, perm, B = self._pad_pow2_host(sb, select)
-        out = self._upload(xp, tt, st, perm) + (B,)
+        out = (xp.asarray(np.stack([tt, st, perm])), B)
         if select is None:
             sb.devp = (dev, out)
         return out
@@ -930,19 +1176,15 @@ class AnalysisContext:
         try:
             xp = self._ensure_torch(device)
             core = self._torch_core(self._torch_batch_cores, self._make_batch_core, xp)
-            tt, st, perm, B = self._torch_device_padded(sb, xp, select)
+            stk, B = self._torch_device_padded(sb, xp, select)
             self.device_dispatches += 1
-            _record_trace(("ctx-core", id(self), str(xp.device)), int(tt.shape[0]))
-            out = core(tt, st, perm)
-            compute_cycles, total_trips, par, inst_at, tt_c, st_c, fans, rows = out
-            flat = [compute_cycles, total_trips, par, inst_at, tt_c, st_c, fans]
-            flat += [a for r in rows for a in r]
-            host = [a[:B] for a in to_host(flat)]
+            out = _dispatch_program(("ctx-core", self._serial, str(xp.device)), core, (stk,),
+                                    owner=self)
         except BACKEND_ERRORS:  # the backend boundary: degrade, logged
             self._backend_failure("the traffic program")
             return None
-        K = len(rows)
-        return tuple(host[:7]) + (tuple(tuple(host[7 + 5 * k: 12 + 5 * k]) for k in range(K)),)
+        *arrays, rows = out
+        return tuple(a[:B] for a in arrays) + (tuple(tuple(a[:B] for a in r) for r in rows),)
 
     def signature_traffic_batch(
         self,
@@ -1310,10 +1552,10 @@ class AnalysisContext:
         try:
             xp = self._ensure_torch(device)
             core = self._torch_core(self._torch_lb_cores, self._make_lb_core, xp)
-            tt, st, perm, B = self._torch_device_padded(sb, xp)
+            stk, B = self._torch_device_padded(sb, xp)
             self.device_dispatches += 1
-            _record_trace(("ctx-lb", id(self), str(xp.device)), int(tt.shape[0]))
-            cyc, en, mx = to_host(core(tt, st, perm))
+            cyc, en, mx = _dispatch_program(("ctx-lb", self._serial, str(xp.device)), core,
+                                             (stk,), owner=self)
         except BACKEND_ERRORS:  # the backend boundary: degrade, logged
             self._backend_failure("the lower-bound program")
             return None
@@ -1437,18 +1679,17 @@ class AnalysisContext:
         except BACKEND_ERRORS:  # the backend boundary: degrade, logged
             self._backend_failure("building the fused program")
             return None
-        pkey = ("ctx-fused", id(self), cache_key, str(xp.device))
+        pkey = ("ctx-fused", self._serial, cache_key, str(xp.device))
 
         def run(sb: StackedBatch, incumbent: float):
             if self._torch_failed:
                 return None
             try:
                 self._ensure_torch(xp.device)  # the choke point, every dispatch
-                tt, st, perm, B = self._torch_device_padded(sb, xp)
+                stk, B = self._torch_device_padded(sb, xp)
                 self.device_dispatches += 1
-                _record_trace(pkey, int(tt.shape[0]))
-                out = core(tt, st, perm, float(incumbent))
-                return _fused_to_host(out, B)
+                return _fused_rows(_dispatch_program(pkey, core, (stk, float(incumbent)),
+                                                     owner=self), B)
             except BACKEND_ERRORS:  # the backend boundary: degrade, logged
                 self._backend_failure("the fused program")
                 return None
@@ -1974,39 +2215,23 @@ def _make_generic_fused_core(skey, terms, metric: str, xp):
 def to_host(arrays) -> List[np.ndarray]:
     """Device tensors as numpy arrays, in one device-to-host copy per
     dtype (each copy synchronises the host with the device once)."""
-    import torch
-
-    arrays = list(arrays)
-    out: List[Optional[np.ndarray]] = [None] * len(arrays)
-    groups: Dict[object, List[int]] = {}
-    for i, a in enumerate(arrays):
-        groups.setdefault(a.dtype, []).append(i)
-    for idx in groups.values():
-        flat = torch.cat([arrays[i].reshape(-1) for i in idx]).cpu().numpy()
-        off = 0
-        for i in idx:
-            n = arrays[i].numel()
-            out[i] = flat[off: off + n].reshape(tuple(arrays[i].shape))
-            off += n
-    return out
+    flat, layout = _pack(tuple(arrays))
+    return list(_unpack([f.cpu().numpy() for f in flat], layout))
 
 
-def _fused_to_host(out, B: int):
-    """One fused dispatch's device outputs as the runner protocol's host
-    tuple ``(admit, lb_guard, latency, energy, util, score_guard,
-    extras)``, sliced to the unpadded batch ``B``."""
+def _fused_rows(out, B: int):
+    """One fused dispatch's host outputs as the runner protocol's tuple
+    ``(admit, lb_guard, latency, energy, util, score_guard, extras)``,
+    sliced to the unpadded batch ``B``."""
     admit, lb_mx, latency, energy, util, score_mx, extras = out
-    keys = list(extras)
-    host = to_host([admit, lb_mx, latency, energy, util, score_mx]
-                   + [extras[k] for k in keys])
     return (
-        host[0][:B],
-        float(host[1]),
-        host[2][:B],
-        host[3][:B],
-        host[4][:B],
-        float(host[5]),
-        {k: v[:B] for k, v in zip(keys, host[6:])},
+        admit[:B],
+        float(lb_mx),
+        latency[:B],
+        energy[:B],
+        util[:B],
+        float(score_mx),
+        {k: v[:B] for k, v in extras.items()},
     )
 
 
@@ -2033,30 +2258,40 @@ class GenericFusedRunner:
     def is_traced(self, padded_batch: int) -> bool:
         """Whether the shared program has already run at this pow2 bucket
         (by ANY context in the shape class) -- lets warmup skip
-        re-dispatching buckets the class already covers."""
+        re-dispatching buckets the class already covers (on the card, the
+        bucket's graph is captured)."""
         return (self._pkey, int(padded_batch)) in _TRACE_COMBOS
 
-    def _dispatch(self, sb: StackedBatch, incumbent: float):
+    def _dispatch(self, sb: StackedBatch, incumbent: float, keep: bool = False):
+        """One dispatch of the shared program with this context's pack:
+        the pack is an input of the program (and of its graph), so
+        contexts of the class never see each other's values."""
         ctx = self._ctx
         ctx._ensure_torch(self._xp.device)  # the choke point, every dispatch
-        tt, st, perm, B = ctx._torch_device_padded(sb, self._xp)
+        stk, B = ctx._torch_device_padded(sb, self._xp)
         if self._dev_params is None:
             self._dev_params = {k: self._xp.asarray(v) for k, v in self._params.items()}
         ctx.device_dispatches += 1
-        _record_trace(self._pkey, int(tt.shape[0]))
-        return self._core(tt, st, perm, incumbent, self._dev_params), B
+        # the class's program is the one registered under the key (after a
+        # registry reset, the first runner to dispatch registers its own),
+        # so all contexts of the class replay one graph
+        core = _GENERIC_PROGRAMS.setdefault(self._pkey, self._core)
+        out = _dispatch_program(self._pkey, core,
+                                (stk, float(incumbent), self._dev_params), keep=keep)
+        return out, B
 
     def dispatch_device(self, sb: StackedBatch):
         """One fused dispatch, results left ON THE DEVICE: returns the raw
         (padded -- callers slice to the batch size) output tuple, or None
         on failure. Device-resident loops use this to fetch only small
         scalars per generation and defer full materialization to the
-        K-generation sync."""
+        K-generation sync; the tensors outlive later dispatches (a
+        replay's outputs are cloned out of its graph)."""
         ctx = self._ctx
         if ctx._torch_failed:
             return None
         try:
-            return self._dispatch(sb, math.inf)[0]
+            return self._dispatch(sb, math.inf, keep=True)[0]
         except BACKEND_ERRORS:  # the backend boundary: degrade, logged
             ctx._backend_failure("the generic fused program")
             return None
@@ -2066,8 +2301,7 @@ class GenericFusedRunner:
         if ctx._torch_failed:
             return None
         try:
-            out, B = self._dispatch(sb, float(incumbent))
-            return _fused_to_host(out, B)
+            return _fused_rows(*self._dispatch(sb, incumbent))
         except BACKEND_ERRORS:  # the backend boundary: degrade, logged
             ctx._backend_failure("the generic fused program")
             return None

@@ -147,6 +147,7 @@ class EngineStats:
     # this engine (sampled as deltas of the process-global trace registry
     # around every dispatch site, so shape-generic cache hits -- a program
     # first run by ANOTHER engine of the same shape class -- count zero).
+    # On a CUDA device each is one captured graph.
     n_traces: int = 0
     # host<->device synchronization points of the device-resident search
     # loops (one per mega-batch precompute / deferred-generation flush);
@@ -953,7 +954,8 @@ class EvaluationEngine:
         """Bucketed warmup: dispatch the fused torch admit+score program
         once at each pow2 bucket the given miss-batch sizes pad to, so the
         first-dispatch costs (device context, kernel loading, allocator
-        growth) leave ``admit_s``/``score_s`` of the timed search. No-op on
+        growth and, on CUDA, the capture of the bucket's graph) leave
+        ``admit_s``/``score_s`` of the timed search. No-op on
         non-torch backends or when the model has no fused path. Warmup rows
         are synthetic (the all-serial trivial candidate, tiled): results
         are discarded and neither the memo, the store nor the engine

@@ -33,6 +33,7 @@ from repro_torch.core.cost.analysis import (
     astype,
     batch_projection_footprint,
     boundary_bytes_per_instance,
+    device_index,
     device_scalar,
     exact_divisor,
     get_context,
@@ -306,7 +307,7 @@ class TPURooflineModel(CostModel):
                 n_arr = lvl_par[:, lvl]
                 has_split = n_arr > 1
                 split_red = (
-                    xp.any(f[:, xp.asarray(red_idx)] > 1, axis=1)
+                    xp.any(f[:, device_index(xp, red_idx)] > 1, axis=1)
                     if red_idx.size
                     else xp.zeros(B, dtype=bool)
                 )
@@ -324,8 +325,7 @@ class TPURooflineModel(CostModel):
                         term = 2.0 * (n_arr - 1.0) / n_arr * shard * wb
                     else:
                         split_rel = (
-                            xp.any(f[:, xp.asarray(np.asarray(rel_idx, dtype=np.int64))] > 1,
-                                   axis=1)
+                            xp.any(f[:, device_index(xp, rel_idx)] > 1, axis=1)
                             if rel_idx
                             else xp.zeros(B, dtype=bool)
                         )

@@ -5,4 +5,5 @@ from repro_torch.kernels.matmul.ops import (  # noqa: F401
     matmul,
     plan_for,
     plan_tiles,
+    tiles_from_mapping,
 )

@@ -33,6 +33,7 @@ import torch
 from repro_torch import codesign
 from repro_torch.codesign import KernelSpace, round_up
 from repro_torch.core.constraints import tc_aligned
+from repro_torch.core.mapping import Mapping
 from repro_torch.core.problem import Problem
 from repro_torch.kernels.matmul.matmul import (
     BK_CHOICES,
@@ -54,6 +55,12 @@ ROW_ALIGN = 64  # one wgmma row group: the M and N alignment the planner works a
 # the FMA instance's default K slice: on the card its 128x128 tile ran 9-10%
 # faster at 16 than at 32 at every shape measured
 DEFAULT_BK = 16
+
+
+def tiles_from_mapping(mapping: Mapping, problem: Problem) -> Tuple[int, int, int]:
+    """Read (bm, bn, bk) from the innermost level's temporal tile."""
+    leaf = mapping.levels[-1]
+    return leaf.tt("m"), leaf.tt("n"), leaf.tt("k")
 
 
 def _pick_tile(b: int, dim: int, tiles: Tuple[int, ...] = TILES) -> int:

@@ -18,31 +18,53 @@ Also twinned: one program per shape class (a second problem of the class
 adds no program), warmup covering the class, the per-engine trace
 counter, the circuit breaker's degrade -> open -> probe -> closed walk,
 and the engine's warm start from a seeded incumbent on both backends.
+
+On the card each (program, pow2 bucket) is captured once as a CUDA graph
+and replayed; here, on the CPU, the programs stay eager and no graph is
+built. The trace counts of whole searches are held against the
+reference's own jit traces (its jax backend run for real, with jax's
+``enable_x64`` under the name the reference imports), and every program a
+search runs a second time is run under a dispatch mode that fails on what
+a CUDA-graph capture forbids (a sync with the host, a copy from it).
 """
 
+import gc
 import math
 import random
+import weakref
 
+import jax
+import jax.experimental
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.core.architecture import cloud_accelerator as jax_cloud
 from repro.core.architecture import edge_accelerator as jax_edge
+from repro.core.cost import analysis as jax_analysis
 from repro.core.cost.analysis import get_context as jax_get_context
 from repro.core.mapping import mapping_signature as jax_signature
 from repro.core.optimizer import union_opt as jax_union_opt
 from repro.core.problem import Problem as JaxProblem
 
 from repro_torch.codesign import CalibrationScale
-from repro_torch.core.architecture import cloud_accelerator, edge_accelerator
+from repro_torch.core.architecture import (
+    cloud_accelerator,
+    edge_accelerator,
+    h100_sm,
+    tpu_chip,
+    tpu_v5e_pod,
+)
 from repro_torch.core.cost import EvaluationEngine, MaestroLikeModel, TimeloopLikeModel
 from repro_torch.core.cost import _xp_torch
+from repro_torch.core.cost import analysis
 from repro_torch.core.cost.analysis import (
     _make_generic_fused_core,
     exact_divisor,
     get_context,
     global_trace_count,
+    graph_count,
     reset_trace_registry,
 )
 from repro_torch.core.cost.engine import BACKENDS
@@ -563,3 +585,164 @@ def test_seed_incumbent_ignored_with_finite_incumbent_or_no_prune():
     assert eng2._seed_for(math.inf, 8) is None
     eng.seed_incumbent = math.inf
     assert eng._seed_for(math.inf, 8) is None
+
+
+# ------------------------------------------------------------------ #
+# the programs' dispatch: eager here, one CUDA graph per trace on the card
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("model", ["timeloop", "tpu_roofline"])
+@pytest.mark.parametrize("mapper", sorted(MAPPER_KW))
+def test_cpu_dispatch_is_eager_and_traces_as_the_reference(monkeypatch, mapper, model):
+    """The same search on the reference's jax backend (jit, x64) and on
+    the port's torch backend on the CPU: the process-wide trace counts and
+    the search's ``n_traces`` agree, and the CPU captured no graph."""
+    monkeypatch.setattr(jax.experimental, "enable_x64", lambda: jax.enable_x64(True),
+                        raising=False)
+    kw = MAPPER_KW[mapper]
+    jproblem, jarch = PROBLEMS["gemm"](JaxProblem), jax_cloud()
+    jax_get_context(jproblem, jarch)._jax_failed = False  # an earlier run without x64
+    jax_analysis.reset_trace_registry()
+    reset_trace_registry()
+    ref = jax_union_opt(jproblem, jarch, mapper=mapper, cost_model=model,
+                        engine_backend="jax", **kw)
+    got = union_opt(GEMM, cloud_accelerator(), mapper=mapper, cost_model=model,
+                    engine_backend="torch", engine_device=DEV, **kw)
+    assert ref.search.backend_fallbacks == 0 and got.search.backend_fallbacks == 0
+    assert jax_analysis.global_trace_count() == global_trace_count() >= 1
+    assert ref.search.n_traces == got.search.n_traces == global_trace_count()
+    assert graph_count() == 0
+    _assert_solutions_equal(got, ref)
+
+
+# what a CUDA-graph capture cannot run: a read of a device value on the
+# host (item, a data-dependent shape) or a tensor made from host data
+_HOST_OPS = {"_local_scalar_dense", "item", "nonzero", "masked_select", "unique",
+             "_unique", "_unique2", "unique_consecutive", "unique_dim", "repeat_interleave",
+             "is_nonzero", "equal", "lift_fresh", "lift_fresh_copy"}
+
+
+class _CaptureRules(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name.split("::")[-1]
+        idx = args[1] if len(args) > 1 and isinstance(args[1], (list, tuple)) else ()
+        masked = name.startswith("index") and any(
+            isinstance(t, torch.Tensor) and t.dtype == torch.bool for t in idx)
+        if name in _HOST_OPS or masked:
+            raise AssertionError(f"{func} cannot run inside a CUDA-graph capture")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("mk_arch", [cloud_accelerator, tpu_chip, tpu_v5e_pod, h100_sm],
+                         ids=["cloud", "tpu_chip", "tpu_v5e_pod", "h100_sm"])
+@pytest.mark.parametrize("model", sorted(ALL_MODELS))
+def test_every_program_can_be_captured(monkeypatch, model, mk_arch):
+    """On the card a program's second dispatch at a key replays the graph
+    captured from it, so from then on its body may neither read a device
+    value on the host nor copy host data in (a new constant, an index
+    list). Here every repeat dispatch of every program the searches run --
+    traffic, bound, per-context and shape-generic fused, the device loops'
+    -- runs under a dispatch mode that fails on either."""
+    monkeypatch.setenv("UNION_DEVICE_K", "2")
+    seen, repeats = set(), [0]
+    real = analysis._dispatch_program
+
+    def dispatch(pkey, core, args, **kw):
+        key = (pkey, int(args[0].shape[1]))
+        if key not in seen:
+            seen.add(key)
+            return real(pkey, core, args, **kw)
+
+        def body(*a):
+            repeats[0] += 1
+            with _CaptureRules():
+                return core(*a)
+        return real(pkey, body, args, **kw)
+
+    monkeypatch.setattr(analysis, "_dispatch_program", dispatch)
+    problem, arch = Problem.gemm(512, 256, 128, word_bytes=1), mk_arch()
+    for mapper in ("random", "genetic", "heuristic"):
+        kw = {"random": {"samples": 300, "batch_size": 32},
+              "genetic": {"population": 16, "generations": 5}}.get(mapper, {})
+        sol = union_opt(problem, arch, mapper=mapper, cost_model=model,
+                        engine_backend="torch", engine_device=DEV, **kw)
+        assert sol.search.backend_fallbacks == 0
+    sb = _stacked(problem, arch, 3, B=40)
+    for _ in range(2):
+        get_context(problem, arch).signature_traffic_batch(stacked=sb, backend="torch",
+                                                           device=DEV)
+        get_context(problem, arch).lower_bound_batch(stacked=sb, backend="torch", device=DEV)
+    assert repeats[0] >= 2
+
+
+def test_incumbent_enters_the_program_as_a_device_scalar():
+    """As the reference's ``jnp.asarray(float(incumbent))``: a program
+    sees the incumbent as a 0-dim float64 tensor on its device (on the
+    card, an input of the graph that each replay refills), and its output
+    tree comes back whole as host arrays."""
+    seen = []
+
+    def core(tt, st, perm, incumbent, p):
+        seen.append(incumbent)
+        return (tt.sum(dim=(1, 2)) < incumbent, {"x": p["a"] * 2.0, "n": perm[:, 0, 0]})
+
+    stk = NS.asarray(np.arange(3 * 4 * 2).reshape(3, 4, 2, 1) % 5)
+    p = {"a": NS.asarray(np.array([1.5, 2.5]))}
+    for inc in (3.0, math.inf):
+        admit, extras = analysis._dispatch_program(("spy", DEV), core, (stk, inc, p))
+        assert isinstance(admit, np.ndarray) and admit.dtype == bool and admit.shape == (4,)
+        assert _eq(admit, (np.arange(24).reshape(3, 4, 2) % 5)[0].sum(axis=1) < inc)
+        assert _eq(extras["x"], [3.0, 5.0]) and extras["n"].dtype == np.int64
+    assert all(isinstance(i, torch.Tensor) and i.dim() == 0 and i.dtype == torch.float64
+               for i in seen)
+    assert [float(i) for i in seen] == [3.0, math.inf] and graph_count() == 0
+
+
+class _EagerGraph:
+    """A CUDA graph's stand-in on the CPU: it captures by running the
+    program and replays by running it again on the inputs loaded last."""
+
+    def __init__(self, core, args):
+        self.core, self.graph = core, self
+        self.args = analysis._device_args(args)
+        self.flat, self.layout = analysis._run_packed(core, self.args)
+
+    def load(self, args):
+        self.args = analysis._device_args(args)
+
+    def replay(self):
+        self.flat, _ = analysis._run_packed(self.core, self.args)
+
+
+def test_graphs_of_evicted_contexts_are_freed(monkeypatch):
+    """A per-context program's graphs live on its context, so the context
+    cache's eviction frees them with it, and a registry reset frees those
+    of live contexts; none is kept process-wide. Run through the capture
+    path with a stand-in graph: each trace is one graph, each replay
+    equals numpy."""
+    monkeypatch.setattr(analysis, "_captures", lambda device: True)
+    monkeypatch.setattr(analysis, "_Graph", _EagerGraph)
+    reset_trace_registry()
+    arch = edge_accelerator()
+    n = analysis._CTX_CACHE_SIZE + 6
+    held = []
+    for i in range(n):
+        problem = Problem.gemm(16 * (i + 1), 32, 16, word_bytes=1)
+        sb = _stacked(problem, arch, i, B=8)
+        ctx = get_context(problem, arch)
+        want = ctx.lower_bound_batch(stacked=sb)
+        for _ in range(2):  # captured, then replayed
+            got = ctx.lower_bound_batch(stacked=sb, backend="torch", device=DEV)
+            assert _eq(got[0], want[0]) and _eq(got[1], want[1])
+        assert len(ctx._torch_graphs) == 1
+        graphs = [weakref.ref(g.graph) for g in ctx._torch_graphs.values()]
+        held.append((weakref.ref(ctx), graphs))
+    del ctx, sb, problem, graphs
+    gc.collect()
+    evicted, kept = held[:n - analysis._CTX_CACHE_SIZE], held[n - analysis._CTX_CACHE_SIZE:]
+    assert all(c() is None and g() is None for c, gs in evicted for g in gs)
+    assert all(c() is not None and g() is not None for c, gs in kept for g in gs)
+    assert not analysis._GRAPHS
+    assert graph_count() == global_trace_count() == n
+    reset_trace_registry()
+    assert all(not c()._torch_graphs for c, _gs in kept)
+    assert graph_count() == global_trace_count() == 0

@@ -269,3 +269,31 @@ def test_bf16_space_runs_only_on_the_wgmma_instance():
     assert instance_for(x, y) == "fma"
     with pytest.raises(ValueError, match="FMA instance"):
         MATMUL_BF16_H100.run((x, y), (64, 128, 64))
+
+
+def test_tiles_from_mapping_reads_the_leaf_level_as_jax():
+    """``tiles_from_mapping`` on the same search in both packages (the
+    reference's ``test_tiles_from_mapping_reads_leaf_level``): the heuristic
+    mapper under the timeloop-like model on ``tpu_chip()``, latency, MXU
+    aligned; the leaf level's (bm, bn, bk) agree."""
+    from repro.core.architecture import tpu_chip as jax_tpu_chip
+    from repro.core.constraints import mxu_aligned as jax_mxu_aligned
+    from repro.core.optimizer import union_opt as jax_union_opt
+    from repro.core.problem import Problem as JaxProblem
+    from repro.kernels.matmul.ops import tiles_from_mapping as jax_tiles_from_mapping
+
+    from repro_torch.core.architecture import tpu_chip
+    from repro_torch.core.constraints import mxu_aligned
+    from repro_torch.core.optimizer import union_opt
+    from repro_torch.core.problem import Problem
+    from repro_torch.kernels.matmul import tiles_from_mapping
+
+    p, jp = Problem.gemm(1024, 1024, 1024), JaxProblem.gemm(1024, 1024, 1024)
+    sol = union_opt(p, tpu_chip(), mapper="heuristic", cost_model="timeloop",
+                    metric="latency", constraints=mxu_aligned(["m", "n", "k"]))
+    jsol = jax_union_opt(jp, jax_tpu_chip(), mapper="heuristic", cost_model="timeloop",
+                         metric="latency", constraints=jax_mxu_aligned(["m", "n", "k"]))
+    tiles = tiles_from_mapping(sol.mapping, p)
+    assert tiles == jax_tiles_from_mapping(jsol.mapping, jp)
+    assert tiles[0] == sol.mapping.levels[-1].tt("m")
+    assert all(t % 128 == 0 for t in tiles)
